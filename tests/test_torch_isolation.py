@@ -1,0 +1,104 @@
+"""Guards of the port's independence from the JAX package.
+
+* Importing ``xrt_tpu_torch`` (every module) adds no ``jax``, ``flax`` or
+  ``xrt_tpu`` module to ``sys.modules``, checked in a fresh interpreter.
+* No import statement under ``xrt_tpu_torch/`` or in ``chip_smoke.py``
+  names ``jax``, ``flax`` or ``xrt_tpu`` (other than ``xrt_tpu_torch``),
+  and no text there names ``jax`` or ``flax`` at all.  ``xrt_tpu`` may be
+  named as text: the kernels cite the TPU kernels they replace, and the
+  materials read the atomic tables from ``xrt_tpu/data/`` by path.
+* ``chip_smoke.py`` on a host without a CUDA device exits non-zero and
+  prints no result.
+"""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import xrt_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'xrt_tpu')
+
+
+def _forbidden(mod):
+    top = mod.split('.')[0]
+    return top in FORBIDDEN
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, 'xrt_tpu_torch')
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith('.py'):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, 'chip_smoke.py')
+
+
+def test_import_adds_no_jax_or_reference_module():
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        xrt_tpu_torch.__path__, 'xrt_tpu_torch.'))
+    code = (
+        'import sys, importlib\n'
+        'before = set(sys.modules)\n'
+        f'for m in {mods!r}:\n'
+        '    importlib.import_module(m)\n'
+        'new = set(sys.modules) - before\n'
+        'bad = sorted(m for m in new if m.split(".")[0] in '
+        f'{FORBIDDEN!r})\n'
+        'print("BAD", bad)\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env=env)
+    assert r.returncode == 0, r.stderr
+    assert 'BAD []' in r.stdout, r.stdout
+    assert len(mods) >= 15
+
+
+def test_no_import_statement_names_jax_or_the_reference():
+    bad = []
+    for path in _port_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or '']
+            elif isinstance(node, ast.Call) and getattr(
+                    node.func, 'attr', getattr(node.func, 'id', '')) in (
+                    'import_module', '__import__') and node.args and \
+                    isinstance(node.args[0], ast.Constant):
+                names = [str(node.args[0].value)]
+            bad += [(path, n) for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_no_port_file_names_jax():
+    """Not even in a comment or a string: the port's sources (Python and
+    CUDA) and chip_smoke.py say nothing of jax or flax."""
+    paths = list(_port_files())
+    for dirpath, _, files in os.walk(os.path.join(ROOT, 'xrt_tpu_torch',
+                                                  'csrc')):
+        paths += [os.path.join(dirpath, f) for f in files]
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            text = f.read().lower()
+        bad += [(path, w) for w in ('jax', 'flax') if w in text]
+    assert not bad, bad
+    assert any(p.endswith('.cu') for p in paths)
+
+
+def test_chip_smoke_fails_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip('a CUDA device is present')
+    r = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

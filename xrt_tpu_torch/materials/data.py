@@ -1,0 +1,69 @@
+"""Atomic data tables: f1/f2 vs E (Henke / Chantler / Brennan-Cowan) and
+atomic masses.
+
+The tables are data, not code: they are read by file path from the
+repository's ``xrt_tpu/data/`` directory, which the reference package
+ships; the port does not duplicate the binaries.
+"""
+import functools
+import os
+
+import numpy as np
+
+DATA_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), 'xrt_tpu', 'data')
+
+ELEMENTS_LIST = (
+    'none', 'H', 'He', 'Li', 'Be', 'B', 'C', 'N', 'O', 'F', 'Ne',
+    'Na', 'Mg', 'Al', 'Si', 'P', 'S', 'Cl', 'Ar', 'K', 'Ca', 'Sc', 'Ti', 'V',
+    'Cr', 'Mn', 'Fe', 'Co', 'Ni', 'Cu', 'Zn', 'Ga', 'Ge', 'As', 'Se', 'Br',
+    'Kr', 'Rb', 'Sr', 'Y', 'Zr', 'Nb', 'Mo', 'Tc', 'Ru', 'Rh', 'Pd', 'Ag',
+    'Cd', 'In', 'Sn', 'Sb', 'Te', 'I', 'Xe', 'Cs', 'Ba', 'La', 'Ce', 'Pr',
+    'Nd', 'Pm', 'Sm', 'Eu', 'Gd', 'Tb', 'Dy', 'Ho', 'Er', 'Tm', 'Yb', 'Lu',
+    'Hf', 'Ta', 'W', 'Re', 'Os', 'Ir', 'Pt', 'Au', 'Hg', 'Tl', 'Pb', 'Bi',
+    'Po', 'At', 'Rn', 'Fr', 'Ra', 'Ac', 'Th', 'Pa', 'U')
+
+
+@functools.lru_cache(maxsize=None)
+def _f1f2_table(table_name: str):
+    with open(os.path.join(DATA_DIR, table_name + '.npz'), 'rb') as f:
+        res = np.load(f)
+        return {k: np.array(v) for k, v in res.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _atomic_mass_table():
+    masses = {}
+    with open(os.path.join(DATA_DIR, 'AtomicData.dat')) as f:
+        for line in f:
+            fields = line.split()
+            if fields and int(fields[0]) > 0:
+                masses[int(fields[0])] = float(fields[3])
+    return masses
+
+
+def element_z(elem) -> int:
+    if isinstance(elem, str):
+        return ELEMENTS_LIST.index(elem)
+    return int(elem)
+
+
+def element_name(elem) -> str:
+    if isinstance(elem, str):
+        return elem
+    return ELEMENTS_LIST[int(elem)]
+
+
+def atomic_mass(elem) -> float:
+    return _atomic_mass_table()[element_z(elem)]
+
+
+def f1f2_arrays(elem, table='Chantler total'):
+    """(E, f1, f2) arrays of the element from the named tabulation;
+    'total' selects total (not only photoelectric) cross-sections."""
+    data = _f1f2_table(table.split()[0])
+    f2key = '_f2tot' if 'total' in table else '_f2'
+    name = element_name(elem)
+    return (np.array(data[name + '_E']), np.array(data[name + '_f1']),
+            np.array(data[name + f2key]))

@@ -1,0 +1,108 @@
+"""Build and load the hand-written CUDA kernels of ``xrt_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into
+``build/kernels/lib<name>-<hash>.so`` (the hash covers the source, the
+shared headers and the flags, so an edited source rebuilds) and bound with
+``ctypes`` through its plain C interface.  Nothing here runs at import:
+the CPU tests import every module on a host without ``nvcc``.
+
+``--fmad=false`` keeps every ``a * b + c`` a separate multiply and add: a
+contracted FMA breaks the Dekker split of the double-float code (see
+``csrc/dd.cuh``).  No ``--use_fast_math``: ``sqrtf``, ``1.0f / x``,
+``sinf`` and ``cosf`` stay IEEE.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / \
+    'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+#: kernel sources, one shared library each
+SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase', 'dd_selftest')
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get('CUDA_HOME', ''), '/usr/local/cuda'):
+        p = Path(cand) / 'bin' / 'nvcc'
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError('nvcc not found: the CUDA kernels are built on '
+                           'the machine with the card')
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob('*.cuh')) + [CSRC / f'{name}.cu']:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f'lib{name}-{h.hexdigest()[:16]}.so'
+
+
+def build(names=SOURCES) -> dict:
+    """Compile the named sources that are not built yet, one ``nvcc``
+    each, all started together.  Returns {name: compiler output}; raises
+    if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+               str(CSRC / f'{name}.cu')]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    logs, failed = {}, []
+    for name, (p, tmp, out) in procs.items():
+        log, _ = p.communicate()
+        logs[name] = log
+        if p.returncode != 0:
+            failed.append(f'{name}:\n{log}')
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built if needed."""
+    path = library_path(name)
+    if not path.exists():
+        build((name,))
+    return ctypes.CDLL(str(path))
+
+
+def entry(name: str, fn: str, argtypes):
+    """The C entry point *fn* of ``csrc/<name>.cu`` with its argument
+    types declared (``c_void_p`` for pointers and the stream, so ctypes
+    does not cut them to 32 bits); it returns a ``cudaError_t``."""
+    f = getattr(load(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err} at launch')
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,86 @@
+"""Coordinate rotations and global<->local frame transforms.
+
+Port of ``xrt_tpu/transforms.py``.  The coordinate conventions are those of
+xrt raycing: y is along the beam, z is up, x makes a right-handed system;
+*pitch* is rotation about x, *roll* about y, *yaw* about z.  A leading '-'
+in *rotationSequence* reverses the sequence.  Angles may be Python numbers
+or tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def cos(v):
+    return torch.cos(v) if isinstance(v, torch.Tensor) else math.cos(v)
+
+
+def sin(v):
+    return torch.sin(v) if isinstance(v, torch.Tensor) else math.sin(v)
+
+
+def rotate_x(y, z, cosangle, sinangle):
+    """Rotation about x (pitch); returns (yNew, zNew)."""
+    return cosangle * y - sinangle * z, sinangle * y + cosangle * z
+
+
+def rotate_y(x, z, cosangle, sinangle):
+    """Rotation about y (roll); returns (xNew, zNew)."""
+    return cosangle * x + sinangle * z, -sinangle * x + cosangle * z
+
+
+def rotate_z(x, y, cosangle, sinangle):
+    """Rotation about z (yaw); returns (xNew, yNew)."""
+    return cosangle * x - sinangle * y, sinangle * x + cosangle * y
+
+
+def _seq_letters(rotationSequence: str):
+    if rotationSequence[0] == '-':
+        return (rotationSequence[6], rotationSequence[4], rotationSequence[2])
+    return (rotationSequence[1], rotationSequence[3], rotationSequence[5])
+
+
+def rotate_xyz(x, y, z, rotationSequence='RzRyRx', pitch=0., roll=0., yaw=0.):
+    """Rotate vectors (x, y, z) by pitch/roll/yaw in the given sequence;
+    returns new (x, y, z)."""
+    angles = {'z': yaw, 'y': roll, 'x': pitch}
+    for s in _seq_letters(rotationSequence):
+        angle = angles[s]
+        cA = cos(angle)
+        sA = sin(angle)
+        if s == 'x':
+            y, z = rotate_x(y, z, cA, sA)
+        elif s == 'y':
+            x, z = rotate_y(x, z, cA, sA)
+        else:
+            x, y = rotate_z(x, y, cA, sA)
+    return x, y, z
+
+
+def rotate_beam(beam, rotationSequence='RzRyRx', pitch=0., roll=0., yaw=0.):
+    """Rotate the position and direction tensors of a Beam; returns a
+    new Beam."""
+    x, y, z = rotate_xyz(beam.x, beam.y, beam.z, rotationSequence,
+                         pitch, roll, yaw)
+    a, b, c = rotate_xyz(beam.a, beam.b, beam.c, rotationSequence,
+                         pitch, roll, yaw)
+    return beam.replace(x=x, y=y, z=z, a=a, b=b, c=c)
+
+
+def global_to_virgin_local(beam, center=None):
+    """Global frame -> virgin-local frame of an element at *center*
+    (beamline azimuth 0; cf. beamline.py:52-87)."""
+    if center is None:
+        return beam
+    return beam.replace(x=beam.x - center[0], y=beam.y - center[1],
+                        z=beam.z - center[2])
+
+
+def virgin_local_to_global(beam, center=None):
+    """Inverse of :func:`global_to_virgin_local` (cf. beamline.py:89-117)."""
+    if center is None:
+        return beam
+    return beam.replace(x=beam.x + center[0], y=beam.y + center[1],
+                        z=beam.z + center[2])
