@@ -10,12 +10,21 @@ check).  On the card:
   PyTorch version on the same CUDA tensors, to max|d| / max|ref| < 2e-5
   (f32 sums of ~1e3 terms in another order);
 * the double-float device helpers bit for bit against the torch dd;
-* the wrappers count their launches, and a failing launch raises.
+* the wrappers count their launches, and a failing launch raises;
+* the histogram kernel (B4) against its plain version with the sums taken
+  in float64, for k = 1 and 3: both variants (block-private shared-memory
+  copies, global atomics), the 1D case, a focused beam, rays on edges /
+  NaN / +-inf / outside (identical sets of non-empty bins), and a ray count
+  that is no multiple of the block.  Limit max|h - h64| / max|h64| < 1e-5
+  (float32 partial sums merged by atomics in an order that changes from
+  run to run); 1e-4 for the focused beam, where one bin takes a quarter
+  of a block's rays in one running float32 sum.
 """
 import numpy as np
 import pytest
 import torch
 
+from xrt_tpu_torch import histogram as th
 from xrt_tpu_torch.ops import dd, kirchhoff as tk
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +133,87 @@ def test_refused_launch_raises(cuda):
              out.data_ptr(), _cuda.stream_ptr(cuda))
     with pytest.raises(RuntimeError):
         _cuda.check(err, 'kirchhoff_recentred')
+
+
+# ---- B4: the histogram kernel -------------------------------------------
+
+XLIM, YLIM = (-1.0, 1.3), (-0.5, 1.7)     # spans with inexact reciprocals
+
+
+def _hist_rays(device, case, k, n=1_000_003, seed=0):
+    """(x, y, W, xbins, ybins, use_shared) of one case, float32."""
+    rng = np.random.RandomState(seed)
+    xbins, ybins, shared = 128, 128, True
+    if case == 'ragged':
+        n = 12_345
+    x = rng.uniform(-1.1, 1.4, n)
+    y = rng.uniform(-0.6, 1.8, n)
+    if case == 'global':
+        xbins, ybins, shared = 1024, 1024, False
+    elif case == '1d':
+        ybins, y = 1, None
+    elif case == 'focused':     # 95% of the rays in four bins
+        sel = rng.uniform(size=n) < 0.95
+        x = np.where(sel, rng.uniform(0.0, 2 * 2.3 / 128, n), x)
+        y = np.where(sel, rng.uniform(0.5, 0.5 + 2 * 2.2 / 128, n), y)
+    elif case == 'special':
+        ex = np.linspace(*XLIM, xbins + 1)
+        ey = np.linspace(*YLIM, ybins + 1)
+        extra = np.array([np.nan, np.inf, -np.inf, -7.0, 9.0])
+        x = np.concatenate([ex, extra, ex, np.nextafter(ex, 9), x[:1000]])
+        y = np.concatenate([ey, ey[:5], extra, ey[::-1], ey * 0.999,
+                            y[:1000]])[:x.size]
+    W = rng.uniform(0.5, 1.5, (x.size, k))
+
+    def F(v):
+        return None if v is None else \
+            torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    return F(x), F(y), F(W), xbins, ybins, shared
+
+
+@pytest.mark.parametrize('k', [1, 3])
+@pytest.mark.parametrize('case', ['shared', 'global', '1d', 'focused',
+                                  'special', 'ragged'])
+def test_hist2d_kernel_matches_plain(cuda, case, k):
+    x, y, W, xbins, ybins, shared = _hist_rays(cuda, case, k)
+    ylim = None if y is None else YLIM
+    th.LAUNCHES.clear()
+    got = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, ylim)
+    torch.cuda.synchronize()
+    name = f'hist2d:k{k}:{"shared" if shared else "global"}'
+    assert dict(th.LAUNCHES) == {name: 1}
+    ref = th.hist2d_plain(x, y, W, xbins, ybins, XLIM, ylim,
+                          sum_dtype=torch.float64)
+    assert got.shape == (ybins, xbins, k) and got.dtype == torch.float32
+    assert torch.equal(got != 0, ref != 0)
+    err = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert err < (1e-4 if case == 'focused' else 1e-5), err
+    # the public functions take the same route on CUDA tensors
+    if k == 1 and y is not None:
+        h = th.hist2d(x, y, W[:, 0], xbins, ybins, XLIM, YLIM)
+        assert h.shape == (ybins, xbins) and th.LAUNCHES[name] == 2
+
+
+def test_hist2d_both_variants_agree_and_float64(cuda):
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, 'shared', 3, n=200_001)
+    a = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, YLIM, use_shared=True)
+    b = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, YLIM,
+                         use_shared=False)
+    assert float((a - b).abs().max() / a.abs().max()) < 1e-5
+    d = th.hist2d_kernel(x.double(), y.double(), W.double(), xbins, ybins,
+                         XLIM, YLIM)
+    ref = th.hist2d_plain(x.double(), y.double(), W.double(), xbins, ybins,
+                          XLIM, YLIM)
+    assert float((d - ref).abs().max() / ref.abs().max()) < 1e-12
+
+
+def test_hist2d_refused_launch_raises(cuda):
+    """A histogram too large for shared memory, forced onto the shared
+    variant, is refused by the C entry point; nothing falls back."""
+    x, y, W, _, _, _ = _hist_rays(cuda, 'shared', 3, n=1000)
+    th.LAUNCHES.clear()
+    with pytest.raises(RuntimeError):
+        th.hist2d_kernel(x, y, W, 1024, 1024, XLIM, YLIM, use_shared=True)
+    with pytest.raises(TypeError):
+        th.hist2d_kernel(x, y, W.double(), 16, 16, XLIM, YLIM)
+    assert not th.LAUNCHES

@@ -5,14 +5,18 @@
 * No import statement under ``xrt_tpu_torch/`` or in ``chip_smoke.py``
   names ``jax``, ``flax`` or ``xrt_tpu`` (other than ``xrt_tpu_torch``),
   and no text there names ``jax`` or ``flax`` at all.  ``xrt_tpu`` may be
-  named as text: the kernels cite the TPU kernels they replace, and the
-  materials read the atomic tables from ``xrt_tpu/data/`` by path.
+  named in comments and docstrings only (the kernels cite the TPU kernels
+  they replace): no string literal of the package names it, so no path
+  into ``xrt_tpu/`` can be built.
+* The atomic tables are read from ``xrt_tpu_torch/data/`` and are
+  byte-identical copies of the reference package's.
 * ``chip_smoke.py`` on a host without a CUDA device exits non-zero and
   prints no result.
 """
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -91,6 +95,55 @@ def test_no_port_file_names_jax():
         bad += [(path, w) for w in ('jax', 'flax') if w in text]
     assert not bad, bad
     assert any(p.endswith('.cu') for p in paths)
+
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant):
+            out.add(id(node.body[0].value))
+    return out
+
+
+def test_no_string_of_the_package_builds_a_path_into_the_reference():
+    """Outside docstrings no string literal under ``xrt_tpu_torch/`` names
+    ``xrt_tpu`` (other than ``xrt_tpu_torch``), and the data directory the
+    materials read lies inside the port's own package."""
+    bad = []
+    for path in _port_files():
+        if os.path.basename(path) == 'chip_smoke.py':
+            continue        # it cites file:line of the kernels it replaces
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        doc = _docstrings(tree)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and id(node) not in doc and \
+                    re.search(r'xrt_tpu(?!_torch)', node.value):
+                bad.append((path, node.lineno, node.value))
+    assert not bad, bad
+    from xrt_tpu_torch.materials import data
+    pkg = os.path.join(ROOT, 'xrt_tpu_torch')
+    assert os.path.commonpath([os.path.realpath(data.DATA_DIR),
+                               os.path.realpath(pkg)]) == \
+        os.path.realpath(pkg)
+
+
+def test_data_tables_are_byte_identical_copies():
+    names = ('Henke.npz', 'Chantler.npz', 'BrCo.npz', 'AtomicData.dat',
+             'f0_xop.dat')
+    for name in names:
+        with open(os.path.join(ROOT, 'xrt_tpu_torch', 'data', name),
+                  'rb') as f:
+            mine = f.read()
+        with open(os.path.join(ROOT, 'xrt_tpu', 'data', name), 'rb') as f:
+            ref = f.read()
+        assert mine == ref, name
+    assert sorted(os.listdir(os.path.join(ROOT, 'xrt_tpu_torch',
+                                          'data'))) == sorted(names)
 
 
 def test_chip_smoke_fails_without_a_card():

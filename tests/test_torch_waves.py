@@ -231,4 +231,4 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         chain.build(tiled=True, device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tor.reflect(s0)
+        tor.reflect(s0, is2ndXtal=True)

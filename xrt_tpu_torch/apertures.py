@@ -1,17 +1,25 @@
 """Apertures: rectangular and round openings.
 
 Port of the reference package's ``apertures.py`` (``RectangularAperture``,
-``RoundAperture``) as the wave chain uses them: their frame, opening and
-``inside`` test; wave samples in the opening come from
+``RoundAperture``): their frame, opening, ``inside`` test and ray
+``propagate``, which advances rays to the aperture plane, applies the
+propagation phase to amplitudes and marks blocked rays dead through the
+``state`` mask (or, with *softEdge*, attenuates them by a sigmoid of that
+width and keeps them alive).  Wave samples in the opening come from
 :func:`xrt_tpu_torch.waves.prepare_wave_on_aperture`.  Geometry is kept
-as Python floats.  Ray ``propagate`` (with smooth edges) belongs to the
-ray-trace slice (ROADMAP A7).
+as Python floats.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+
+from . import config
+from .beam import Beam, propagated_amplitudes
+from .ops.dd import sqrt_rn
+from .transforms import to_local_frame
 
 
 def _frame(x, z):
@@ -28,7 +36,7 @@ class _ApertureBase:
         self.ex, self.ez = ex, ez
         self.name = name
         self.isBeamStop = isBeamStop
-        # smooth-edge width (mm), used by the ray-trace propagate
+        # smooth-edge width (mm)
         self.softEdge = None if softEdge is None else float(softEdge)
 
     @property
@@ -37,6 +45,56 @@ class _ApertureBase:
 
     def inside(self, x, z):
         raise NotImplementedError
+
+    def transmission(self, x, z):
+        """Smooth transmission in [0, 1] of the *softEdge* blades."""
+        raise NotImplementedError
+
+    def propagate(self, beam: Beam, needNewGlobal=False):
+        """Advance rays to the aperture plane and kill the blocked ones.
+        Returns the local beam, or (global, local) when *needNewGlobal*."""
+        good = beam.state > 0
+        lx, ly, lz, la, lb, lc = to_local_frame(
+            beam, self.center, self.ex, self.ey, self.ez)
+        zero = torch.zeros_like(ly)
+        path = torch.where(
+            good, -ly / torch.where(lb == 0, torch.ones_like(lb), lb), zero)
+        lx = lx + la * path
+        lz = lz + lc * path
+        updates = dict(x=lx, y=torch.where(good, zero, ly), z=lz, a=la,
+                       b=lb, c=lc, path=beam.path + path)
+        amps = propagated_amplitudes(beam, path)
+        if self.softEdge is not None:
+            T = self.transmission(lx, lz)
+            if self.isBeamStop:
+                T = 1.0 - T
+            for f in ('Jss', 'Jpp', 'Jsp'):
+                v = getattr(beam, f)
+                updates[f] = torch.where(good, v * T, v)
+            amp = sqrt_rn(torch.clamp(T, min=0.0))
+            amps = {f: v * amp for f, v in amps.items()}
+        else:
+            keep = self.inside(lx, lz)
+            if self.isBeamStop:
+                keep = ~keep
+            updates['state'] = torch.where(good & ~keep, config.STATE_DEAD,
+                                           beam.state)
+        for f, v in amps.items():
+            updates[f] = torch.where(good, v, getattr(beam, f))
+        lo = beam.replace(**updates)
+        if needNewGlobal:
+            return self._to_global(lo), lo
+        return lo
+
+    def _to_global(self, lo: Beam) -> Beam:
+        ex, ey, ez, c = self.ex, self.ey, self.ez, self.center
+        return lo.replace(
+            x=c[0] + lo.x * ex[0] + lo.y * ey[0] + lo.z * ez[0],
+            y=c[1] + lo.x * ex[1] + lo.y * ey[1] + lo.z * ez[1],
+            z=c[2] + lo.x * ex[2] + lo.y * ey[2] + lo.z * ez[2],
+            a=lo.a * ex[0] + lo.b * ey[0] + lo.c * ez[0],
+            b=lo.a * ex[1] + lo.b * ey[1] + lo.c * ez[1],
+            c=lo.a * ex[2] + lo.b * ey[2] + lo.c * ez[2])
 
 
 class RectangularAperture(_ApertureBase):
@@ -69,6 +127,17 @@ class RectangularAperture(_ApertureBase):
         return (x >= self.left) & (x <= self.right) & \
             (z >= self.bottom) & (z <= self.top)
 
+    def transmission(self, x, z):
+        big = 1e30      # an absent blade is far away, not at infinity
+
+        def edge(signed):   # signed distance into the opening
+            return torch.sigmoid(torch.clamp(signed, -big, big) /
+                                 self.softEdge)
+        return edge(x - max(self.left, -big)) * \
+            edge(min(self.right, big) - x) * \
+            edge(z - max(self.bottom, -big)) * \
+            edge(min(self.top, big) - z)
+
 
 class RoundAperture(_ApertureBase):
     """Round opening of radius r."""
@@ -86,3 +155,7 @@ class RoundAperture(_ApertureBase):
 
     def inside(self, x, z):
         return x ** 2 + z ** 2 <= self.r ** 2
+
+    def transmission(self, x, z):
+        return torch.sigmoid((self.r - sqrt_rn(x ** 2 + z ** 2)) /
+                             self.softEdge)

@@ -17,6 +17,7 @@ import torch
 
 from . import config
 from .config import STATE_GOOD
+from .physconsts import CHBAR
 
 Tensor = torch.Tensor
 
@@ -37,8 +38,11 @@ class Beam:
     Jsp: Tensor
     Es: Optional[Tensor] = None
     Ep: Optional[Tensor] = None
-    # incidence angle at the last OE (rad, from surface)
+    # incidence angle at the last OE (rad, from surface) and grating order
     theta: Optional[Tensor] = None
+    order: Optional[Tensor] = None
+    # number of reflections in multiple-reflection elements
+    nRefl: Optional[Tensor] = None
     # parametric coordinates of the last impact point (parametric OEs)
     s: Optional[Tensor] = None
     phi: Optional[Tensor] = None
@@ -53,6 +57,14 @@ class Beam:
 
     def replace(self, **updates):
         return dataclasses.replace(self, **updates)
+
+    @property
+    def degree_of_polarization(self) -> Tensor:
+        from .ops.dd import sqrt_rn
+        I = self.Jss + self.Jpp
+        det = self.Jss * self.Jpp - torch.abs(self.Jsp) ** 2
+        return sqrt_rn(torch.clamp(
+            1.0 - 4.0 * det / torch.clamp(I, min=1e-300) ** 2, 0.0, 1.0))
 
 
 def new_beam(nrays: int, energy: float = None, withAmplitudes=False,
@@ -87,3 +99,14 @@ def rotate_coherency_matrix(Jss, Jpp, Jsp, roll):
     JppN = Jss * s2 + Jpp * c2 - 2 * Jsp.real * cs
     JspN = torch.complex((Jpp - Jss) * cs + Jsp.real * (c2 - s2), Jsp.imag)
     return JssN, JppN, JspN
+
+
+def propagated_amplitudes(beam: Beam, path) -> dict:
+    """{Es, Ep} of *beam* advanced by *path* mm, with the propagation
+    phase exp(1e7j * k * path) (path mm -> A); {} for a beam without
+    amplitudes."""
+    if beam.Es is None:
+        return {}
+    arg = 1e7 * (beam.E / CHBAR) * path
+    propPhase = torch.complex(torch.cos(arg), torch.sin(arg))
+    return dict(Es=beam.Es * propPhase, Ep=beam.Ep * propPhase)

@@ -14,6 +14,18 @@ import torch
 #: default photon energy, eV
 DEFAULT_ENERGY = 9.0e3
 
+#: default number of rays in a generated beam
+NRAYS = 100000
+
+#: maximum number of iterations of the ray-surface intersection solver
+MAX_INTERSECTION_ITERATIONS = 64
+
+#: bracketing of the intersection search, mm: the largest half size and
+#: depth an element is taken to have, and the margin added around it
+MAX_HALF_SIZE_OF_OE = 1000.0
+MAX_DEPTH_OF_OE = 100.0
+DT_MARGIN = 1e-5
+
 # ray state codes (cf. reference xrt/backends/raycing/__init__.py:84-97)
 STATE_GOOD = 1       # ray hits within optical limits
 STATE_OUT = 2        # outside optical limits but within physical limits

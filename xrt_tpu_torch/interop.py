@@ -1,4 +1,4 @@
-"""Carry beams and prepared waves across from numpy arrays.
+"""Carry beams, prepared waves and histograms across as numpy arrays.
 
 The parity tests run the reference package and the port on the same
 state: its beams and prepared waves are turned into dicts of numpy arrays
@@ -6,7 +6,9 @@ and rebuilt here as the port's :class:`~xrt_tpu_torch.beam.Beam` /
 :class:`~xrt_tpu_torch.waves.Wave`.  Only tensor-valued fields are read;
 the element references of a wave (``fromOE``, ``toOE``) are passed
 separately, since elements are rebuilt in the port from the same
-``create(...)`` arguments.
+``create(...)`` arguments.  Integer fields (the ray ``state``) become
+int32 whatever width they were dumped with.  :func:`hists_to_numpy` is the
+way back for the histograms of a pass.
 """
 from __future__ import annotations
 
@@ -62,4 +64,20 @@ def to_numpy(obj) -> dict:
         v = getattr(obj, f.name)
         if isinstance(v, torch.Tensor):
             out[f.name] = v.detach().cpu().numpy()
+    return out
+
+
+def hists_to_numpy(hists) -> dict:
+    """The output of :func:`xrt_tpu_torch.runner.histogram_plot` with every
+    tensor as a numpy array (0-dim ones as Python numbers), the nested
+    ``counters`` included."""
+    out = {}
+    for k, v in hists.items():
+        if isinstance(v, dict):
+            out[k] = hists_to_numpy(v)
+        elif isinstance(v, torch.Tensor):
+            a = v.detach().cpu().numpy()
+            out[k] = a.item() if a.ndim == 0 else a
+        else:
+            out[k] = v
     return out

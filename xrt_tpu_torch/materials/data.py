@@ -1,9 +1,10 @@
 """Atomic data tables: f1/f2 vs E (Henke / Chantler / Brennan-Cowan) and
 atomic masses.
 
-The tables are data, not code: they are read by file path from the
-repository's ``xrt_tpu/data/`` directory, which the reference package
-ships; the port does not duplicate the binaries.
+The tables ship with this package, in its ``data/`` directory
+(``Henke.npz``, ``Chantler.npz``, ``BrCo.npz``, ``AtomicData.dat`` and
+``f0_xop.dat``): byte-identical copies of the reference package's tables,
+so the port reads nothing outside its own tree.
 """
 import functools
 import os
@@ -11,8 +12,7 @@ import os
 import numpy as np
 
 DATA_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))), 'xrt_tpu', 'data')
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'data')
 
 ELEMENTS_LIST = (
     'none', 'H', 'He', 'Li', 'Be', 'B', 'C', 'N', 'O', 'F', 'Ne',

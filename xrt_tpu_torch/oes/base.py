@@ -1,14 +1,28 @@
-"""Optical element base: placement, frames, classification and the
-reflection physics at the surface.
+"""Optical element base: placement, ray-surface intersection, frames,
+classification and the reflection physics at the surface.
 
-Port of the reference package's ``oes/base.py`` for the wave chain:
+Port of the reference package's ``oes/base.py`` for the mirror kinds:
 ``OE.create``, the local/global frames, ``local_z``/``local_n``,
-``rays_good``, ``reflect`` with ``noIntersectionSearch=True`` (the wave
-hops reflect at the exact receiving samples) and ``_interact`` for the
-mirror kinds.  Rays are never filtered: the ``state`` mask selects which
-rays change.  The Illinois intersection solver with its Newton polish, and
-the crystal, grating and refractive physics, come with later slices
-(ROADMAP A7, A8) and raise ``NotImplementedError`` here.
+``rays_good``, the bracketed intersection search
+(``find_intersection``, ``find_intersection_dz``, ``OE._bracket``),
+``reflect`` (with the search, or with ``noIntersectionSearch=True`` for
+the wave hops, which reflect at the exact receiving samples) and
+``_interact``.  Rays are never filtered: the ``state`` mask selects which
+rays change.
+
+The search is a vectorized Illinois (modified regula falsi) iteration on
+all rays in lockstep with a convergence mask, then two Newton steps.  The
+iteration runs under ``torch.no_grad()`` and reads ``any(active)`` to the
+host once per iteration: at the ray counts of a trace one iteration is
+tens of kernel launches over the whole ray state, so the read costs less
+than one more iteration would.  The Newton steps are differentiable torch
+operations: they polish the root (float32 at t ~ 1e4 mm has ~6e-4 mm
+ulps, so the bracket alone cannot give float32 accuracy) and carry the
+implicit-function gradient dt/dparams = -dF/dparams / dF/dt.
+
+The crystal, grating and refractive physics, parametric surfaces,
+element offsets and the second crystal of a DCM come with later slices
+(ROADMAP A5, A8) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -23,14 +37,104 @@ from ..physconsts import CHBAR
 from ..transforms import (global_to_virgin_local, rotate_beam, rotate_y,
                           virgin_local_to_global)
 
-_SEARCH_TODO = ('ray-surface intersection search (the Illinois solver and '
-                'its Newton polish) is not ported yet: ROADMAP A7 (ray-'
-                'trace slice); wave hops call reflect(noIntersectionSearch='
-                'True)')
-
 
 def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
+
+
+# ---------------------------------------------------------------------------
+# intersection solver
+# ---------------------------------------------------------------------------
+
+def _z_eps(dtype):
+    """Convergence tolerance of the intersection search, mm: 1e-12 in
+    float64; in float32 that is unreachable, so it scales with the dtype
+    epsilon."""
+    return 1e-12 if dtype == torch.float64 else 3e-6
+
+
+def _rel_eps(dtype):
+    """Relative bracket-width tolerance, a small multiple of the dtype
+    epsilon: the bracket cannot shrink below the ulp of t anyway."""
+    return 32.0 * torch.finfo(dtype).eps
+
+
+def find_intersection(surface_fn, tMin, tMax, x, y, z, a, b, c,
+                      invertNormal=1, active=None, max_iterations=None):
+    """Bracketed root-find against an explicit surface z(x, y); see
+    :func:`find_intersection_dz` for the general form."""
+    def dz_fn(xx, yy, zz):
+        surf = surface_fn(xx, yy)
+        surf = torch.where(torch.isnan(surf), torch.zeros_like(surf), surf)
+        return (zz - surf) * invertNormal
+    return find_intersection_dz(dz_fn, tMin, tMax, x, y, z, a, b, c,
+                                active, max_iterations)
+
+
+def find_intersection_dz(dz_fn, tMin, tMax, x, y, z, a, b, c,
+                         active=None, max_iterations=None):
+    """Vectorized bracketed root-finding of dz(t) along each ray.
+    *dz_fn(x, y, z) -> signed distance* must be positive at tMin and
+    negative at tMax for rays that intersect, and be made of operations
+    ``torch.func.jvp`` can trace.  Returns (t, x2, y2, z2, lost_mask)
+    where lost_mask marks rays already below the surface at tMin."""
+    eps = _z_eps(x.dtype)
+    rel = _rel_eps(x.dtype)
+    if max_iterations is None:
+        max_iterations = config.MAX_INTERSECTION_ITERATIONS
+    if active is None:
+        active = torch.ones_like(x, dtype=torch.bool)
+
+    def F(t):
+        return dz_fn(x + a * t, y + b * t, z + c * t)
+
+    with torch.no_grad():
+        fa, fb = F(tMin), F(tMax)
+        lost = active & (fa <= 0)       # started below the surface
+        over = active & (fb >= 0)       # never crosses within the bracket
+        good = active & ~(lost | over)
+        # Illinois iteration on the bracket [ta, tb] with f(ta) > 0 > f(tb)
+        ta, tb = tMin, tMax
+        ts = torch.where(good, 0.5 * (ta + tb), tMax)
+        act = good
+        for _ in range(max_iterations):
+            if not bool(torch.any(act)):
+                break
+            denom = fb - fa
+            denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+            tn = ta - fa * (tb - ta) / denom
+            # fall back to bisection when the step leaves the bracket
+            bad = (tn <= torch.minimum(ta, tb)) | \
+                (tn >= torch.maximum(ta, tb)) | torch.isnan(tn)
+            tn = torch.where(bad, 0.5 * (ta + tb), tn)
+            fs = F(tn)
+            keep_a = fs <= 0          # root in [ta, tn]
+            # halving the stale endpoint's value keeps the convergence
+            # superlinear
+            upd_a = act & ~keep_a
+            upd_b = act & keep_a
+            fa = torch.where(upd_a, fs, torch.where(upd_b, fa * 0.5, fa))
+            fb = torch.where(upd_b, fs, torch.where(upd_a, fb * 0.5, fb))
+            ta = torch.where(upd_a, tn, ta)
+            tb = torch.where(upd_b, tn, tb)
+            ts = torch.where(act, tn, ts)
+            # the absolute eps is unreachable in float32 at beamline
+            # scales, so the bracket width is also tested relative to t;
+            # the Newton steps below restore full precision
+            tol = eps + rel * (torch.abs(ta) + torch.abs(tb))
+            act = act & (torch.abs(fs) > eps) & (torch.abs(tb - ta) > tol)
+        t0 = torch.where(good, ts, torch.where(lost, tMin, tMax))
+
+    t = t0
+    for _ in range(2):       # quadratic: two steps reach machine precision
+        Ft, dFt = torch.func.jvp(F, (t,), (torch.ones_like(t),))
+        dFt = torch.where(torch.abs(dFt) < 1e-12,
+                          torch.full_like(dFt, 1e-12), dFt)
+        t = t - Ft / dFt
+    # keep the Newton result only where it stays within the bracket
+    ok = good & (t >= tMin) & (t <= tMax) & torch.isfinite(t)
+    t = torch.where(ok, t, t0)
+    return t, x + a * t, y + b * t, z + c * t, lost
 
 
 def _merge_by_mask(old: Beam, new: Beam, mask) -> Beam:
@@ -181,6 +285,34 @@ class OE:
             raise ValueError(f'unknown OE shape {self.shape!r}')
         return torch.where(state == 1, locState, state).to(state.dtype)
 
+    # ---- bracketing -----------------------------------------------------
+    def _bracket(self, x, y, z, a, b, c):
+        """(tMin, tMax) of the intersection search for each ray: where it
+        enters and leaves the element's box along its dominant direction."""
+        def set_t(xyz, abc, lim, defSize):
+            limMin = -defSize if lim is None else max(lim[0], -defSize)
+            limMax = defSize if lim is None else min(lim[1], defSize)
+            abc_safe = torch.where(abc == 0, torch.full_like(abc, 1e-30),
+                                   abc)
+            tLo = (limMin - xyz) / abc_safe
+            tHi = (limMax - xyz) / abc_safe
+            pos = abc > 0
+            return (torch.where(pos, tLo, tHi) - config.DT_MARGIN,
+                    torch.where(pos, tHi, tLo) + config.DT_MARGIN)
+
+        tx1, tx2 = set_t(x, a, self.limPhysX, config.MAX_HALF_SIZE_OF_OE)
+        ty1, ty2 = set_t(y, b, self.limPhysY, config.MAX_HALF_SIZE_OF_OE)
+        tz1, tz2 = set_t(z, c, None, config.MAX_DEPTH_OF_OE)
+        absa, absb, absc = torch.abs(a), torch.abs(b), torch.abs(c)
+        useX = (absa >= absb) & (absa >= absc)
+        useY = (absb > absa) & (absb >= absc)
+        tMin = torch.where(useX, tx1, torch.where(useY, ty1, tz1))
+        tMax = torch.where(useX, tx2, torch.where(useY, ty2, tz2))
+        # clip the start for near-coincident previous reflection points
+        tMin = torch.clamp(tMin, min=-1e6 * _z_eps(x.dtype))
+        tMax = torch.maximum(tMax, tMin)
+        return tMin, tMax
+
     # ---- frames ---------------------------------------------------------
     def local_to_global(self, lb: Beam, is2ndXtal=False) -> Beam:
         """True-local beam -> global frame, rotating the polarization back
@@ -211,32 +343,50 @@ class OE:
                 noIntersectionSearch=False, is2ndXtal=False,
                 fromVacuum=True):
         """Reflect *beam* (global frame) off this OE; returns (beamGlobal,
-        beamLocal).  Only ``noIntersectionSearch=True`` is ported: the
-        rays are taken to be on the surface already (the wave hops)."""
-        if not noIntersectionSearch:
-            raise NotImplementedError(_SEARCH_TODO)
+        beamLocal).  With ``noIntersectionSearch=True`` the rays are taken
+        to be on the surface already (the wave hops)."""
+        if is2ndXtal or self.isParametric:
+            raise NotImplementedError(
+                'the second crystal of a DCM and parametric surfaces are '
+                'not ported yet (ROADMAP A8)')
         good_in = beam.state > 0
         lb = global_to_virgin_local(beam, self.center)
         pitch, roll, yaw, dx, dy, dz = self._placement(is2ndXtal)
-        lb, out = self._reflect_local(lb, good_in, pitch, roll, yaw,
-                                      fromVacuum=fromVacuum)
+        if any(v is not None for v in (dx, dy, dz)):
+            raise NotImplementedError(
+                'element offsets dx, dy, dz are not ported yet (ROADMAP A8)')
+        lb, out = self._reflect_local(
+            lb, good_in, pitch, roll, yaw, fromVacuum=fromVacuum,
+            noIntersectionSearch=noIntersectionSearch)
         glo = virgin_local_to_global(lb, self.center)
         merged = _merge_by_mask(beam, glo, good_in)
         if needLocal:
             return merged, out
         return merged
 
-    def _reflect_local(self, lb, good, pitch, roll, yaw, fromVacuum=True):
-        """The virgin-local part of reflect at t = 0 (no search).  Returns
-        (virgin-local beam, true-local beam)."""
+    def _reflect_local(self, lb, good, pitch, roll, yaw, fromVacuum=True,
+                       noIntersectionSearch=False):
+        """The virgin-local part of reflect.  Returns (virgin-local beam,
+        true-local beam)."""
         lb = rotate_beam(lb, rotationSequence=self.rotationSequence,
                          pitch=-pitch, roll=-roll, yaw=-yaw)
         if self.extraPitch is not None:
             lb = rotate_beam(lb, rotationSequence=self.extraRotationSequence,
                              pitch=-self.extraPitch, roll=-self.extraRoll,
                              yaw=-self.extraYaw)
-        t = torch.zeros_like(lb.x)
-        state = self.rays_good(lb.x, lb.y, lb.state)
+        if noIntersectionSearch:
+            t = torch.zeros_like(lb.x)
+            state = self.rays_good(lb.x, lb.y, lb.state)
+        else:
+            tMin, tMax = self._bracket(lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
+            t, xx, yy, zz, lost = find_intersection(
+                self.local_z, tMin, tMax, lb.x, lb.y, lb.z, lb.a, lb.b,
+                lb.c, invertNormal=1 if fromVacuum else -1, active=good)
+            lb = lb.replace(x=torch.where(good, xx, lb.x),
+                            y=torch.where(good, yy, lb.y),
+                            z=torch.where(good, zz, lb.z))
+            state = self.rays_good(lb.x, lb.y, lb.state)
+            state = torch.where(good & lost, config.STATE_DEAD, state)
         state = torch.where(good, state, lb.state)
         lb = lb.replace(state=state)
         goodN = state == 1

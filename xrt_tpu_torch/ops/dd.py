@@ -104,8 +104,12 @@ def sqrt_rn(x):
     result (one ulp of r is ~1e-6 rad at k r ~ 1e10).  On the CPU the root
     is taken by numpy; on the card torch's sqrt is IEEE already."""
     if x.device.type == 'cpu' and not x.requires_grad:
+        try:
+            arr = x.numpy()
+        except RuntimeError:    # no storage: inside a torch.func transform
+            return torch.sqrt(x)
         with np.errstate(invalid='ignore'):     # NaN below 0, as torch
-            return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+            return torch.from_numpy(np.asarray(np.sqrt(arr)))
     return torch.sqrt(x)
 
 

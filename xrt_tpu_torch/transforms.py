@@ -84,3 +84,18 @@ def virgin_local_to_global(beam, center=None):
         return beam
     return beam.replace(x=beam.x + center[0], y=beam.y + center[1],
                         z=beam.z + center[2])
+
+
+def to_local_frame(beam, center, ex, ey, ez):
+    """Position and direction (x, y, z, a, b, c) of *beam* in the frame
+    with unit axes (ex, ey, ez) at *center*, as screens and apertures
+    hold it."""
+    dx = beam.x - center[0]
+    dy = beam.y - center[1]
+    dz = beam.z - center[2]
+    return (dx * ex[0] + dy * ex[1] + dz * ex[2],
+            dx * ey[0] + dy * ey[1] + dz * ey[2],
+            dx * ez[0] + dy * ez[1] + dz * ez[2],
+            beam.a * ex[0] + beam.b * ex[1] + beam.c * ex[2],
+            beam.a * ey[0] + beam.b * ey[1] + beam.c * ey[2],
+            beam.a * ez[0] + beam.b * ez[1] + beam.c * ez[2])
