@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs seven phases and exits non-zero
-if any fails:
+process per source, in parallel), then runs twelve phases and exits
+non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions, the build time;
@@ -32,8 +32,15 @@ if any fails:
    the full-size toroid -> screen hop with the B2 kernel ('fast',
    'exact') against the recentred result to < 5e-3;
 5. the ``kernels`` line: every kernel with its launches, time, plain
-   version's time, bound and (B4) the ``index_add_`` time at the
-   main-path shapes;
+   version's time, bound and (B4, B4-bwd) the library call's time at the
+   main-path shapes.  The adjoint kernels are held against the plain
+   blocked backward there too, on the slices it can do in seconds (it
+   takes 1.6 ns a pair): the destination rows of the last 8192
+   destinations against all sources, the source rows of the last 2048
+   sources against all destinations, and, from a second launch at the same
+   shape with the cotangents of all other destinations set to zero, every
+   source row and the scalars of those 8192 destinations (the rows of the
+   other destinations must then be exact zeros);
 6. the trace main path: GeometricSource -> Si toroid -> screen at 1e7
    rays per pass in float32 through ``run_ray_tracing`` (one plot of
    128-bin axes, auto limits, 4 repeats, a CUDA generator), with the
@@ -45,11 +52,54 @@ if any fails:
    from the same float64 samples: transmitted fraction to 1e-4, weighted
    centroids to 1e-3 of the image size and sizes to 1e-3.
 
+8. adjoint kernels against their plain versions: B3 (the backward of B1
+   and B2: recentred mono, narrowband, poly; per-pair double-float 'fast',
+   'exact') at 8192 x 16384 with random output cotangents against the
+   plain blocked backward (autograd through the plain forward,
+   checkpointed), every destination-key row, source-key row and scalar's
+   cotangent to 1e-4 of its largest magnitude (f32 sums in another order;
+   the kernels differentiate the sincos polynomials as (2 pi cos,
+   -2 pi sin), the plain version the polynomials themselves, 1.3e-5 a
+   pair, which a sum of few terms does not average down); B4's backward (the gather) against advanced indexing, exactly
+   equal, for k = 1 and 3, 128 x 128 and 1024 x 1024, 1D, special values;
+9. the gradient main path: value and gradient of a Gaussian-weighted focal
+   flux of the phase-3 chain (2e5 samples per wave, 256 x 256 screen,
+   float32) with respect to the source waist (field cotangents), the
+   toroid's pitch offset (linearized retargeting of its receiving samples
+   and of the screen's samples in its frame, and ``reflect_wave`` with the
+   tensor pitch: destination-position cotangents) and the amplitude of a
+   height offset of its surface samples with a fixed parabolic profile
+   along the mirror (source-position cotangents; a rigid offset is a
+   piston phase, which no intensity sees): forward +
+   backward time (median of 3), the forward alone, the launches (B1 x 2
+   and B3 x 2 per step) and peak memory; the three gradients are held to
+   those of one more step whose backward runs the plain blocked backward
+   in place of the adjoint kernels (about 90 s of the run);
+10. the gradient cross-check: the same at 2e4 samples on a 64 x 64 screen,
+    float32 kernels against the float64 plain path (each parameter within
+    3e-2) and float64 autograd against a central finite difference
+    (within 1e-3);
+11. the B2-path gradient: the full-size toroid -> screen hop with
+    ``phase_mode`` 'fast' and 'exact' against the recentred gradient of
+    the same loss (within 3e-2), with the launches;
+12. the trace gradient: d(weighted central flux) / d(pitch) through
+    GeometricSource -> toroid (with the search) -> screen -> ``hist2d``
+    (B4 forward and backward) at 1e7 rays in float32, with times, peak
+    memory and launches; the same through the three-column histogram of a
+    colour plot (weights Jss, Jpp and their sum: twice the flux, so twice
+    the gradient); and at 2e5 rays float32 against float64 and a finite
+    difference (rtol 0.1).
+
+``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
+blocked backward at 8192 x 16384 for four block sizes (the measurement
+behind ``ops.kirchhoff.GRAD_DST_BLOCK`` / ``GRAD_SRC_CHUNK``).
+
 The line before the last is the ``kernels`` JSON; the card line precedes
 it; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -75,18 +125,57 @@ PEAK_BYTES = 3.35e12
 #: B2 exact  — dd differences 33, three dd squares 69, two dd adds 22,
 #:             dd sqrt 35, kappa 24, kappa r 24, frac_two_pi 8, 1/r 1,
 #:             cos + sin 2, nsk 7, pre 2, U 3, f 1, g 8, sums 28  = 267
+#: The adjoints (B3), the least work for one pair: the forward pair without
+#: its ten sums, one reverse sweep, and one add per cotangent row.
+#: B3 mono   — forward 88; reverse: field cotangents 12, g's 10, ax/ay/az 9,
+#:             f 3, h 2, ser/sei 6, U 22, k2 + 1/A seed 2, L 3, lw 5, pre +
+#:             sin/cos 6, phase 4, inner/kw/num 8, n/Lns/lw 6, delta +
+#:             kappa 4, series and 1/A 23, t 12                  = 137;
+#:             sums: 6 destination rows, 20 source rows, 8 scalars = 34
+#:                                                                = 259
+#: B3 fast   — forward 202; reverse: the amplitude part 89, the phase part
+#:             (kp, corr, s0, resid, 1/r, s2, the differences) 40  = 129;
+#:             sums: 3 destination, 17 source rows = 20           = 351
+#: B3 exact  — forward 239; reverse: the amplitude part 89, the phase part
+#:             (frac_two_pi, kappa r, kp, dd sqrt, dd squares) 43 = 132;
+#:             sums 20                                            = 391
+#: The kernels take two passes over the pairs (one per side, no atomics),
+#: so they do nearly twice this.
 OPS_PER_PAIR = {'kirchhoff_recentred:mono': 116,
                 'kirchhoff_ddphase:fast': 230,
-                'kirchhoff_ddphase:exact': 267}
+                'kirchhoff_ddphase:exact': 267,
+                'kirchhoff_recentred_bwd:mono': 259,
+                'kirchhoff_ddphase_bwd:fast': 351,
+                'kirchhoff_ddphase_bwd:exact': 391}
 #: f32 keys read per destination and per source, and outputs per
 #: destination, of every kernel of the line (mono B1 and both B2 variants)
 KEYS = (6, 20, 10)
 SOURCES = {'kirchhoff_recentred': 'xrt_tpu_torch/csrc/kirchhoff_recentred.cu',
            'kirchhoff_ddphase': 'xrt_tpu_torch/csrc/kirchhoff_ddphase.cu',
+           'kirchhoff_recentred_bwd':
+           'xrt_tpu_torch/csrc/kirchhoff_recentred_bwd.cu',
+           'kirchhoff_ddphase_bwd':
+           'xrt_tpu_torch/csrc/kirchhoff_ddphase_bwd.cu',
            'hist2d': 'xrt_tpu_torch/csrc/hist2d.cu'}
 REPLACES = {'kirchhoff_recentred': 'xrt_tpu/ops/kirchhoff.py:565',
             'kirchhoff_ddphase': 'xrt_tpu/ops/kirchhoff.py:903',
+            'kirchhoff_recentred_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
+            'kirchhoff_ddphase_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
             'hist2d': 'xrt_tpu/histogram.py:89'}
+#: the adjoint kernels against the plain blocked backward: the limit on
+#: max|row - ref| / max|ref| of every key row and scalar's cotangent
+ADJ_LIMIT = 1e-4
+#: the slices of a main-path shape on which the plain blocked backward is
+#: run: the last destinations (against all sources) and the last sources
+#: (against all destinations), ragged ends included
+ADJ_DST_SLICE, ADJ_SRC_SLICE = 8192, 2048
+#: the gradients of the main path, adjoint kernels against the plain
+#: blocked backward in their place (measured: <= 1.2e-7, the rows' 1e-5
+#: differences average out over 2e5 samples)
+GRAD_PLAIN_LIMIT = 1e-5
+#: why the adjoint rows have no library time
+NO_LIBRARY = ('no single PyTorch call computes the adjoint of the Kirchhoff '
+              'double sum')
 
 #: the trace main path: the beamline of the reference package's trace
 #: benchmark at its ray count
@@ -138,7 +227,10 @@ def cuda_ms(fn, n=1):
 def bound_ms(name, nd, ns):
     kd, ks, ko = KEYS
     t_ops = OPS_PER_PAIR[name] * nd * ns / PEAK_F32_OPS
-    t_bytes = 4.0 * (kd * nd + ks * ns + ko * nd) / PEAK_BYTES
+    if '_bwd' in name:      # reads D, S and G, writes the cotangents of D, S
+        t_bytes = 4.0 * (2 * kd * nd + 2 * ks * ns + ko * nd) / PEAK_BYTES
+    else:
+        t_bytes = 4.0 * (kd * nd + ks * ns + ko * nd) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         'operations' if t_ops >= t_bytes else 'bytes'
 
@@ -344,16 +436,14 @@ def time_kernel(name, variant, stage, with_plain=True):
     args = W.kirchhoff_kernel_args(oeLocal, wave)
     xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, w = args
     Nd, Ns = xd[0].shape[0], xs[0].shape[0]
+    scheme, v, D, S, P = tk._kernel_inputs(*args, variant)
+    S = tk._pad_sources(S)
     if name == 'kirchhoff_recentred':
-        dst, src, params = tk.recentre_kirchhoff_inputs(
-            *args, monochromatic=True, narrowband=False)
-        launch = lambda: tk._launch_recentred(dst, src, params, 0, Nd, Ns)
+        launch = lambda: tk._launch_recentred(D, S, P, v)
         plain = lambda: tk.kirchhoff_integral_recentred(
             *args, monochromatic=True)
     else:
-        dst, src = tk.ddphase_inputs(*args, phase_mode=variant)
-        v = tk._DD_VARIANTS[variant]
-        launch = lambda: tk._launch_ddphase(dst, src, v, Nd, Ns)
+        launch = lambda: tk._launch_ddphase(D, S, v)
         plain = lambda: tk.kirchhoff_integral_dd(*args, phase_mode=variant)
     launch()
     torch.cuda.synchronize()
@@ -779,6 +869,594 @@ def hist_rows(timing):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the gradient slice: the adjoint kernels (B3, B4-bwd) and their paths
+# ---------------------------------------------------------------------------
+
+def launch_adjoint(scheme, v, D, S, P, G):
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    if scheme == 'recentred':
+        return tk._launch_recentred_bwd(D, S, P, G, v)
+    return tk._launch_ddphase_bwd(D, S, G, v) + (None,)
+
+
+def row_errors(got, ref):
+    """(max over rows of max|row - ref| / max|ref|, max abs difference)."""
+    rel, ab = 0.0, 0.0
+    for i in range(ref.shape[0]):
+        d = float((got[i] - ref[i]).abs().max())
+        scale = float(ref[i].abs().max())
+        rel = max(rel, d / scale if scale > 0 else (math.inf if d else 0.0))
+        ab = max(ab, d)
+    return rel, ab
+
+
+def phase_adjoint_kernels(timing):
+    import torch
+    from xrt_tpu_torch import histogram as th
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    plain_ms_of = {}
+    for mode in ('mono', 'narrowband', 'poly', 'fast', 'exact'):
+        args = kernel_case_args('mono' if mode == 'mono' else 'poly')
+        scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+        Nd, Ns = D.shape[1], S.shape[1]
+        G = torch.randn((10, Nd), device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(7))
+        got = launch_adjoint(scheme, v, D, tk._pad_sources(S), P, G)
+        torch.cuda.synchronize()
+        if mode == 'mono':      # warm-up
+            tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G)
+        plain_ms, ref = cuda_ms(lambda: tk.kirchhoff_bwd_blocked(
+            scheme, v, D, S, P, G))
+        check(all(bool(torch.isfinite(t).all()) for t in got
+                  if t is not None), f'B3 {mode}: non-finite cotangents')
+        relD = row_errors(got[0], ref[0])[0]
+        relS = row_errors(got[1][:, :Ns], ref[1])[0]
+        relP = 0.0 if ref[2] is None else \
+            row_errors(got[2][:, None], ref[2][:, None])[0]
+        ms = statistics.median(cuda_ms(lambda: launch_adjoint(
+            scheme, v, D, tk._pad_sources(S), P, G))[0] for _ in range(3))
+        print(f'phase 8 B3 {mode}: {Nd} x {Ns}, kernel vs plain blocked '
+              f'backward, max row rel: dst keys {relD:.2e}, src keys '
+              f'{relS:.2e}, scalars {relP:.2e} (limit {ADJ_LIMIT:.0e}); '
+              f'kernel {ms:.2f} ms, plain {plain_ms:.1f} ms', flush=True)
+        check(max(relD, relS, relP) < ADJ_LIMIT,
+              f'B3 {mode}: {relD:.3e} / {relS:.3e} / {relP:.3e}')
+        plain_ms_of[mode] = plain_ms
+    timing['adjoint_plain_ms'] = plain_ms_of
+
+    for case in ('shared', 'global', '1d', 'special', 'ragged'):
+        for k in (1, 3):
+            x, y, _, xbins, ybins, xlim, ylim = hist_case(case, k)
+            g = torch.rand((ybins, xbins, k), device='cuda',
+                           generator=torch.Generator('cuda').manual_seed(k))
+            got = th.hist2d_bwd_kernel(x, y, g, xbins, ybins, xlim, ylim)
+            torch.cuda.synchronize()
+            same = torch.equal(got, th.hist2d_bwd_plain(x, y, g, xbins,
+                                                        ybins, xlim, ylim))
+            print(f'phase 8 B4-bwd {case} k={k}: {x.shape[0]} rays from '
+                  f'{ybins} x {xbins}, kernel vs advanced indexing '
+                  f'{"equal" if same else "DIFFER"}', flush=True)
+            check(same, f'B4-bwd {case} k={k} differs from indexing')
+
+
+def sweep_plain_blocks():
+    """Times and peak memory of the plain blocked backward (recentred mono,
+    8192 x 16384) for four (destination block, source chunk) sizes."""
+    import torch
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    scheme, v, D, S, P = tk._kernel_inputs(*kernel_case_args('mono'), 'mono')
+    G = torch.randn((10, D.shape[1]), device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(7))
+    tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G)      # warm-up
+    for blk, chunk in ((2048, 512), (4096, 1024), (8192, 512), (8192, 2048)):
+        torch.cuda.reset_peak_memory_stats()
+        ms, _ = cuda_ms(lambda: tk.kirchhoff_bwd_blocked(
+            scheme, v, D, S, P, G, blk, chunk))
+        print(f'plain blocked backward, recentred mono, {D.shape[1]} x '
+              f'{S.shape[1]}: blocks of {blk} x {chunk} {ms:.1f} ms, peak '
+              f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB',
+              flush=True)
+
+
+@contextlib.contextmanager
+def plain_recentred_adjoint():
+    """Within the block, the backward of the recentred autograd function
+    runs the plain blocked backward where it launches its adjoint kernels
+    (on the same padded sources: zero weights and fields, cotangents that
+    the function drops).  The reference of a gradient on the card.  Yields
+    a dict that takes the plain backward's time in ms by destination
+    count."""
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    kernel = tk._launch_recentred_bwd
+    times = {}
+
+    def plain(D, S, P, G, v):
+        times[D.shape[1]], out = cuda_ms(lambda: tk.kirchhoff_bwd_blocked(
+            'recentred', v, D, S, P, G))
+        return out
+    tk._launch_recentred_bwd = plain
+    try:
+        yield times
+    finally:
+        tk._launch_recentred_bwd = kernel
+
+
+def grad_context(run, els):
+    """What the gradient of the chain needs beside its build: the
+    linearized-retargeting Jacobians (host float64, exact transforms) of
+    the toroid's receiving samples and of the screen's samples with
+    respect to the toroid's pitch, the direction of a surface-height offset
+    in the slit's frame with its profile (y / 40 mm)^2 along the mirror,
+    and the loss weight (a Gaussian window off the screen's centre, so
+    that no gradient vanishes by symmetry)."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import waves as W
+    src, slit, tor, scr = els
+    wv0, wv1, wv2 = run.waves
+    dt = wv1.x.dtype
+
+    def h64(t):
+        return t.detach().double().cpu().numpy()
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device='cuda')
+    J1 = dev(W._placement_jacobian(tor, slit, h64(wv1.x), h64(wv1.y),
+                                   h64(wv1.z)))
+    J2 = dev(W._placement_jacobian(scr, tor, h64(wv2.x), h64(wv2.y),
+                                   h64(wv2.z), vary='from'))
+    R1 = W.wave_frame_rotation(tor, slit)
+    wgt = torch.exp(-(wv2.x ** 2 + (wv2.z - 0.004) ** 2) / 0.006 ** 2)
+    return dict(J1=J1, J2=J2, R1=[float(v) for v in R1[:, 2]], wgt=wgt,
+                profile=(wv1.y / 40.0) ** 2)
+
+
+def chain_loss(run, els, ctx, w0, dp, dz, timings=None):
+    """The Gaussian-weighted focal flux of the chain as a function of the
+    source waist *w0*, the toroid's pitch offset *dp* and the amplitude
+    *dz* of the height profile of its surface samples, through
+    ``WaveChain.run``."""
+    import torch
+    src, slit, tor, scr = els
+    wv0, wv1, wv2 = run.waves
+    J1, J2, R1 = ctx['J1'], ctx['J2'], ctx['R1']
+    tor_t = tor.replace(pitch=tor.pitch + dp)
+    dz = dz * ctx['profile']
+    a = wv0.replace(fromOE=src.replace(w0=w0))
+    b = wv1.replace(xDiffr=wv1.xDiffr + J1[0] * dp + R1[0] * dz,
+                    yDiffr=wv1.yDiffr + J1[1] * dp + R1[1] * dz,
+                    zDiffr=wv1.zDiffr + J1[2] * dp + R1[2] * dz,
+                    z=wv1.z + dz, toOE=tor_t)
+    c = wv2.replace(xDiffr=wv2.xDiffr + J2[0] * dp,
+                    yDiffr=wv2.yDiffr + J2[1] * dp,
+                    zDiffr=wv2.zDiffr + J2[2] * dp, fromOE=tor_t)
+    out, logs = run(torch.Generator().manual_seed(2), timings=timings,
+                    waves=(a, b, c))
+    flux = ((out.Jss + out.Jpp) * ctx['wgt']).double().sum()
+    return flux * torch.exp(-2.0 * logs.double())
+
+
+#: the working point of the gradients: (w0 mm, pitch offset rad, height
+#: amplitude mm)
+GRAD_POINT = (0.05, 0.0, 0.0)
+GRAD_NAMES = ('w0', 'pitch offset', 'height amplitude')
+
+
+def grad_leaves(dtype, point=GRAD_POINT):
+    import torch
+    return [torch.tensor(v, dtype=dtype, device='cuda', requires_grad=True)
+            for v in point]
+
+
+def phase_grad_main(timing):
+    import torch
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    main = timing['main']
+    run, els = main['run'], main['els']
+    t0 = time.perf_counter()
+    ctx = grad_context(run, els)
+    t_ctx = time.perf_counter() - t0
+
+    def step():
+        leaves = grad_leaves(torch.float32)
+        loss = chain_loss(run, els, ctx, *leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss, grads
+    step()      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    tk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    loss, grads = step()
+    times = [time.perf_counter() - t0]
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss, grads = step()
+        times.append(time.perf_counter() - t0)
+    fwd = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            chain_loss(run, els, ctx, *grad_leaves(torch.float32))
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+    med, medf = statistics.median(times), statistics.median(fwd)
+    vals = [float(g) for g in grads]
+    tk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with plain_recentred_adjoint() as plain_ms:
+        ref = [float(g) for g in step()[1]]
+    t_ref = time.perf_counter() - t0
+    ref_launches = dict(tk.LAUNCHES)
+    errs = [abs(a / b - 1) for a, b in zip(vals, ref)]
+    print(f'phase 9 gradient main path: 200000 samples/wave, 256x256 screen, '
+          f'float32; loss {float(loss.detach()):.6e}; gradients '
+          f'{dict(zip(GRAD_NAMES, vals))}; forward + backward median of 3 '
+          f'{med * 1e3:.1f} ms ({", ".join(f"{t * 1e3:.1f}" for t in times)}'
+          f'), forward alone {medf * 1e3:.1f} ms '
+          f'({", ".join(f"{t * 1e3:.1f}" for t in fwd)}), ratio '
+          f'{med / medf:.2f}; {sum(main["pairs"]) / med:.3e} pairs/s; '
+          f'retargeting Jacobians (host) {t_ctx:.2f} s; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB; launches of one step {launches}',
+          flush=True)
+    print(f'phase 9 the same step with the plain blocked backward in place '
+          f'of the adjoint kernels ({t_ref:.1f} s, launches {ref_launches}; '
+          f'plain backward by destinations, ms: '
+          f'{ {n: round(t, 1) for n, t in plain_ms.items()} }): '
+          f'gradients {dict(zip(GRAD_NAMES, ref))}; kernels vs plain '
+          f'{", ".join(f"{e:.2e}" for e in errs)} (limit '
+          f'{GRAD_PLAIN_LIMIT:.0e})', flush=True)
+    check(all(math.isfinite(v) and v != 0.0 for v in vals) and
+          math.isfinite(float(loss.detach())),
+          f'gradient main path: loss {float(loss.detach())}, gradients '
+          f'{vals}')
+    check(ref_launches == {'kirchhoff_recentred:mono': 2},
+          f'plain-backward step: launches {ref_launches}')
+    check(max(errs) < GRAD_PLAIN_LIMIT,
+          f'gradient main path, kernels vs plain backward: {errs}')
+    check(launches == {'kirchhoff_recentred:mono': 2,
+                       'kirchhoff_recentred_bwd:mono': 2},
+          f'gradient main path: launches {launches}')
+    timing['grad_launches'] = launches
+    timing['grad_plain_ms'] = plain_ms
+
+
+def phase_grad_cross():
+    import torch
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        run, els = build_chain(20_000, 64, dt, seed=4)
+        ctx = grad_context(run, els)
+        leaves = grad_leaves(dt)
+        loss = chain_loss(run, els, ctx, *leaves)
+        res[dt] = (float(loss.detach()), [float(g) for g in
+                                 torch.autograd.grad(loss, leaves)])
+        if dt == torch.float64:
+            # four-point central differences: the steps sit between the
+            # float64 phase rounding (one ulp of r is ~2e-6 rad at
+            # k r = 1.3e10), which a smaller step amplifies, and the
+            # curvature of the loss, whose h^2 term the stencil cancels
+            fds = []
+            for i, h in enumerate((1e-5, 3e-8, 4e-6)):
+                f = {}
+                for m in (-2, -1, 1, 2):
+                    pt = list(GRAD_POINT)
+                    pt[i] += m * h
+                    with torch.no_grad():
+                        f[m] = float(chain_loss(
+                            run, els, ctx, *[torch.tensor(
+                                v, dtype=dt, device='cuda') for v in pt]))
+                fds.append((f[-2] - 8 * f[-1] + 8 * f[1] - f[2]) / (12 * h))
+    (l32, g32), (l64, g64) = res[torch.float32], res[torch.float64]
+    print(f'phase 10 gradient cross-check, 2e4 samples, 64x64 screen: loss '
+          f'float32 {l32:.6e} float64 {l64:.6e}', flush=True)
+    for name, a, b, fd in zip(GRAD_NAMES, g32, g64, fds):
+        e32, efd = abs(a / b - 1), abs(b / fd - 1)
+        print(f'phase 10 d/d({name}): float32 kernels {a:.6e}, float64 '
+              f'plain {b:.6e}, finite difference {fd:.6e}; float32 vs '
+              f'float64 {e32:.2e} (limit 3e-2), float64 vs FD {efd:.2e} '
+              f'(limit 1e-3)', flush=True)
+        check(e32 < 3e-2, f'gradient {name}: float32 vs float64 {e32:.3e}')
+        check(efd < 1e-3, f'gradient {name}: float64 vs FD {efd:.3e}')
+
+
+def phase_grad_b2(timing):
+    """The toroid -> screen hop at full size: the gradient of the weighted
+    flux with respect to a shift of the screen samples along the
+    retargeting direction (destination cotangents) and to the amplitude of
+    the height profile of the source samples (source cotangents), B2's
+    adjoint against B1's."""
+    import torch
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    main = timing['main']
+    ctx = grad_context(main['run'], main['els'])
+    oeLocal, wave = timing['stages'][1]
+    J2, wgt = ctx['J2'], ctx['wgt']
+    res, launches = {}, {}
+    for pm in ('recentred', 'fast', 'exact'):
+        dp, dz = grad_leaves(torch.float32, (0.0, 0.0))
+        tk.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = W.diffract(
+            oeLocal.replace(z=oeLocal.z + dz * ctx['profile']),
+            wave.replace(xDiffr=wave.xDiffr + J2[0] * dp,
+                         yDiffr=wave.yDiffr + J2[1] * dp,
+                         zDiffr=wave.zDiffr + J2[2] * dp),
+            phase_mode=pm, monochromatic=True, accumulate='mxu-fast',
+            narrowband=False)
+        loss = ((out.Jss + out.Jpp) * wgt).double().sum()
+        grads = torch.autograd.grad(loss, [dp, dz])
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        launches[pm] = dict(tk.LAUNCHES)
+        res[pm] = [float(loss.detach())] + [float(g) for g in grads]
+        print(f'phase 11 toroid -> screen hop, {pm}: loss {res[pm][0]:.6e}, '
+              f'd/d(pitch shift) {res[pm][1]:.6e}, d/d(height) '
+              f'{res[pm][2]:.6e}; forward + backward {t * 1e3:.1f} ms; '
+              f'launches {launches[pm]}', flush=True)
+    for pm in ('fast', 'exact'):
+        errs = [abs(a / b - 1) for a, b in zip(res[pm][1:],
+                                               res['recentred'][1:])]
+        print(f'phase 11 B2 {pm} gradient vs recentred: '
+              f'{", ".join(f"{e:.2e}" for e in errs)} (limit 3e-2)',
+              flush=True)
+        check(max(errs) < 3e-2, f'B2 {pm} gradient vs recentred: {errs}')
+        check(launches[pm] == {f'kirchhoff_ddphase:{pm}': 1,
+                               f'kirchhoff_ddphase_bwd:{pm}': 1},
+              f'B2 {pm} gradient: launches {launches[pm]}')
+    timing['b2_grad_launches'] = {k: v for d in launches.values()
+                                  for k, v in d.items()}
+
+
+def trace_flux(src, tor, scr, beam, pitch, bins=128, rgb=False):
+    """The weighted central flux on the screen through toroid (with the
+    search) -> screen -> hist2d, as a function of the toroid's pitch: the
+    loss of the reference package's trace-gradient test (a smooth central
+    weight over +-2 mm, not a hard pixel edge).  The histogram passes a
+    gradient to the weights only, so a finite difference also sees rays
+    that change bins; the broad symmetric weight keeps that part small.
+    With *rgb* the histogram has the three weight columns of a colour plot,
+    here Jss, Jpp and their sum, all summed: twice the flux."""
+    import torch
+    from xrt_tpu_torch.histogram import hist2d, hist2d_rgb
+    glo, _ = tor.replace(pitch=pitch).reflect(beam)
+    img = scr.expose(glo)
+    lim = (-2.0, 2.0)
+    if rgb:
+        good = (img.state == 1)[:, None]
+        w = torch.stack([img.Jss, img.Jpp, img.Jss + img.Jpp], dim=1)
+        h = hist2d_rgb(img.x, img.z, torch.where(good, w, 0.0), bins, bins,
+                       lim, lim).sum(dim=-1)
+    else:
+        w = torch.where(img.state == 1, img.Jss + img.Jpp, 0.0)
+        h = hist2d(img.x, img.z, w, bins, bins, lim, lim)
+    c = torch.linspace(-2, 2, bins, dtype=w.dtype, device=w.device)
+    wz = torch.exp(-c ** 2 / 0.5)
+    return torch.sum(h * wz[:, None] * wz[None, :])
+
+
+def phase_trace_grad(timing):
+    import torch
+    from xrt_tpu_torch import histogram as th
+    n = TRACE_NRAYS
+    src, tor, scr = trace_beamline(n, torch.float32)
+    rng = torch.Generator('cuda').manual_seed(31)
+
+    def step(beam, rgb=False):
+        pitch = torch.tensor(TRACE_PITCH, device='cuda', requires_grad=True)
+        flux = trace_flux(src, tor, scr, beam, pitch, rgb=rgb)
+        g, = torch.autograd.grad(flux, [pitch])
+        torch.cuda.synchronize()
+        return float(flux.detach()), float(g)
+    beam = src.shine(rng)
+    step(beam)      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    th.LAUNCHES.clear()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        flux, g = step(beam)
+        times.append(time.perf_counter() - t0)
+    launches = dict(th.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            trace_flux(src, tor, scr, beam, torch.tensor(TRACE_PITCH,
+                                                         device='cuda'))
+        torch.cuda.synchronize()
+        fwd.append(time.perf_counter() - t0)
+    med, medf = statistics.median(times), statistics.median(fwd)
+    print(f'phase 12 trace gradient: {n} rays, float32, d(weighted central '
+          f'flux)/d(pitch) {g:.6e} (flux {flux:.6e}); reflect + expose + '
+          f'hist2d forward + backward median of 3 {med * 1e3:.1f} ms '
+          f'({", ".join(f"{t * 1e3:.1f}" for t in times)}), forward alone '
+          f'{medf * 1e3:.1f} ms; peak device memory {peak / 2 ** 30:.2f} '
+          f'GiB; launches of the 3 steps {launches}', flush=True)
+    check(math.isfinite(g) and g != 0.0, f'trace gradient {g}')
+    check(launches == {'hist2d:k1:shared': 3, 'hist2d_bwd:k1': 3},
+          f'trace gradient: launches {launches}')
+    th.LAUNCHES.clear()
+    flux3, g3 = step(beam, rgb=True)
+    launches3 = dict(th.LAUNCHES)
+    print(f'phase 12 trace gradient through the three-column histogram: '
+          f'flux {flux3:.6e}, gradient {g3:.6e}; against twice the '
+          f'one-column flux and gradient {abs(flux3 / (2 * flux) - 1):.2e}, '
+          f'{abs(g3 / (2 * g) - 1):.2e} (limit 1e-4); launches {launches3}',
+          flush=True)
+    check(abs(flux3 / (2 * flux) - 1) < 1e-4 and abs(g3 / (2 * g) - 1) < 1e-4,
+          f'three-column trace gradient {g3} against 2 x {g}')
+    check(launches3 == {'hist2d:k3:shared': 1, 'hist2d_bwd:k3': 1},
+          f'three-column trace gradient: launches {launches3}')
+    timing['trace_grad_launches'] = {**launches, **launches3}
+
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        src, tor, scr = trace_beamline(200_000, dt)
+        beam = src.shine(torch.Generator().manual_seed(21))
+        pitch = torch.tensor(TRACE_PITCH, dtype=dt, device='cuda',
+                             requires_grad=True)
+        flux = trace_flux(src, tor, scr, beam, pitch, bins=16)
+        res[dt], = torch.autograd.grad(flux, [pitch])
+        if dt == torch.float64:
+            h = 2e-6
+            with torch.no_grad():
+                fd = (float(trace_flux(src, tor, scr, beam, torch.tensor(
+                    TRACE_PITCH + h, dtype=dt, device='cuda'), bins=16)) -
+                    float(trace_flux(src, tor, scr, beam, torch.tensor(
+                        TRACE_PITCH - h, dtype=dt, device='cuda'),
+                        bins=16))) / (2 * h)
+    g32, g64 = float(res[torch.float32]), float(res[torch.float64])
+    print(f'phase 12 trace gradient at 2e5 rays, 16 x 16 bins, the same '
+          f'float64 samples: float32 {g32:.6e}, float64 {g64:.6e}, finite '
+          f'difference {fd:.6e}; float32 vs float64 {abs(g32 / g64 - 1):.2e}'
+          f', float64 vs FD {abs(g64 / fd - 1):.2e} (limits 0.1)',
+          flush=True)
+    check(abs(g32 / g64 - 1) < 0.1, f'trace gradient f32 {g32} f64 {g64}')
+    check(abs(g64 / fd - 1) < 0.1, f'trace gradient f64 {g64} FD {fd}')
+
+
+def sliced_adjoint_errors(scheme, v, D, S, P, G, got, Ns):
+    """The adjoint kernels' result *got* at a main-path shape against the
+    plain blocked backward on the slices it can do in seconds.  Returns
+    the largest row error of the destination rows, of the source rows and
+    of the scalars, and the largest absolute difference."""
+    import torch
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    d0, s0 = D.shape[1] - ADJ_DST_SLICE, Ns - ADJ_SRC_SLICE
+    # the last destinations against all sources: their rows, and what they
+    # alone give to every source row and to the scalars
+    refD, refS_of_d, refP_of_d = tk.kirchhoff_bwd_blocked(
+        scheme, v, D[:, d0:], S[:, :Ns], P, G[:, d0:])
+    relD, ab = row_errors(got[0][:, d0:], refD)
+    # the last sources against all destinations: their rows
+    refS = tk.kirchhoff_bwd_blocked(scheme, v, D, S[:, s0:Ns], P, G)[1]
+    relS, abS = row_errors(got[1][:, s0:Ns], refS)
+    # the same shape once more, with zero cotangents but for the last
+    # destinations: every source row and the scalars
+    Gm = torch.zeros_like(G)
+    Gm[:, d0:] = G[:, d0:]
+    gm = launch_adjoint(scheme, v, D, S, P, Gm)
+    check(not bool(gm[0][:, :d0].any()),
+          'destinations with zero cotangents got non-zero rows')
+    relSm, abSm = row_errors(gm[1][:, :Ns], refS_of_d)
+    relP, abP = (0.0, 0.0) if refP_of_d is None else \
+        row_errors(gm[2][:, None], refP_of_d[:, None])
+    return relD, max(relS, relSm), relP, max(ab, abS, abSm, abP)
+
+
+def adjoint_rows(timing):
+    """The rows of the adjoint kernels at their paths' shapes."""
+    import torch
+    from xrt_tpu_torch import histogram as th, waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    rows = []
+    stages = timing['stages']
+    specs = [('kirchhoff_recentred_bwd', 'mono', stages[0],
+              timing['grad_launches']),
+             ('kirchhoff_recentred_bwd', 'mono', stages[1],
+              timing['grad_launches']),
+             ('kirchhoff_ddphase_bwd', 'fast', stages[1],
+              timing['b2_grad_launches']),
+             ('kirchhoff_ddphase_bwd', 'exact', stages[1],
+              timing['b2_grad_launches'])]
+    for name, variant, stage, launches in specs:
+        args = W.kirchhoff_kernel_args(*stage)
+        scheme, v, D, S, P = tk._kernel_inputs(*args, variant)
+        S = tk._pad_sources(S)
+        Nd, Ns = D.shape[1], stage[0].x.shape[0]
+        G = torch.randn((10, Nd), device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(9))
+        got = launch_adjoint(scheme, v, D, S, P, G)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got
+                  if t is not None),
+              f'{name}:{variant} at {Nd} x {Ns}: non-finite cotangents')
+        ms = statistics.median(cuda_ms(lambda: launch_adjoint(
+            scheme, v, D, S, P, G))[0] for _ in range(3))
+        t0 = time.perf_counter()
+        relD, relS, relP, ab = sliced_adjoint_errors(scheme, v, D, S, P, G,
+                                                     got, Ns)
+        t_ref = time.perf_counter() - t0
+        key = f'{name}:{variant}'
+        bms, by = bound_ms(key, Nd, Ns)
+        # the plain version's time at this shape where the gradient main
+        # path's reference step ran it, else at 8192 x 16384
+        if variant == 'mono':
+            plain_ms, plain_shape = timing['grad_plain_ms'][Nd], f'{Nd}x{Ns}'
+        else:
+            plain_ms, plain_shape = timing['adjoint_plain_ms'][variant], \
+                '8192x16384'
+        print(f'phase 5 {key}: {Nd} x {Ns} pairs, kernel {ms:.2f} ms (both '
+              f'passes), bound {bms:.2f} ms ({by}), '
+              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s; against the plain '
+              f'blocked backward on the last {ADJ_DST_SLICE} destinations '
+              f'and the last {ADJ_SRC_SLICE} sources ({t_ref:.1f} s), max '
+              f'row rel: dst keys {relD:.2e}, src keys {relS:.2e}, scalars '
+              f'{relP:.2e} (limit {ADJ_LIMIT:.0e}); plain blocked backward '
+              f'at {plain_shape} {plain_ms:.1f} ms', flush=True)
+        check(max(relD, relS, relP) < ADJ_LIMIT,
+              f'{key} at {Nd} x {Ns}: {relD:.3e} / {relS:.3e} / {relP:.3e}')
+        rows.append(dict(name=f'{key}:{Nd}x{Ns}', route='cuda',
+                         source=SOURCES[name], replaces=REPLACES[name],
+                         launches=int(launches.get(key, 0)),
+                         max_abs_err=ab, max_rel_err=max(relD, relS, relP),
+                         err_shape=f'{Nd}x{Ns}, on slices', ms=ms,
+                         plain_ms=plain_ms, plain_shape=plain_shape,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         library=None, library_reason=NO_LIBRARY))
+        check(rows[-1]['launches'] > 0, f'{key} was not launched on its '
+              'path')
+
+    # B4-bwd on the rays of a main-path pass: the gather of a (128, 128, k)
+    # cotangent, k = 1 as in the trace gradient and k = 3 as through a
+    # colour plot; the library call is the advanced-indexing gather
+    tr = timing['trace']
+    x, y, bins = tr['x'], tr['y'], 128
+    fx, inx = th._bin_index(x, tr['xlim'], bins)
+    fy, iny = th._bin_index(y, tr['ylim'], bins)
+    flat = torch.where(inx & iny, fy * bins + fx,
+                       torch.zeros_like(fx)).long()
+    n = x.shape[0]
+    for k in (1, 3):
+        g = torch.rand((bins, bins, k), device='cuda',
+                       generator=torch.Generator('cuda').manual_seed(3))
+        args = (x, y, g, bins, bins, tr['xlim'], tr['ylim'])
+        th.hist2d_bwd_kernel(*args)
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(
+            lambda: th.hist2d_bwd_kernel(*args), 5)[0] for _ in range(3))
+        got = th.hist2d_bwd_kernel(*args)
+        plain_ms, ref = cuda_ms(lambda: th.hist2d_bwd_plain(*args))
+        key = f'hist2d_bwd:k{k}'
+        check(torch.equal(got, ref), f'{key} at main-path shapes differs '
+              'from indexing')
+        g2 = g.reshape(-1, k)
+        lib_ms = statistics.median(cuda_ms(lambda: g2[flat], 3)[0]
+                                   for _ in range(3))
+        bms = 1e3 * (4.0 * n * (2 + k) + 4.0 * bins * bins * k) / PEAK_BYTES
+        print(f'phase 5 {key}: {n} rays from {bins} x {bins} x {k}, '
+              f'kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, indexing gather '
+              f'{lib_ms:.3f} ms, bound {bms:.3f} ms (bytes), '
+              f'{n / (ms * 1e-3):.3e} rays/s, equal to indexing', flush=True)
+        rows.append(dict(name=key, route='cuda', source=SOURCES['hist2d'],
+                         replaces=REPLACES['hist2d'],
+                         launches=int(timing['trace_grad_launches'].get(
+                             key, 0)),
+                         max_abs_err=float((got - ref).abs().max()),
+                         max_rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by='bytes', library_ms=lib_ms))
+        check(rows[-1]['launches'] > 0, f'{key} was not launched on its '
+              'path')
+    return rows
+
+
 def main():
     try:
         import torch
@@ -796,6 +1474,10 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ['--sweep-plain-blocks']:
+        phase_card()
+        sweep_plain_blocks()
+        return 0
     t_all = time.perf_counter()
     timing = {}
     try:
@@ -806,7 +1488,13 @@ def main():
         phase_cross(timing)
         phase_trace(timing)
         phase_trace_cross()
-        rows = phase_kernel_line(timing) + hist_rows(timing)
+        phase_adjoint_kernels(timing)
+        phase_grad_main(timing)
+        phase_grad_cross()
+        phase_grad_b2(timing)
+        phase_trace_grad(timing)
+        rows = phase_kernel_line(timing) + hist_rows(timing) + \
+            adjoint_rows(timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

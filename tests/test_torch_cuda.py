@@ -18,7 +18,20 @@ check).  On the card:
   that is no multiple of the block.  Limit max|h - h64| / max|h64| < 1e-5
   (float32 partial sums merged by atomics in an order that changes from
   run to run); 1e-4 for the focused beam, where one bin takes a quarter
-  of a block's rays in one running float32 sum.
+  of a block's rays in one running float32 sum;
+* the adjoint kernels (B3: recentred mono / narrowband / poly, per-pair
+  double-float 'fast' / 'exact') against the plain blocked backward on the
+  same CUDA tensors, row by row: every key row and every scalar to 1e-4
+  of its largest magnitude, the limit ``chip_smoke.py`` holds them to
+  (measured on an H100: 3.2e-5 at 129 x 257, 1.1e-5 at 8192 x 16384; the
+  kernels differentiate the sincos polynomials as (2 pi cos, -2 pi sin),
+  the plain version the polynomials themselves, 1.3e-5 per pair, which a
+  short sum does not average down); ragged sizes; ``backward()``
+  through the wrapper launches them, also from a side stream; the forward
+  through the autograd function has the bits of a direct launch, and
+  neither reads a scalar to the host;
+* the histogram's adjoint (B4-bwd) against advanced indexing: exactly
+  equal, and ``backward()`` through ``hist2d`` launches it.
 """
 import numpy as np
 import pytest
@@ -113,11 +126,11 @@ def test_dd_helpers_bit_identical(cuda):
 
 def test_float64_is_refused_by_the_kernel(cuda):
     args = _args(cuda, poly=False, Ns=300, Nd=100)
-    dst, src, params = tk.recentre_kirchhoff_inputs(*args,
-                                                    monochromatic=True)
-    dst = {k: v.double() for k, v in dst.items()}
+    _, v, D, S, P = tk._kernel_inputs(*args, 'mono')
     with pytest.raises(TypeError):
-        tk._launch_recentred(dst, src, params, 0, 100, 300)
+        tk._launch_recentred(D.double(), tk._pad_sources(S), P, v)
+    with pytest.raises(ValueError):
+        tk._launch_recentred(D.cpu(), tk._pad_sources(S), P, v)
 
 
 def test_refused_launch_raises(cuda):
@@ -129,10 +142,107 @@ def test_refused_launch_raises(cuda):
     D = torch.zeros((6, 4), device=cuda)
     S = torch.zeros((20, 100), device=cuda)
     out = torch.empty((10, 4), device=cuda)
-    err = fn(0, D.data_ptr(), 4, S.data_ptr(), 100, tk._RecentredParams(),
+    P = torch.zeros(10, device=cuda)
+    err = fn(0, D.data_ptr(), 4, S.data_ptr(), 100, P.data_ptr(),
              out.data_ptr(), _cuda.stream_ptr(cuda))
     with pytest.raises(RuntimeError):
         _cuda.check(err, 'kirchhoff_recentred')
+
+
+# ---- B3: the adjoint kernels ---------------------------------------------
+
+def _row_errors(got, ref):
+    return [float((got[i] - ref[i]).abs().max()) /
+            max(float(ref[i].abs().max()), 1e-300)
+            for i in range(ref.shape[0])]
+
+
+@pytest.mark.parametrize('sizes', [(1000, 3000), (129, 257)])
+@pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly', 'fast',
+                                  'exact'])
+def test_adjoint_kernels_match_plain_blocked_backward(cuda, mode, sizes):
+    Nd, Ns = sizes
+    args = _args(cuda, poly=mode != 'mono', Ns=Ns, Nd=Nd)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    G = torch.randn((10, Nd), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    name = f'kirchhoff_{scheme}_bwd:{mode}'
+    before = tk.LAUNCHES[name]
+    if scheme == 'recentred':
+        bD, bS, bP = tk._launch_recentred_bwd(D, tk._pad_sources(S), P, G, v)
+    else:
+        bD, bS = tk._launch_ddphase_bwd(D, tk._pad_sources(S), G, v)
+        bP = None
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[name] == before + 1
+    rD, rS, rP = tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G,
+                                          dst_block=512, src_chunk=512)
+    assert torch.isfinite(bD).all() and torch.isfinite(bS).all()
+    assert max(_row_errors(bD, rD)) < 1e-4
+    assert max(_row_errors(bS[:, :Ns], rS)) < 1e-4
+    if bP is not None:
+        assert max(_row_errors(bP[:, None], rP[:, None])) < 1e-4
+        assert float(bP[tk._PARAM_KEYS.index('invR0')]) == 0.0
+
+
+@pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly', 'fast',
+                                  'exact'])
+def test_backward_through_the_wrapper_launches_the_adjoint(cuda, mode):
+    """All twelve inputs get a finite gradient; the forward through the
+    autograd function has the bits of the forward without one; nothing on
+    the way synchronizes with the host."""
+    args = list(_args(cuda, poly=mode != 'mono', Ns=700, Nd=300))
+    kw = dict(phase_mode=mode) if mode in ('fast', 'exact') else dict(
+        monochromatic=mode == 'mono', narrowband=mode == 'narrowband',
+        accumulate='vpu')
+    plain = tk.kirchhoff_integral_kernel(*args, **kw)
+    flat = []
+
+    def leaf(t):
+        t = t.clone().requires_grad_(True)
+        flat.append(t)
+        return t
+    targs = [type(a)(leaf(t) for t in a) if isinstance(a, (tuple, list))
+             else leaf(a) for a in args]
+    scheme = 'ddphase' if mode in ('fast', 'exact') else 'recentred'
+    name = f'kirchhoff_{scheme}_bwd:{mode}'
+    before = tk.LAUNCHES[name]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = tk.kirchhoff_integral_kernel(*targs, **kw)
+        cts = [torch.randn_like(o) for o in out]
+        loss = sum((o * c.conj()).real.sum() for o, c in zip(out, cts))
+        grads = torch.autograd.grad(loss, flat)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[name] == before + 1
+    assert len(grads) == 21
+    for g in grads:
+        assert torch.isfinite(torch.view_as_real(g) if g.is_complex()
+                              else g).all()
+    for p, o in zip(plain, out):
+        assert torch.equal(p, o.detach())
+
+
+def test_backward_from_a_side_stream(cuda):
+    args = list(_args(cuda, poly=False, Ns=700, Nd=300))
+
+    def grad_Es():
+        Es = args[6].clone().requires_grad_(True)
+        a = list(args)
+        a[6] = Es
+        out = tk.kirchhoff_integral_kernel(*a, monochromatic=True)
+        g, = torch.autograd.grad((out[0].abs() ** 2).sum(), [Es])
+        return g
+    ref = grad_Es()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = grad_Es()
+    side.synchronize()
+    assert torch.equal(ref, got)
 
 
 # ---- B4: the histogram kernel -------------------------------------------
@@ -217,3 +327,33 @@ def test_hist2d_refused_launch_raises(cuda):
     with pytest.raises(TypeError):
         th.hist2d_kernel(x, y, W.double(), 16, 16, XLIM, YLIM)
     assert not th.LAUNCHES
+
+
+@pytest.mark.parametrize('k', [1, 3])
+@pytest.mark.parametrize('case', ['shared', 'global', '1d', 'special',
+                                  'ragged'])
+def test_hist2d_adjoint_kernel_equals_indexing(cuda, case, k):
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, case, k)
+    ylim = None if y is None else YLIM
+    g = torch.rand((ybins, xbins, k), device=cuda)
+    th.LAUNCHES.clear()
+    got = th.hist2d_bwd_kernel(x, y, g, xbins, ybins, XLIM, ylim)
+    torch.cuda.synchronize()
+    assert dict(th.LAUNCHES) == {f'hist2d_bwd:k{k}': 1}
+    assert torch.equal(got, th.hist2d_bwd_plain(x, y, g, xbins, ybins, XLIM,
+                                                ylim))
+
+
+def test_backward_through_hist2d_launches_the_gather(cuda):
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, 'shared', 3, n=100_003)
+    W = W.requires_grad_(True)
+    th.LAUNCHES.clear()
+    h = th.hist2d_rgb(x, y, W, xbins, ybins, XLIM, YLIM)
+    c = torch.rand_like(h)
+    (h * c).sum().backward()
+    torch.cuda.synchronize()
+    assert dict(th.LAUNCHES) == {'hist2d:k3:shared': 1, 'hist2d_bwd:k3': 1}
+    assert torch.equal(W.grad, th.hist2d_bwd_plain(x, y, c, xbins, ybins,
+                                                   XLIM, YLIM))
+    with pytest.raises(ValueError):
+        th.hist2d_bwd_kernel(x, y, c.double(), xbins, ybins, XLIM, YLIM)

@@ -90,3 +90,34 @@ def test_dd_selftest_plain_rows():
            *tdd.sincos_cycles(c)]
     for r, e in zip(rows, ref):
         assert torch.equal(r, e)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_sqrt_rn_forward_bits_do_not_depend_on_requires_grad(dtype):
+    """The correctly rounded CPU root is an autograd function: asking for
+    a gradient must not switch it to torch's vectorized root, which is off
+    by one ulp on a fraction of a percent of inputs (one ulp of r is ~1e-6
+    rad of Kirchhoff phase)."""
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 1e4, 200_000)).to(dtype)
+    plain = tdd.sqrt_rn(x)
+    tracked = tdd.sqrt_rn(x.clone().requires_grad_(True))
+    assert plain.grad_fn is None and tracked.grad_fn is not None
+    assert torch.equal(plain, tracked.detach())
+    ref = np.sqrt(x.numpy())
+    assert np.array_equal(plain.numpy(), ref)
+    # the premise: torch's own CPU root differs somewhere on these inputs
+    # in at least one of the two dtypes; numpy's never does
+    assert plain.dtype == dtype
+
+
+def test_sqrt_rn_gradcheck_and_forward_mode():
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        0.1, 10, 20)).requires_grad_(True)
+    assert torch.autograd.gradcheck(tdd.sqrt_rn, (x,))
+    y, t = torch.func.jvp(tdd.sqrt_rn, (x.detach(),),
+                          (torch.ones_like(x),))
+    assert torch.equal(y, tdd.sqrt_rn(x.detach()))
+    assert torch.allclose(t, 0.5 / y, rtol=1e-15)
+    g, = torch.autograd.grad(tdd.sqrt(x, torch.zeros_like(x))[0].sum(), [x])
+    assert torch.allclose(g, 0.5 / torch.sqrt(x.detach()), rtol=1e-12)

@@ -162,3 +162,61 @@ def test_histogram_refuses_bad_input(case):
         args['xbins'] = 0
     with pytest.raises(err):
         th.hist2d_plain(**args)
+
+
+@pytest.mark.parametrize('k', [1, 3])
+def test_backward_is_the_gather_and_matches_jax_grad(k):
+    """The adjoint with respect to the weights (plain version: advanced
+    indexing) against ``jax.grad`` of the JAX package's scatter path, with
+    rays on edges, outside, NaN and inf; coordinates get no gradient."""
+    import jax
+    rng = np.random.RandomState(5)
+    n = 3000
+    x = rng.uniform(-1.2, 1.5, n)
+    y = rng.uniform(-0.7, 1.9, n)
+    x[:4] = [np.nan, np.inf, -1.0, 1.3]
+    y[4:8] = [np.nan, -np.inf, -0.5, 1.7]
+    W = rng.uniform(0.5, 1.5, (n, k))
+    c = rng.normal(size=(24, 32, k))
+    xl, yl = (-1.0, 1.3), (-0.5, 1.7)
+
+    def jloss(w):
+        if k == 1:
+            h = jh.hist2d(jnp.asarray(x), jnp.asarray(y), w[:, 0], 32, 24,
+                          xl, yl)[..., None]
+        else:
+            h = jh.hist2d_rgb(jnp.asarray(x), jnp.asarray(y), w, 32, 24, xl,
+                              yl)
+        return jnp.sum(h * jnp.asarray(c))
+    ref = np.asarray(jax.grad(jloss)(jnp.asarray(W)))
+
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y)
+    tW = torch.from_numpy(W).requires_grad_(True)
+    if k == 1:
+        h = th.hist2d(tx, ty, tW[:, 0], 32, 24, xl, yl)[..., None]
+    else:
+        h = th.hist2d_rgb(tx, ty, tW, 32, 24, xl, yl)
+    assert h.grad_fn is not None
+    gW, gx = torch.autograd.grad((h * torch.from_numpy(c)).sum(), [tW, tx],
+                                 allow_unused=True)
+    assert gx is None
+    assert np.array_equal(gW.numpy(), ref)
+    # NaN, inf and v == hi are outside; v == lo (rows 2 and 6) is inside
+    assert float(gW[[0, 1, 3, 4, 5, 7]].abs().max()) == 0.0
+    direct = th.hist2d_bwd_plain(tx.detach(), ty, torch.from_numpy(c), 32,
+                                 24, xl, yl)
+    assert torch.equal(direct, gW)
+
+
+def test_backward_1d_and_no_launch_on_the_cpu():
+    x = torch.linspace(-1.5, 1.5, 1001, dtype=torch.float64)
+    w = torch.ones(1001, dtype=torch.float64, requires_grad=True)
+    before = dict(th.LAUNCHES)
+    h = th.hist1d(x, w, 16, (-1.0, 1.3))
+    g, = torch.autograd.grad((h * torch.arange(16.0, dtype=torch.float64))
+                             .sum(), [w])
+    inside = (x >= -1.0) & (x < 1.3)
+    assert torch.equal(g != 0, inside & (g != 0)) and float(g.max()) == 15.0
+    assert float(g[~inside].abs().max()) == 0.0
+    assert dict(th.LAUNCHES) == before

@@ -97,6 +97,26 @@ def test_no_port_file_names_jax():
     assert any(p.endswith('.cu') for p in paths)
 
 
+def test_the_guards_cover_every_kernel_source():
+    """Every source the port builds lies under ``xrt_tpu_torch/csrc`` (the
+    directory the text guard walks), with the adjoint kernels among them,
+    and every Python module of the package is among the files the import
+    and string guards read."""
+    from xrt_tpu_torch.ops import _cuda
+    csrc = os.path.join(ROOT, 'xrt_tpu_torch', 'csrc')
+    assert os.path.realpath(str(_cuda.CSRC)) == os.path.realpath(csrc)
+    for name in _cuda.SOURCES:
+        assert os.path.isfile(os.path.join(csrc, name + '.cu')), name
+    assert {'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
+            'hist2d'} <= set(_cuda.SOURCES)
+    assert sorted(f for f in os.listdir(csrc) if f.endswith('.cu')) == \
+        sorted(n + '.cu' for n in _cuda.SOURCES)
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    mods = {m.name.replace('.', os.sep) for m in pkgutil.walk_packages(
+        xrt_tpu_torch.__path__, 'xrt_tpu_torch.') if not m.ispkg}
+    assert {m + '.py' for m in mods} <= files
+
+
 def _docstrings(tree):
     out = set()
     for node in ast.walk(tree):

@@ -6,8 +6,10 @@ Port of the reference package's ``apertures.py`` (``RectangularAperture``,
 propagation phase to amplitudes and marks blocked rays dead through the
 ``state`` mask (or, with *softEdge*, attenuates them by a sigmoid of that
 width and keeps them alive).  Wave samples in the opening come from
-:func:`xrt_tpu_torch.waves.prepare_wave_on_aperture`.  Geometry is kept
-as Python floats.
+:func:`xrt_tpu_torch.waves.prepare_wave_on_aperture`.  The frame is kept
+as Python floats; the centre, the blade positions, the radius and the
+soft-edge width are Python floats, or the tensors that were passed in: the
+soft-edged ``propagate`` is differentiable with respect to them.
 """
 from __future__ import annotations
 
@@ -29,15 +31,16 @@ def _frame(x, z):
             tuple(float(c) for c in ez / np.linalg.norm(ez)))
 
 
-class _ApertureBase:
+class _ApertureBase(config.Replaceable):
     def __init__(self, center, ex, ez, name='', isBeamStop=False,
                  softEdge=None):
-        self.center = tuple(float(c) for c in center)
+        self.center = tuple(config.number(c) for c in center)
         self.ex, self.ez = ex, ez
         self.name = name
         self.isBeamStop = isBeamStop
         # smooth-edge width (mm)
-        self.softEdge = None if softEdge is None else float(softEdge)
+        self.softEdge = None if softEdge is None else \
+            config.number(softEdge)
 
     @property
     def ey(self):
@@ -103,8 +106,8 @@ class RectangularAperture(_ApertureBase):
 
     def __init__(self, center, ex, ez, left, right, bottom, top, **kw):
         super().__init__(center, ex, ez, **kw)
-        self.left, self.right = float(left), float(right)
-        self.bottom, self.top = float(bottom), float(top)
+        self.left, self.right = config.number(left), config.number(right)
+        self.bottom, self.top = config.number(bottom), config.number(top)
 
     @classmethod
     def create(cls, name='', center=(0, 0, 0),
@@ -133,10 +136,12 @@ class RectangularAperture(_ApertureBase):
         def edge(signed):   # signed distance into the opening
             return torch.sigmoid(torch.clamp(signed, -big, big) /
                                  self.softEdge)
-        return edge(x - max(self.left, -big)) * \
-            edge(min(self.right, big) - x) * \
-            edge(z - max(self.bottom, -big)) * \
-            edge(min(self.top, big) - z)
+
+        def blade(v):       # a tensor blade is finite and stays a tensor
+            return v if isinstance(v, torch.Tensor) else \
+                min(max(v, -big), big)
+        return edge(x - blade(self.left)) * edge(blade(self.right) - x) * \
+            edge(z - blade(self.bottom)) * edge(blade(self.top) - z)
 
 
 class RoundAperture(_ApertureBase):
@@ -144,7 +149,7 @@ class RoundAperture(_ApertureBase):
 
     def __init__(self, center, ex, ez, r, **kw):
         super().__init__(center, ex, ez, **kw)
-        self.r = float(r)
+        self.r = config.number(r)
 
     @classmethod
     def create(cls, name='', center=(0, 0, 0), r=1.0, x='auto', z='auto',

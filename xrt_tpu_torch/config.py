@@ -9,6 +9,8 @@ CUDA they raise unless the caller asked for the CPU with ``device='cpu'``.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 
 #: default photon energy, eV
@@ -58,6 +60,33 @@ def resolve_dtype(dtype=None) -> torch.dtype:
 def cdtype(dtype) -> torch.dtype:
     """The complex dtype matching a real *dtype*."""
     return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def number(v):
+    """A geometry parameter as an element stores it: a tensor stays the
+    tensor that was passed in (so a gradient can flow to it), any other
+    number becomes a Python float."""
+    return v if isinstance(v, torch.Tensor) else float(v)
+
+
+def host_float(v) -> float:
+    """The detached Python float of a parameter, for the host geometry."""
+    return float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
+
+
+class Replaceable:
+    """``replace(**updates)``: a shallow copy with some attributes set, as
+    the reference package's elements have it.  A tensor that is passed in is
+    kept as it is."""
+
+    def replace(self, **updates):
+        new = copy.copy(self)
+        for name, value in updates.items():
+            if not hasattr(new, name):
+                raise AttributeError(
+                    f'{type(self).__name__} has no parameter {name!r}')
+            setattr(new, name, value)
+        return new
 
 
 def auto_units_angle(angle, defaultFactor=1.0):

@@ -21,6 +21,14 @@
 // (histogram._bin_index): floor((v - lo) / span * bins) with separate
 // subtract, divide and multiply (the build has --fmad=false), inside when
 // 0 <= index < bins and v is finite; v == hi is outside.
+//
+// The backward (hist2d_bwd_kernel) is the adjoint with respect to the
+// weights: a gather, wbar[i, :] = g[iy(i), ix(i), :] for a ray inside the
+// limits and 0 otherwise, one thread per ray.  It recomputes both bin
+// indices with the forward's expression, operation for operation, so a ray
+// reads the bin it was added to.  The coordinates and the limits get no
+// gradient (floor).  Bound: bytes, 4 * (2 + k) per ray (x, y read, k
+// cotangents written) plus the gathered bins.
 #include <cuda_runtime.h>
 
 namespace {
@@ -74,6 +82,53 @@ hist2d_kernel(const T* __restrict__ x, const T* __restrict__ y,
       if (v != T(0)) atomicAdd(&out[i], v);
     }
   }
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(THREADS)
+hist2d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                  const T* __restrict__ g, long long n, T xlo, T xspan,
+                  int xbins, T ylo, T yspan, int ybins,
+                  T* __restrict__ wbar) {
+  const T xb = static_cast<T>(xbins), yb = static_cast<T>(ybins);
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const T xv = x[i];
+    const T fx = floor((xv - xlo) / xspan * xb);
+    bool inside = fx >= T(0) && fx < xb && isfinite(xv);
+    int bin = 0;
+    if (y != nullptr) {
+      const T yv = y[i];
+      const T fy = floor((yv - ylo) / yspan * yb);
+      inside = inside && fy >= T(0) && fy < yb && isfinite(yv);
+      if (inside) bin = static_cast<int>(fy) * xbins;
+    }
+    if (inside) bin = (bin + static_cast<int>(fx)) * K;
+#pragma unroll
+    for (int j = 0; j < K; ++j) wbar[i * K + j] = inside ? g[bin + j] : T(0);
+  }
+}
+
+template <typename T, int K>
+int launch_bwd(const void* x, const void* y, const void* g, long long n,
+               double xlo, double xspan, int xbins, double ylo, double yspan,
+               int ybins, void* wbar, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (n + THREADS - 1) / THREADS;
+  if (blocks > static_cast<long long>(sms) * 2)
+    blocks = static_cast<long long>(sms) * 2;
+  hist2d_bwd_kernel<T, K><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(g), n, static_cast<T>(xlo),
+      static_cast<T>(xspan), xbins, static_cast<T>(ylo),
+      static_cast<T>(yspan), ybins, static_cast<T*>(wbar));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int K>
@@ -138,5 +193,30 @@ extern "C" int hist2d_launch(int is_double, int k, const void* x,
   if (is_double && k == 1) XRT_HIST_CASE(double, 1);
   if (is_double && k == 3) XRT_HIST_CASE(double, 3);
 #undef XRT_HIST_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The adjoint with respect to the weights.  x, y, the limits and the bin
+// counts as in hist2d_launch; g: (ybins, xbins, k), the cotangent of the
+// histogram; wbar: (n, k), written in full.  Returns cudaGetLastError()
+// after the launch.
+extern "C" int hist2d_bwd_launch(int is_double, int k, const void* x,
+                                 const void* y, const void* g, long long n,
+                                 double xlo, double xspan, int xbins,
+                                 double ylo, double yspan, int ybins,
+                                 void* wbar, void* stream) {
+  if (n <= 0) return 0;
+  if (xbins <= 0 || ybins <= 0 || (y == nullptr && ybins != 1) ||
+      static_cast<long long>(xbins) * ybins * k > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define XRT_HIST_BWD_CASE(T, K)                                            \
+  return launch_bwd<T, K>(x, y, g, n, xlo, xspan, xbins, ylo, yspan, ybins, \
+                          wbar, s)
+  if (!is_double && k == 1) XRT_HIST_BWD_CASE(float, 1);
+  if (!is_double && k == 3) XRT_HIST_BWD_CASE(float, 3);
+  if (is_double && k == 1) XRT_HIST_BWD_CASE(double, 1);
+  if (is_double && k == 3) XRT_HIST_BWD_CASE(double, 3);
+#undef XRT_HIST_BWD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -36,8 +36,9 @@
 
 #include "dd.cuh"
 
-// by-value scalars (ops/kirchhoff.py _PARAM_KEYS); the TPU kernel kept
-// them in SMEM
+// the ten scalars of ops/kirchhoff.py _PARAM_KEYS, read from a small device
+// buffer (the TPU kernel kept them in SMEM): they are computed on the card
+// and never travel to the host
 struct KirchhoffRecentredParams {
   float Cx, Cy, Cz, Lx, Ly, Lz, rho, invR0, kappa_h, kappa_l;
 };
@@ -66,10 +67,13 @@ template <int V>
 __global__ void __launch_bounds__(BLOCK)
 kirchhoff_recentred_kernel(const float* __restrict__ dst, int nd,
                            const float* __restrict__ src, int ns_pad,
-                           Params p, float* __restrict__ out) {
+                           const float* __restrict__ params,
+                           float* __restrict__ out) {
   constexpr int NDK = Keys<V>::nd;
   constexpr int NSK = Keys<V>::ns;
   __shared__ float sh[NSK][CHUNK];
+  const Params p{params[0], params[1], params[2], params[3], params[4],
+                 params[5], params[6], params[7], params[8], params[9]};
 
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool live = i < nd;
@@ -170,11 +174,11 @@ kirchhoff_recentred_kernel(const float* __restrict__ dst, int nd,
 }  // namespace
 
 // dst: (ndkeys, nd) f32; src: (nskeys, ns_pad) f32 with ns_pad a multiple
-// of CHUNK; out: (10, nd) f32.  Returns cudaGetLastError() after launch.
+// of CHUNK; params: (10,) f32 on the device; out: (10, nd) f32.  Returns
+// cudaGetLastError() after launch.
 extern "C" int kirchhoff_recentred_launch(int variant, const float* dst,
                                           int nd, const float* src,
-                                          int ns_pad,
-                                          KirchhoffRecentredParams p,
+                                          int ns_pad, const float* p,
                                           float* out,
                                           void* stream) {
   if (nd <= 0) return 0;

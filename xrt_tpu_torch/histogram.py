@@ -15,6 +15,15 @@ is its ``ybins = 1`` case):
 * on CPU tensors :func:`hist2d_plain` does the same index arithmetic in
   torch and ``index_add_`` on the flat index.
 
+Histograms are differentiable with respect to the weights (the
+coordinates and the limits get no gradient: ``floor``).  The adjoint is a
+gather, ``Wbar[i, :] = g[iy(i), ix(i), :]`` for a ray inside the limits
+and 0 otherwise: on CUDA tensors the hand-written kernel
+:func:`hist2d_bwd_kernel` (one thread per ray, the forward's bin formula
+operation for operation), on CPU tensors :func:`hist2d_bwd_plain`
+(advanced indexing).  Both directions go through one
+``torch.autograd.Function``.
+
 Bin index, in both: ``floor((v - lo) / (hi - lo) * bins)`` as separate
 subtract, divide and multiply in the tensors' dtype.  The reference
 package has two formulas (its scatter path divides by the span, its MXU
@@ -43,6 +52,8 @@ _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 +
              [ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
               ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
               ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+# the adjoint's entry: the same without the variant flag
+_BWD_ARGTYPES = _ARGTYPES[:13] + [ctypes.c_void_p]
 
 
 def _bin_index(v, limits, bins):
@@ -136,10 +147,77 @@ def hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits=None,
     return out
 
 
+def hist2d_bwd_plain(x, y, g, xbins, ybins, xlimits, ylimits=None):
+    """The plain version of the adjoint with respect to the weights: the
+    histogram cotangent *g* (ybins, xbins, k) gathered at every ray's bin by
+    advanced indexing, zero for rays outside the limits; returns (N, k)."""
+    fx, inside = _bin_index(x, xlimits, xbins)
+    flat = fx
+    if y is not None:
+        fy, iny = _bin_index(y, ylimits, ybins)
+        inside = inside & iny
+        flat = fy * xbins + fx
+    flat = torch.where(inside, flat, torch.zeros_like(flat)).long()
+    k = g.shape[-1]
+    return torch.where(inside[:, None], g.reshape(-1, k)[flat],
+                       g.new_zeros(()))
+
+
+def hist2d_bwd_kernel(x, y, g, xbins, ybins, xlimits, ylimits=None):
+    """The CUDA adjoint kernel: the same function as
+    :func:`hist2d_bwd_plain` on CUDA tensors, one thread per ray.  Raises
+    on anything the kernel does not take and on a failed launch."""
+    from .ops import _cuda
+    k = g.shape[-1]
+    if x.device.type != 'cuda' or g.device != x.device:
+        raise ValueError('hist2d_bwd_kernel takes CUDA tensors on one '
+                         'device')
+    if g.dtype != x.dtype or tuple(g.shape) != (ybins, xbins, k) or \
+            k not in (1, 3):
+        raise ValueError('histogram cotangent must be (ybins, xbins, 1 or '
+                         f'3) of {x.dtype}, not {tuple(g.shape)} of '
+                         f'{g.dtype}')
+    x, g = x.contiguous(), g.contiguous()
+    y = None if y is None else y.contiguous()
+    xlo, xhi = float(xlimits[0]), float(xlimits[1])
+    ylo, yhi = (0.0, 1.0) if y is None else \
+        (float(ylimits[0]), float(ylimits[1]))
+    out = torch.empty((x.shape[0], k), dtype=x.dtype, device=x.device)
+    fn = _cuda.entry('hist2d', 'hist2d_bwd_launch', _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(int(x.dtype == torch.float64), k, x.data_ptr(),
+                 None if y is None else y.data_ptr(), g.data_ptr(),
+                 x.shape[0], xlo, xhi - xlo, xbins, ylo, yhi - ylo, ybins,
+                 out.data_ptr(), _cuda.stream_ptr(x.device))
+    _cuda.check(err, 'hist2d_bwd')
+    LAUNCHES[f'hist2d_bwd:k{k}'] += 1
+    return out
+
+
+class _Hist2d(torch.autograd.Function):
+    """The weighted histogram with its adjoint in the weights: kernels on
+    CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, W, x, y, xbins, ybins, xlimits, ylimits):
+        ctx.save_for_backward(x, y)
+        ctx.spec = (xbins, ybins, xlimits, ylimits)
+        if x.device.type == 'cpu':
+            return hist2d_plain(x, y, W, xbins, ybins, xlimits, ylimits)
+        return hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        fn = hist2d_bwd_plain if x.device.type == 'cpu' else \
+            hist2d_bwd_kernel
+        return (fn(x, y, g, *ctx.spec),) + (None,) * 6
+
+
 def _hist(x, y, W, xbins, ybins, xlimits, ylimits=None):
-    if x.device.type == 'cpu':
-        return hist2d_plain(x, y, W, xbins, ybins, xlimits, ylimits)
-    return hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits)
+    return _Hist2d.apply(W, x.detach(), None if y is None else y.detach(),
+                         xbins, ybins, xlimits, ylimits)
 
 
 def hist1d(x, weights, bins: int, limits):

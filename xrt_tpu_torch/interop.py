@@ -56,6 +56,19 @@ def wave_from_numpy(arrays, device=None, dtype=None, fromOE=None,
                 toOE=toOE)
 
 
+def cotangents_from_numpy(arrays, device=None, dtype=None) -> dict:
+    """{field: tensor} of the cotangents of some beam or wave fields, from
+    the reference package's gradient of a real loss with respect to a beam
+    (a mapping of field name -> array), in PyTorch's convention: the
+    reference returns the cotangent of a complex field as
+    dL/dRe - i dL/dIm, a tensor's ``.grad`` is dL/dRe + i dL/dIm, so
+    complex fields are conjugated."""
+    from .waves import Wave
+    conj = {k: np.conj(v) if np.iscomplexobj(v) else v
+            for k, v in arrays.items()}
+    return _tensors(Wave, conj, device, dtype)
+
+
 def to_numpy(obj) -> dict:
     """{field: numpy array} of the tensor fields of a Beam or Wave (the
     inverse of :func:`beam_from_numpy` / :func:`wave_from_numpy`)."""

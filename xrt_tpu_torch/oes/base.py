@@ -156,10 +156,14 @@ def _fvec(v):
     return None if v is None else tuple(float(c) for c in v)
 
 
-class OE:
+class OE(config.Replaceable):
     """A general optical element.  Subclasses define the surface through
-    ``local_z``/``local_n``.  Placement angles and limits are Python
-    floats; material tables are tensors on the material's device."""
+    ``local_z``/``local_n``.  Limits are Python floats.  The centre, the
+    placement angles and a subclass's radii are Python floats, or the
+    tensors that were passed in (to ``create``, the constructor or
+    ``replace``): a gradient then flows to them through ``reflect``.  The
+    host geometry of the wave samplers reads their detached values.
+    Material tables are tensors on the material's device."""
 
     isParametric = False
 
@@ -171,7 +175,7 @@ class OE:
                  extraRotationSequence='RzRyRx', order=1, curSurface=0,
                  overEdge='ymax', auto_material_kind='mirror'):
         self.name = name
-        self.center = tuple(float(c) for c in center)
+        self.center = tuple(config.number(c) for c in center)
         self.pitch, self.roll, self.yaw = pitch, roll, yaw
         self.positionRoll = positionRoll
         self.bragg_ = bragg_
@@ -208,8 +212,9 @@ class OE:
 
         def ang(v):
             v = config.auto_units_angle(v)
-            return None if v is None else float(v)
-        hasExtra = any(v for v in (extraPitch, extraRoll, extraYaw))
+            return None if v is None else config.number(v)
+        hasExtra = any(isinstance(v, torch.Tensor) or v
+                       for v in (extraPitch, extraRoll, extraYaw))
         return cls(name=name, center=center, pitch=ang(pitch),
                    roll=ang(roll), yaw=ang(yaw),
                    positionRoll=ang(positionRoll), bragg_=ang(bragg),

@@ -2,7 +2,8 @@
 sagittally cylindrical and conical, with the Coddington helpers.
 
 Port of the reference package's ``oes/mirrors.py``.  Radii and angles are
-Python floats.  ``DualVFM`` and the tripod support come with ROADMAP A8.
+Python floats, or the tensors that were passed in.  ``DualVFM`` and the
+tripod support come with ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -10,18 +11,20 @@ import math
 
 import torch
 
+from .. import config
 from ..ops.dd import sqrt_rn
+from ..transforms import sin
 from .base import OE
 
 
 def rmer_from_coddington(p, q, pitch):
     """Meridional radius 2pq/(p+q)/sin(pitch)."""
-    return 2 * p * q / (p + q) / math.sin(abs(pitch))
+    return 2 * p * q / (p + q) / sin(abs(pitch))
 
 
 def rsag_from_coddington(p, q, pitch):
     """Sagittal radius 2pq/(p+q)*sin(pitch)."""
-    return 2 * p * q / (p + q) * math.sin(abs(pitch))
+    return 2 * p * q / (p + q) * sin(abs(pitch))
 
 
 def _resolve_R(R, pitch):
@@ -29,9 +32,9 @@ def _resolve_R(R, pitch):
         if len(R) == 3:
             return rmer_from_coddington(R[0], R[1], R[2])
         return rmer_from_coddington(R[0], R[1], pitch)
-    if R in (0, None):
+    if not isinstance(R, torch.Tensor) and R in (0, None):
         return 1e100
-    return float(R)
+    return config.number(R)
 
 
 def _resolve_r(r, pitch):
@@ -39,9 +42,9 @@ def _resolve_r(r, pitch):
         if len(r) == 3:
             return rsag_from_coddington(r[0], r[1], r[2])
         return rsag_from_coddington(r[0], r[1], pitch)
-    if r in (0, None):
+    if not isinstance(r, torch.Tensor) and r in (0, None):
         return 1e100
-    return float(r)
+    return config.number(r)
 
 
 class FlatMirror(OE):

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / \
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
 #: kernel sources, one shared library each
-SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase', 'dd_selftest',
+SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
+           'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
            'hist2d')
 
 

@@ -97,19 +97,43 @@ def div(ahi, alo, bhi, blo):
     return quick_two_sum(q1, q2)
 
 
+class _SqrtRN(torch.autograd.Function):
+    """numpy's correctly rounded root of a CPU tensor, with the derivative
+    of a root (0.5 / y) in reverse and in forward mode.  The forward bits
+    are the same whether or not a gradient is asked for."""
+
+    @staticmethod
+    def forward(x):
+        with np.errstate(invalid='ignore'):     # NaN below 0, as torch
+            return torch.from_numpy(
+                np.asarray(np.sqrt(x.detach().numpy())))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return 0.5 * g / y
+
+    @staticmethod
+    def jvp(ctx, t):
+        y, = ctx.saved_tensors
+        return 0.5 * t / y
+
+
 def sqrt_rn(x):
     """Correctly rounded square root.  PyTorch's vectorized CPU sqrt is off
     by one ulp on a fraction of a percent of float32 and float64 inputs;
     the double-float code and the float64 Kirchhoff phase need the IEEE
     result (one ulp of r is ~1e-6 rad at k r ~ 1e10).  On the CPU the root
-    is taken by numpy; on the card torch's sqrt is IEEE already."""
-    if x.device.type == 'cpu' and not x.requires_grad:
-        try:
-            arr = x.numpy()
-        except RuntimeError:    # no storage: inside a torch.func transform
-            return torch.sqrt(x)
-        with np.errstate(invalid='ignore'):     # NaN below 0, as torch
-            return torch.from_numpy(np.asarray(np.sqrt(arr)))
+    is taken by numpy inside an autograd function, so a forward value does
+    not change when a gradient is asked for; on the card torch's sqrt is
+    IEEE already."""
+    if x.device.type == 'cpu':
+        return _SqrtRN.apply(x)
     return torch.sqrt(x)
 
 

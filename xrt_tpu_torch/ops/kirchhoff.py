@@ -32,6 +32,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..physconsts import PI
 from . import dd
@@ -186,19 +187,24 @@ def kirchhoff_integral_dd(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     Positional args xd..zs and k are (hi, lo) tuples of f32 tensors;
     Es/Ep complex64; n a 3-list over src; nl, weights f32 over src.
     *phase_mode* 'exact' (renormalized dd chain, radian phase, cos/sin) or
-    'fast' (:func:`_phase_dd_fast`).  Returns complex64 (Es, Ep, aE, bE,
-    cE) over dst."""
+    'fast' (:func:`_phase_dd_fast`).  Returns complex64 (Es, Ep, aE, bE, cE)
+    over dst."""
     if phase_mode not in ('fast', 'exact'):
         raise ValueError(f'phase_mode {phase_mode!r}')
     dst, src = ddphase_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                               weights, phase_mode)
-    return _chunked_sum(dst, src, src_chunk,
-                        lambda d, s: _ddphase_pair(d, s, phase_mode))
+    return _complex5(_chunked_sum(
+        dst, src, src_chunk, lambda d, s: _ddphase_pair(d, s, phase_mode)))
 
 
 def _chunked_sum(dst, src, src_chunk, pair_fn):
-    """Sum the per-pair factors of *pair_fn* over source chunks (sources
-    zero-padded: zero weights and fields contribute nothing)."""
+    """The ten real sums of the per-pair factors of *pair_fn* over source
+    chunks (sources zero-padded: zero weights and fields contribute
+    nothing).  While autograd records, each chunk's body runs under
+    ``torch.utils.checkpoint``: the tape then keeps the (Nd,) chunk sums
+    only and recomputes the (Nd, chunk) intermediates of one chunk at a
+    time in the backward pass, instead of holding those of every chunk.
+    The values are the same either way."""
     Ns = next(iter(src.values())).shape[0]
     Nd = next(iter(dst.values())).shape[0]
     some = next(iter(dst.values()))
@@ -208,12 +214,19 @@ def _chunked_sum(dst, src, src_chunk, pair_fn):
     dcol = {kk: v[:, None] for kk, v in dst.items()}
     acc = [torch.zeros((Nd,), dtype=some.dtype, device=some.device)
            for _ in range(10)]
+
+    def chunk_sums(srow):
+        return _pair_sums(*pair_fn(dcol, srow), srow, 1)
     for j in range(0, Ns + npad, chunk):
         srow = {kk: v[None, j:j + chunk] for kk, v in srcp.items()}
-        vals = pair_fn(dcol, srow)
-        acc = _accumulate(acc, *vals, srow, 1)
-    return (_cx(acc[0], acc[1]), _cx(acc[2], acc[3]), _cx(acc[4], acc[5]),
-            _cx(acc[6], acc[7]), _cx(acc[8], acc[9]))
+        if torch.is_grad_enabled():
+            part = torch.utils.checkpoint.checkpoint(
+                chunk_sums, srow, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            part = chunk_sums(srow)
+        acc = [a + p for a, p in zip(acc, part)]
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -484,19 +497,21 @@ def _mode_keys(monochromatic, narrowband):
     return _DST_KEYS_POLY, _SRC_KEYS_POLY
 
 
-def _accumulate(acc, U_r, U_i, g_r, g_i, ax, ay, az, s, axis):
+def _pair_sums(U_r, U_i, g_r, g_i, ax, ay, az, s, axis):
+    """The ten sums of one chunk: Es, Ep (re, im) and the three direction
+    integrals (re, im)."""
     esr, esi = s['esr'], s['esi']
     epr, epi = s['epr'], s['epi']
-    return (acc[0] + torch.sum(esr * U_r - esi * U_i, dim=axis),
-            acc[1] + torch.sum(esr * U_i + esi * U_r, dim=axis),
-            acc[2] + torch.sum(epr * U_r - epi * U_i, dim=axis),
-            acc[3] + torch.sum(epr * U_i + epi * U_r, dim=axis),
-            acc[4] + torch.sum(g_r * ax, dim=axis),
-            acc[5] + torch.sum(g_i * ax, dim=axis),
-            acc[6] + torch.sum(g_r * ay, dim=axis),
-            acc[7] + torch.sum(g_i * ay, dim=axis),
-            acc[8] + torch.sum(g_r * az, dim=axis),
-            acc[9] + torch.sum(g_i * az, dim=axis))
+    return (torch.sum(esr * U_r - esi * U_i, dim=axis),
+            torch.sum(esr * U_i + esi * U_r, dim=axis),
+            torch.sum(epr * U_r - epi * U_i, dim=axis),
+            torch.sum(epr * U_i + epi * U_r, dim=axis),
+            torch.sum(g_r * ax, dim=axis),
+            torch.sum(g_i * ax, dim=axis),
+            torch.sum(g_r * ay, dim=axis),
+            torch.sum(g_i * ay, dim=axis),
+            torch.sum(g_r * az, dim=axis),
+            torch.sum(g_i * az, dim=axis))
 
 
 def kirchhoff_integral_recentred(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
@@ -509,93 +524,334 @@ def kirchhoff_integral_recentred(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
         xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights, monochromatic,
         narrowband)
     dkeys, skeys = _mode_keys(monochromatic, narrowband)
-    return _chunked_sum(
+    return _complex5(_chunked_sum(
         {kk: dst[kk] for kk in dkeys}, {kk: src[kk] for kk in skeys},
         src_chunk,
         lambda d, s: _recentred_pair(d, s, params, monochromatic,
-                                     narrowband))
+                                     narrowband)))
 
 
 # ---------------------------------------------------------------------------
-# the kernel wrapper
+# the kernel wrappers: forward, adjoint, and the autograd functions
 # ---------------------------------------------------------------------------
+#
+# The differentiable boundary is the per-point structure of arrays: the
+# destination keys D (rows over Nd), the source keys S (rows over Ns) and,
+# for the recentred scheme, the ten scalars P.  The O(N) double-float
+# preparation above is plain torch under ordinary autograd; the O(Nd Ns)
+# part is one ``torch.autograd.Function`` per scheme.  Its forward saves D,
+# S and P only; its backward recomputes every pair.  On CUDA tensors forward
+# and backward are the hand-written kernels of ``csrc/``; on CPU tensors
+# they are the plain versions (:func:`_plain_rows`,
+# :func:`kirchhoff_bwd_blocked`).
+#
+# Complex fields cross the boundary as their re/im rows, split and joined by
+# ordinary torch operations, so a complex input's ``.grad`` follows
+# PyTorch's convention dL/dRe + i dL/dIm (the reference package returns its
+# conjugate, dL/dRe - i dL/dIm).
 
-#: sources per shared-memory stage of both CUDA kernels (csrc: CHUNK);
-#: the wrappers zero-pad the sources to a multiple of it
+#: sources per shared-memory stage of the CUDA kernels (csrc: CHUNK); the
+#: wrappers zero-pad the sources to a multiple of it
 KERNEL_SRC_CHUNK = 256
+#: threads per block of the CUDA kernels (csrc: BLOCK): the dst pass of the
+#: recentred adjoint writes one row of scalar partials per block
+KERNEL_BLOCK = 128
 _RECENTRED_VARIANTS = {'mono': 0, 'narrowband': 1, 'poly': 2}
 _DD_VARIANTS = {'fast': 0, 'exact': 1}
+_RECENTRED_NAMES = {v: kk for kk, v in _RECENTRED_VARIANTS.items()}
+_DD_NAMES = {v: kk for kk, v in _DD_VARIANTS.items()}
+_RECENTRED_KEYS = {0: _mode_keys(True, False), 1: _mode_keys(False, True),
+                   2: _mode_keys(False, False)}
 
+#: destinations per block and sources per chunk of the plain backward
+#: (:func:`kirchhoff_bwd_blocked`), by device type, chosen by measurement.
+#: A block keeps ~50 live (block, chunk) f32 intermediates of one
+#: checkpointed chunk.  On an H100 80GB HBM3 (700 W) at 8192 x 16384,
+#: recentred mono (``chip_smoke.py --sweep-plain-blocks``): 2048 x 512
+#: 1658 ms (peak 0.21 GiB), 4096 x 1024 378 ms (0.80 GiB), 8192 x 512
+#: 543 ms (0.80 GiB), 8192 x 2048 216 ms (3.19 GiB): eager launches
+#: dominate, so the largest block wins.  On the CPU wide blocks with short
+#: chunks were the fastest of those tried.
+GRAD_DST_BLOCK = {'cpu': 2048, 'cuda': 8192}
+GRAD_SRC_CHUNK = {'cpu': 256, 'cuda': 2048}
 
-class _RecentredParams(ctypes.Structure):
-    _fields_ = [(kk, ctypes.c_float) for kk in _PARAM_KEYS]
-
-
+_P = ctypes.c_void_p
 # (variant, dst, nd, src, ns_pad[, params], out, stream) of the C entries
-_RECENTRED_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, _RecentredParams,
-                       ctypes.c_void_p, ctypes.c_void_p]
-_DDPHASE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p]
+_RECENTRED_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                       _P, _P, _P]
+_DDPHASE_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P,
+                     _P]
+# (variant, dst, nd, src, ns_pad[, params], gout, ddst, dsrc[, ppart],
+#  stream)
+_RECENTRED_BWD_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                           _P, _P, _P, _P, _P, _P]
+_DDPHASE_BWD_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                         _P, _P, _P, _P]
 
 
-def _soa(d, keys, npad=0):
-    """(len(keys), N + npad) contiguous f32 CUDA structure-of-arrays, zero
-    padded; raises on what the kernels do not take."""
-    dev = d[keys[0]].device
-    for kk in keys:
-        t = d[kk]
+def _soa(d, keys):
+    """(len(keys), N) structure of arrays of the per-point keys."""
+    return torch.stack([d[kk] for kk in keys])
+
+
+def _param_vector(params, like):
+    """(10,) tensor of the recentred scalars in :data:`_PARAM_KEYS` order
+    (zeros for those a variant does not have), on the device: no value
+    travels to the host."""
+    zero = torch.zeros((), dtype=like.dtype, device=like.device)
+    return torch.stack([params.get(kk, zero) for kk in _PARAM_KEYS])
+
+
+def _check_kernel_inputs(*tensors):
+    """Raise on what the CUDA kernels do not take."""
+    dev = tensors[0].device
+    for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f'the Kirchhoff kernels take float32, not '
-                            f'{t.dtype} ({kk})')
+                            f'{t.dtype}')
         if t.device != dev or dev.type != 'cuda':
-            raise ValueError(f'Kirchhoff kernel input {kk} on {t.device}, '
-                             f'expected one CUDA device')
-    return torch.stack([_pad(d[kk], npad) for kk in keys]).contiguous()
+            raise ValueError(f'Kirchhoff kernel input on {t.device}, '
+                             f'expected one CUDA device ({dev})')
+    return dev
 
 
-def _launch_recentred(dst, src, params, variant, Nd, Ns):
+def _pad_sources(S):
+    """*S* zero-padded along its last axis to a multiple of
+    :data:`KERNEL_SRC_CHUNK`, contiguous."""
+    npad = (-S.shape[1]) % KERNEL_SRC_CHUNK
+    if npad:
+        S = torch.cat([S, S.new_zeros((S.shape[0], npad))], dim=1)
+    return S.contiguous()
+
+
+def _launch_recentred(D, S, P, variant):
+    """Kernel B1 on the structure of arrays *D* (6 or 8, Nd), *S* (20, 23 or
+    24, Ns padded to the kernel's chunk) and the scalars *P* (10,), all f32
+    on one CUDA device.  Returns the ten sums (10, Nd)."""
     from . import _cuda
-    dkeys, skeys = {0: _mode_keys(True, False),
-                    1: _mode_keys(False, True),
-                    2: _mode_keys(False, False)}[variant]
-    npad = (-Ns) % KERNEL_SRC_CHUNK
-    D = _soa(dst, dkeys)
-    S = _soa(src, skeys, npad)
-    if S.device != D.device:
-        raise ValueError('Kirchhoff sources and destinations on two devices')
-    dev = D.device
+    dev = _check_kernel_inputs(D, S, P)
+    D, S, P = D.contiguous(), S.contiguous(), P.contiguous()
+    Nd = D.shape[1]
     out = torch.empty((10, Nd), dtype=torch.float32, device=dev)
-    p = _RecentredParams(*[float(params[kk]) if kk in params else 0.0
-                           for kk in _PARAM_KEYS])
     fn = _cuda.entry('kirchhoff_recentred', 'kirchhoff_recentred_launch',
                      _RECENTRED_ARGTYPES)
-    err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), Ns + npad, p,
-             out.data_ptr(), _cuda.stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
+                 P.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, 'kirchhoff_recentred')
-    name = {v: k for k, v in _RECENTRED_VARIANTS.items()}[variant]
-    LAUNCHES[f'kirchhoff_recentred:{name}'] += 1
+    LAUNCHES[f'kirchhoff_recentred:{_RECENTRED_NAMES[variant]}'] += 1
     return out
 
 
-def _launch_ddphase(dst, src, variant, Nd, Ns):
+def _launch_ddphase(D, S, variant):
+    """Kernel B2 on *D* (6, Nd) and *S* (20, Ns padded); (10, Nd)."""
     from . import _cuda
-    npad = (-Ns) % KERNEL_SRC_CHUNK
-    D = _soa(dst, _DD_DST_KEYS)
-    S = _soa(src, _DD_SRC_KEYS, npad)
-    if S.device != D.device:
-        raise ValueError('Kirchhoff sources and destinations on two devices')
-    dev = D.device
+    dev = _check_kernel_inputs(D, S)
+    D, S = D.contiguous(), S.contiguous()
+    Nd = D.shape[1]
     out = torch.empty((10, Nd), dtype=torch.float32, device=dev)
     fn = _cuda.entry('kirchhoff_ddphase', 'kirchhoff_ddphase_launch',
                      _DDPHASE_ARGTYPES)
-    err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), Ns + npad,
-             out.data_ptr(), _cuda.stream_ptr(dev))
+    with torch.cuda.device(dev):
+        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
+                 out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, 'kirchhoff_ddphase')
-    name = {v: k for k, v in _DD_VARIANTS.items()}[variant]
-    LAUNCHES[f'kirchhoff_ddphase:{name}'] += 1
+    LAUNCHES[f'kirchhoff_ddphase:{_DD_NAMES[variant]}'] += 1
     return out
+
+
+def _launch_recentred_bwd(D, S, P, G, variant):
+    """The adjoint kernels of B1 (``csrc/kirchhoff_recentred_bwd.cu``: a dst
+    pass and a src pass): cotangents (of D, of the padded S, of P) for the
+    output cotangents *G* (10, Nd).  The scalars' block partials are summed
+    in float64."""
+    from . import _cuda
+    dev = _check_kernel_inputs(D, S, P, G)
+    D, S, P, G = D.contiguous(), S.contiguous(), P.contiguous(), \
+        G.contiguous()
+    Nd = D.shape[1]
+    bD = torch.empty_like(D)
+    bS = torch.empty_like(S)
+    nblk = -(-Nd // KERNEL_BLOCK)
+    parts = torch.empty((nblk, len(_PARAM_KEYS)), dtype=torch.float64,
+                        device=dev)
+    fn = _cuda.entry('kirchhoff_recentred_bwd',
+                     'kirchhoff_recentred_bwd_launch',
+                     _RECENTRED_BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
+                 P.data_ptr(), G.data_ptr(), bD.data_ptr(), bS.data_ptr(),
+                 parts.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, 'kirchhoff_recentred_bwd')
+    LAUNCHES[f'kirchhoff_recentred_bwd:{_RECENTRED_NAMES[variant]}'] += 1
+    return bD, bS, parts.sum(dim=0).to(torch.float32)
+
+
+def _launch_ddphase_bwd(D, S, G, variant):
+    """The adjoint kernels of B2 (``csrc/kirchhoff_ddphase_bwd.cu``):
+    cotangents (of D, of the padded S)."""
+    from . import _cuda
+    dev = _check_kernel_inputs(D, S, G)
+    D, S, G = D.contiguous(), S.contiguous(), G.contiguous()
+    Nd = D.shape[1]
+    bD = torch.empty_like(D)
+    bS = torch.empty_like(S)
+    fn = _cuda.entry('kirchhoff_ddphase_bwd', 'kirchhoff_ddphase_bwd_launch',
+                     _DDPHASE_BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
+                 G.data_ptr(), bD.data_ptr(), bS.data_ptr(),
+                 _cuda.stream_ptr(dev))
+    _cuda.check(err, 'kirchhoff_ddphase_bwd')
+    LAUNCHES[f'kirchhoff_ddphase_bwd:{_DD_NAMES[variant]}'] += 1
+    return bD, bS
+
+
+def _kernel_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights,
+                   mode):
+    """(scheme, variant, D, S, P) of the twelve inputs at the kernels'
+    boundary: the per-point structure of arrays after the O(N)
+    double-float preparation (plain differentiable torch).  *mode* 'mono',
+    'narrowband' or 'poly' (scheme 'recentred') or 'fast' or 'exact'
+    (scheme 'ddphase', P None)."""
+    if mode in _RECENTRED_VARIANTS:
+        variant = _RECENTRED_VARIANTS[mode]
+        dst, src, params = recentre_kirchhoff_inputs(
+            xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights,
+            mode == 'mono', mode == 'narrowband')
+        dkeys, skeys = _RECENTRED_KEYS[variant]
+        return ('recentred', variant, _soa(dst, dkeys), _soa(src, skeys),
+                _param_vector(params, xd[0]))
+    dst, src = ddphase_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
+                              weights, mode)
+    return ('ddphase', _DD_VARIANTS[mode], _soa(dst, _DD_DST_KEYS),
+            _soa(src, _DD_SRC_KEYS), None)
+
+
+def _plain_rows(scheme, variant, D, S, P=None, src_chunk=None):
+    """The plain version of kernels B1 / B2 at their own boundary: the ten
+    sums (10, Nd) from the structure of arrays.  *scheme* 'recentred'
+    (*variant* 0 mono, 1 narrowband, 2 poly; scalars *P*) or 'ddphase'
+    (0 'fast', 1 'exact')."""
+    if scheme == 'recentred':
+        dkeys, skeys = _RECENTRED_KEYS[variant]
+        params = {kk: P[i] for i, kk in enumerate(_PARAM_KEYS)}
+
+        def pair(d, s):
+            return _recentred_pair(d, s, params, variant == 0, variant == 1)
+    else:
+        dkeys, skeys = _DD_DST_KEYS, _DD_SRC_KEYS
+        mode = _DD_NAMES[variant]
+
+        def pair(d, s):
+            return _ddphase_pair(d, s, mode)
+    dst = {kk: D[i] for i, kk in enumerate(dkeys)}
+    src = {kk: S[i] for i, kk in enumerate(skeys)}
+    return torch.stack(_chunked_sum(dst, src, src_chunk, pair))
+
+
+def kirchhoff_bwd_blocked(scheme, variant, D, S, P, G, dst_block=None,
+                          src_chunk=None):
+    """The plain version of the adjoint kernels: cotangents (of D, of S, of
+    P; None for 'ddphase') of :func:`_plain_rows` for the output cotangents
+    *G* (10, Nd).
+
+    A loop over destination blocks; each block runs ``torch.autograd.grad``
+    through the plain forward, whose source chunks are checkpointed
+    (:func:`_chunked_sum`), so the live memory is O(dst_block x src_chunk),
+    not O(Nd x Ns).  *dst_block* and *src_chunk* default to
+    :data:`GRAD_DST_BLOCK` and :data:`GRAD_SRC_CHUNK` of the tensors'
+    device type.  The ragged last block repeats the last destination (a
+    zero-padded point could coincide with a source: r = 0, and NaN in
+    every cotangent) with zero output cotangents.  The scalars' cotangents
+    are summed over the blocks in float64."""
+    dev = D.device.type
+    Nd = D.shape[1]
+    B = min(dst_block or GRAD_DST_BLOCK[dev], Nd)
+    chunk = src_chunk or GRAD_SRC_CHUNK[dev]
+    S0 = S.detach().requires_grad_(True)
+    P0 = None if P is None else P.detach().requires_grad_(True)
+    bS = torch.zeros_like(S)
+    bP = None if P is None else torch.zeros(P.shape, dtype=torch.float64,
+                                            device=P.device)
+    bD = []
+    for b in range(0, Nd, B):
+        Db, Gb = D[:, b:b + B].detach(), G[:, b:b + B]
+        npad = B - Db.shape[1]
+        if npad:
+            Db = torch.cat([Db, Db[:, -1:].expand(-1, npad)], dim=1)
+            Gb = torch.cat([Gb, Gb.new_zeros((Gb.shape[0], npad))], dim=1)
+        Db = Db.requires_grad_(True)
+        with torch.enable_grad():
+            out = _plain_rows(scheme, variant, Db, S0, P0, chunk)
+        wrt = [Db, S0] + ([] if P0 is None else [P0])
+        grads = torch.autograd.grad(out, wrt, Gb, allow_unused=True)
+        bD.append(grads[0][:, :B - npad])
+        bS += grads[1]
+        if P0 is not None and grads[2] is not None:
+            bP += grads[2].to(torch.float64)
+    return (torch.cat(bD, dim=1), bS,
+            None if bP is None else bP.to(P.dtype))
+
+
+class _KirchhoffRecentred(torch.autograd.Function):
+    """Kernel B1 with its adjoint: (D, S, P) -> the ten sums (10, Nd)."""
+
+    @staticmethod
+    def forward(ctx, D, S, P, variant):
+        ctx.variant = variant
+        ctx.ns = S.shape[1]
+        if D.device.type == 'cpu':
+            out = _plain_rows('recentred', variant, D, S, P)
+        elif D.device.type == 'cuda':
+            S = _pad_sources(S)
+            out = _launch_recentred(D, S, P, variant)
+        else:
+            raise ValueError(f'no Kirchhoff kernel for {D.device}')
+        ctx.save_for_backward(D, S, P)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, G):
+        D, S, P = ctx.saved_tensors
+        if D.device.type == 'cpu':
+            bD, bS, bP = kirchhoff_bwd_blocked('recentred', ctx.variant, D,
+                                               S, P, G)
+        else:
+            bD, bS, bP = _launch_recentred_bwd(D, S, P, G, ctx.variant)
+            bS = bS[:, :ctx.ns]
+        return bD, bS, bP, None
+
+
+class _KirchhoffDDPhase(torch.autograd.Function):
+    """Kernel B2 with its adjoint: (D, S) -> the ten sums (10, Nd)."""
+
+    @staticmethod
+    def forward(ctx, D, S, variant):
+        ctx.variant = variant
+        ctx.ns = S.shape[1]
+        if D.device.type == 'cpu':
+            out = _plain_rows('ddphase', variant, D, S)
+        elif D.device.type == 'cuda':
+            S = _pad_sources(S)
+            out = _launch_ddphase(D, S, variant)
+        else:
+            raise ValueError(f'no Kirchhoff kernel for {D.device}')
+        ctx.save_for_backward(D, S)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, G):
+        D, S = ctx.saved_tensors
+        if D.device.type == 'cpu':
+            bD, bS, _ = kirchhoff_bwd_blocked('ddphase', ctx.variant, D, S,
+                                              None, G)
+        else:
+            bD, bS = _launch_ddphase_bwd(D, S, G, ctx.variant)
+            bS = bS[:, :ctx.ns]
+        return bD, bS, None
 
 
 def _complex5(out):
@@ -606,8 +862,9 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                               weights, phase_mode='recentred',
                               monochromatic=False, accumulate='mxu',
                               narrowband='auto'):
-    """The Kirchhoff double sum in float32: the CUDA kernel for CUDA
-    tensors, its plain PyTorch version for CPU tensors.
+    """The Kirchhoff double sum in float32, differentiable in all twelve
+    inputs: the CUDA kernels (forward and adjoint) for CUDA tensors, their
+    plain PyTorch versions for CPU tensors.
 
     Accepts plain f32 tensors (lo parts zero) or (hi, lo) tuples.
     *phase_mode*: 'recentred' (transverse-offset scheme, phase error
@@ -620,7 +877,12 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     budgeted for ('mxu', 'mxu2', 'mxu-fast', 'mxu32' or 'vpu').  The CUDA
     kernel runs the exact per-pair f32 contraction for every value; the
     envelope of the 'mxu*' 1/A direction series is still checked, and a
-    geometry outside it falls back to 'vpu' with a warning."""
+    geometry outside it falls back to 'vpu' with a warning.
+
+    The per-point preparation is ordinary differentiable torch; the pair
+    sums are one ``torch.autograd.Function`` whose backward recomputes the
+    pairs (nothing per pair is kept).  The envelope checks read detached
+    float64 copies on the host."""
     xd, yd, zd = _astuple(xd), _astuple(yd), _astuple(zd)
     xs, ys, zs = _astuple(xs), _astuple(ys), _astuple(zs)
     k = _astuple(k)
@@ -643,26 +905,15 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     elif phase_mode not in ('fast', 'exact'):
         raise ValueError(f'phase_mode {phase_mode!r}')
     Ns = xs[0].shape[0]
-    Nd = xd[0].shape[0]
     n3 = _broadcast_n(n, Ns, xs[0])
-    if xd[0].device.type == 'cpu':
-        if phase_mode == 'recentred':
-            return kirchhoff_integral_recentred(
-                xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl, weights,
-                monochromatic=monochromatic, narrowband=narrowband is True)
-        return kirchhoff_integral_dd(xd, yd, zd, xs, ys, zs, Es, Ep, k, n3,
-                                     nl, weights, phase_mode=phase_mode)
-    if xd[0].device.type != 'cuda':
-        raise ValueError(f'no Kirchhoff kernel for {xd[0].device}')
+    mode = phase_mode
     if phase_mode == 'recentred':
-        nb = narrowband is True and not monochromatic
-        dst, src, params = recentre_kirchhoff_inputs(
-            xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl, weights,
-            monochromatic, nb)
-        variant = 0 if monochromatic else (1 if nb else 2)
-        out = _launch_recentred(dst, src, params, variant, Nd, Ns)
+        mode = 'mono' if monochromatic else \
+            ('narrowband' if narrowband is True else 'poly')
+    scheme, variant, D, S, P = _kernel_inputs(
+        xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl, weights, mode)
+    if scheme == 'recentred':
+        out = _KirchhoffRecentred.apply(D, S, P, variant)
     else:
-        dst, src = ddphase_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n3,
-                                  nl, weights, phase_mode)
-        out = _launch_ddphase(dst, src, _DD_VARIANTS[phase_mode], Nd, Ns)
+        out = _KirchhoffDDPhase.apply(D, S, variant)
     return _complex5(out)

@@ -5,8 +5,9 @@ Port of the reference package's ``screens.py`` (``Screen`` with
 *center* whose local frame is given by the unit vectors *x* and *z*; the
 normal is y = z cross x.  ``expose`` intersects rays with the screen and
 returns the image beam in the screen-local frame; amplitudes acquire the
-propagation phase exp(1e7j * k * path) (path mm -> A).  Geometry is kept
-as Python floats in float64; wave samples on the screen come from
+propagation phase exp(1e7j * k * path) (path mm -> A).  The frame is kept
+as Python floats in float64; the centre components are Python floats, or
+the tensors that were passed in.  Wave samples on the screen come from
 :func:`xrt_tpu_torch.waves.prepare_wave_on_screen`.
 """
 from __future__ import annotations
@@ -25,13 +26,13 @@ def _unit(v):
     return tuple(float(c) for c in v / np.linalg.norm(v))
 
 
-class Screen:
+class Screen(config.Replaceable):
     """A flat screen at *center* with local axes *x* and *z* (global
     frame)."""
 
     def __init__(self, center, ex, ez, name='', compressX=None,
                  compressZ=None):
-        self.center = tuple(float(c) for c in center)
+        self.center = tuple(config.number(c) for c in center)
         self.ex = ex
         self.ez = ez
         self.name = name
@@ -103,7 +104,7 @@ class HemisphericScreen(Screen):
 
     def __init__(self, center, ex, ez, R=1000.0, name=''):
         super().__init__(center, ex, ez, name=name)
-        self.R = float(R)
+        self.R = config.number(R)
 
     @classmethod
     def create(cls, name='', center=(0, 0, 0), x=(1, 0, 0), z=(0, 0, 1),

@@ -40,24 +40,27 @@ def genlaguerre_poly(p, alpha, x):
     return l1
 
 
-class GaussianBeam:
+class GaussianBeam(config.Replaceable):
     """Analytic Gaussian beam evaluated at wave sample points; *w0* is the
-    waist (scalar, or (wx, wz) for an astigmatic beam)."""
+    waist (scalar, or (wx, wz) for an astigmatic beam).  The waist, the
+    centre and the angles are Python floats, or the tensors that were
+    passed in: ``shine`` is then differentiable with respect to them."""
 
     def __init__(self, name='', center=(0, 0, 0), w0=0.1, distE='lines',
                  energies=(config.DEFAULT_ENERGY,), energyWeights=None,
                  polarization='horizontal', pitch=0.0, roll=0.0, yaw=0.0,
                  vortex=None, tem=None):
         self.name = name
-        self.center = tuple(float(c) for c in center)
-        self.w0 = tuple(float(v) for v in w0) \
-            if isinstance(w0, (tuple, list)) else float(w0)
+        self.center = tuple(config.number(c) for c in center)
+        self.w0 = tuple(config.number(v) for v in w0) \
+            if isinstance(w0, (tuple, list)) else config.number(w0)
         self.distE = distE
         self.energies = tuple(float(e) for e in energies)
         self.energyWeights = energyWeights
         self.polarization = polarization
-        self.pitch, self.roll, self.yaw = float(pitch), float(roll), \
-            float(yaw)
+        self.pitch, self.roll, self.yaw = (config.number(pitch),
+                                           config.number(roll),
+                                           config.number(yaw))
         self.vortex = None if vortex is None else tuple(vortex)
         self.tem = None if tem is None else tuple(tem)
 

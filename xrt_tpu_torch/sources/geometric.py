@@ -98,11 +98,11 @@ def polarization_matrix(polarization):
 
 
 def _size(v):
-    return tuple(float(c) for c in v) if isinstance(v, (tuple, list)) \
-        else float(v)
+    return tuple(config.number(c) for c in v) \
+        if isinstance(v, (tuple, list)) else config.number(v)
 
 
-class GeometricSource:
+class GeometricSource(config.Replaceable):
     """A source with sampled origin, divergence and energy distributions.
 
     *distx/disty/distz* in {'normal', 'flat', 'annulus', None};
@@ -110,8 +110,10 @@ class GeometricSource:
     None}.  Sizes: for 'normal' sigma (or (sigma, cut) with
     uniformRayDensity), for 'flat' full width or (min, max), for 'annulus'
     (rMin, rMax) on the radial member and optionally (phiMin, phiMax) on the
-    other.  Sizes and placement are Python floats; the beam is made in
-    *dtype* on *device*."""
+    other.  Sizes and placement are Python floats, or the tensors that
+    were passed in (the samples are reparameterized draws, so ``shine`` is
+    differentiable with respect to them); the beam is made in *dtype* on
+    *device*."""
 
     def __init__(self, name='', center=(0, 0, 0), nrays=None, distx='normal',
                  dx=0.32, disty=None, dy=0.0, distz='normal', dz=0.018,
@@ -122,7 +124,7 @@ class GeometricSource:
                  uniformRayDensity=False, pitch=0.0, roll=0.0, yaw=0.0,
                  dtype=None, device=None):
         self.name = name
-        self.center = tuple(float(c) for c in center)
+        self.center = tuple(config.number(c) for c in center)
         self.nrays = int(config.NRAYS if nrays is None else nrays)
         self.distx, self.disty, self.distz = distx, disty, distz
         self.distxprime, self.distzprime = distxprime, distzprime
@@ -136,8 +138,9 @@ class GeometricSource:
         self.polarization = polarization
         self.filamentBeam = filamentBeam
         self.uniformRayDensity = uniformRayDensity
-        self.pitch, self.roll, self.yaw = float(pitch), float(roll), \
-            float(yaw)
+        self.pitch, self.roll, self.yaw = (config.number(pitch),
+                                           config.number(roll),
+                                           config.number(yaw))
         self.dtype = config.resolve_dtype(dtype)
         self.device = config.resolve_device(device)
 

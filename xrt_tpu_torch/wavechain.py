@@ -17,6 +17,14 @@ Port of the reference package's ``wavechain.py``:
     wave, logs = run()
     I = WaveChain.absolute_intensity(wave, logs)   # float64, host
 
+``run()`` is differentiable: nothing in it detaches, so a chain built
+once gives gradients with respect to whatever tensors its run reads — the
+source's parameters (``run(waves=...)`` with a first wave whose ``fromOE``
+is ``source.replace(w0=tensor)``), per-run shifts of the receiving
+coordinates and tensor placement angles of the elements (waves whose
+``*Diffr`` were shifted and whose ``toOE`` / ``fromOE`` carry the tensor).
+On CUDA tensors the backward pass runs the hand-written adjoint kernels.
+
 ``run()`` executes eagerly (PyTorch has no counterpart of the reference's
 single ``jit``).  Under ``jit`` the reference resolves the kernel's
 ``narrowband='auto'`` to False, so the chain passes ``narrowband=False``
@@ -85,7 +93,11 @@ class WaveChain:
 
         ``run(timings=[])`` appends one dict per Kirchhoff stage:
         ``hop``, ``mode`` and CUDA ``start``/``end`` events (or host
-        seconds as ``seconds`` on the CPU), read after a synchronize."""
+        seconds as ``seconds`` on the CPU), read after a synchronize.
+        ``run(waves=...)`` takes this run's receiving waves in place of the
+        prepared ``run.waves`` (the same samples: shifted coordinates,
+        elements with tensor parameters as ``fromOE`` / ``toOE``); the
+        modes chosen at build time stay."""
         if mesh is not None:
             raise NotImplementedError(_w._MESH_TODO)
         if tiled:
@@ -139,10 +151,14 @@ class WaveChain:
         mono = fixedE is not None
         waves0 = tuple(waves)
 
-        def run(generator=None, timings=None):
-            f32 = waves0[0].xDiffr.dtype == torch.float32
-            logs = torch.zeros((), dtype=waves0[0].x.dtype,
-                               device=waves0[0].x.device)
+        def run(generator=None, timings=None, waves=None):
+            wvs = waves0 if waves is None else tuple(waves)
+            if len(wvs) != len(waves0):
+                raise ValueError(f'run(waves=...) takes {len(waves0)} '
+                                 f'waves, not {len(wvs)}')
+            f32 = wvs[0].xDiffr.dtype == torch.float32
+            logs = torch.zeros((), dtype=wvs[0].x.dtype,
+                               device=wvs[0].x.device)
 
             def scaled(b):
                 nonlocal logs
@@ -152,15 +168,16 @@ class WaveChain:
                 logs = logs + ls
                 return b
 
-            cur = _w._shine_or_diffract(None, waves0[0], generator)
+            cur = _w._shine_or_diffract(None, wvs[0], generator)
             if hops[0][0] == 'oe':
-                _, cur = _w.reflect_wave(hops[0][1], cur, generator)
+                _, cur = _w.reflect_wave(wvs[0].toOE, cur, generator)
             cur = scaled(cur)
             for i in range(1, len(hops)):
-                kind, el, extra = hops[i]
+                kind, _, extra = hops[i]
+                el = wvs[i].toOE
                 pm, acc = modes[i]
                 mark = _Mark(timings, i, (pm, acc), cur.x.device)
-                b = _w.diffract(cur, waves0[i], phase_mode=pm,
+                b = _w.diffract(cur, wvs[i], phase_mode=pm,
                                 monochromatic=mono, accumulate=acc,
                                 narrowband=False)
                 mark.stop()

@@ -14,6 +14,17 @@ receiving points travel in ``*Diffr_lo`` to the double-float Kirchhoff
 kernels (:mod:`xrt_tpu_torch.ops.kirchhoff`); float64 runs use the plain
 :func:`kirchhoff_integral_xla`.
 
+Gradients.  :func:`diffract`, :func:`reflect_wave` and
+:func:`rescale_field` are differentiable tensor code: with respect to the
+source field, to the receiving coordinates ``*Diffr`` (shift them by a
+tensor), to the source surface coordinates and to tensor placement angles
+and radii of the elements.  The host placement transforms stay float64
+numpy and read detached values, so the gradient with respect to a
+placement angle comes through linearized retargeting: a host
+finite-difference Jacobian of the exact transforms
+(:func:`_placement_jacobian`) times the angle offset, added to the
+receiving coordinates.
+
 Not in this module yet: ``diffract(tile_modes=...)`` (blockwise tiling)
 and ``diffract(mesh=...)`` (multi-device); both raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -27,12 +38,13 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import config
 from .beam import Beam, rotate_coherency_matrix
 from .physconsts import CHBAR, PI
 from .ops.dd import sqrt_rn
-from .transforms import rotate_xyz, rotate_y
+from .transforms import cos, rotate_xyz, rotate_y, sin
 
 Tensor = torch.Tensor
 SRC_CHUNK = 256   # source samples per step of the float64 plain path
@@ -127,7 +139,7 @@ def _to_fromOE_local64(fromOE, x64, y64, z64):
     """Global points -> fromOE-local coordinates, float64 numpy (an OE's
     placement rotations, a screen/aperture frame, or a source's centred
     global frame)."""
-    c = np.asarray(fromOE.center, np.float64)
+    c = _center64(fromOE)
     x = np.asarray(x64, np.float64) - c[0]
     y = np.asarray(y64, np.float64) - c[1]
     z = np.asarray(z64, np.float64) - c[2]
@@ -168,8 +180,50 @@ def _np_local_to_global64(oe, x64, y64, z64):
             yaw=float(oe.extraYaw))
     x64, y64, z64 = _np_rotate_xyz(x64, y64, z64, '-' + oe.rotationSequence,
                                    pitch=pitch, roll=roll, yaw=yaw)
-    c = np.asarray(oe.center, np.float64)
+    c = _center64(oe)
     return x64 + c[0], y64 + c[1], z64 + c[2]
+
+
+def _center64(el) -> np.ndarray:
+    """The element's centre as host float64 (detached where a component is
+    a tensor)."""
+    return np.array([config.host_float(c) for c in el.center], np.float64)
+
+
+def _frame_to_global64(el, x, y, z):
+    """float64 numpy global coordinates of points given in the frame of a
+    screen or an aperture."""
+    c = _center64(el)
+    ex = np.asarray(el.ex, np.float64)
+    ez = np.asarray(el.ez, np.float64)
+    ey = np.cross(ez, ex)
+    return tuple(c[i] + x * ex[i] + y * ey[i] + z * ez[i] for i in range(3))
+
+
+def _placement_jacobian(el, fromOE, x, y, z, param='pitch', h=1e-7,
+                        vary='el'):
+    """d(receiving coordinates in the *fromOE* frame) / d(*param*), (3, N)
+    float64, for samples (x, y, z) in the local frame of *el*: a central
+    finite difference of the exact host float64 placement transforms.
+    *vary* 'el' moves the receiving element, 'from' the element the
+    coordinates are referred to.  Adding ``J * dp`` to a wave's ``*Diffr``
+    retargets it to first order in the offset ``dp`` (alignment-scale
+    angles) and keeps the double-float phase coherence of the prepared
+    geometry."""
+    x, y, z = (np.asarray(v, np.float64) for v in (x, y, z))
+
+    def pos(el_, from_):
+        if _is_oe(el_):
+            g = _np_local_to_global64(el_, x, y, z)
+        else:
+            g = _frame_to_global64(el_, x, y, z)
+        return np.stack(_to_fromOE_local64(from_, *g))
+    moved = el if vary == 'el' else fromOE
+    p = config.host_float(getattr(moved, param))
+    hi, lo = moved.replace(**{param: p + h}), moved.replace(**{param: p - h})
+    if vary == 'el':
+        return (pos(hi, fromOE) - pos(lo, fromOE)) / (2 * h)
+    return (pos(el, hi) - pos(el, lo)) / (2 * h)
 
 
 def wave_frame_rotation(oe, fromOE) -> np.ndarray:
@@ -254,14 +308,8 @@ def prepare_wave_on_screen(screen, prevOE, dim1, dim2, dy=0.0,
     if condition is not None:
         d1s, d2s = condition(d1s, d2s)
     nrays = len(d1s)
-    c64 = np.asarray(screen.center, np.float64)
-    ex64 = np.asarray(screen.ex, np.float64)
-    ez64 = np.asarray(screen.ez, np.float64)
-    ey64 = np.cross(ez64, ex64)
     xloc, yloc, zloc = d1s, np.zeros_like(d1s) + dy, d2s
-    xglo = c64[0] + xloc * ex64[0] + yloc * ey64[0] + zloc * ez64[0]
-    yglo = c64[1] + xloc * ex64[1] + yloc * ey64[1] + zloc * ez64[1]
-    zglo = c64[2] + xloc * ex64[2] + yloc * ey64[2] + zloc * ez64[2]
+    xglo, yglo, zglo = _frame_to_global64(screen, xloc, yloc, zloc)
 
     def T(v):
         return torch.as_tensor(v, dtype=dt, device=dev)
@@ -289,15 +337,17 @@ def prepare_wave_on_aperture(aperture, prevOE, nrays, generator=None,
     from .apertures import RoundAperture
     dt = config.resolve_dtype(dtype)
     dev = config.resolve_device(device)
+    if not isinstance(aperture, RoundAperture):
+        left, right, bottom, top = (config.host_float(v)
+                                    for v in aperture.opening)
     if samples is not None:
         x64 = _host64(samples[0])
         z64 = _host64(samples[1])
         nrays = len(x64)
         if isinstance(aperture, RoundAperture):
-            area = math.pi * float(aperture.r) ** 2
+            area = math.pi * config.host_float(aperture.r) ** 2
         else:
-            area = (aperture.right - aperture.left) * \
-                (aperture.top - aperture.bottom)
+            area = (right - left) * (top - bottom)
     else:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -305,26 +355,22 @@ def prepare_wave_on_aperture(aperture, prevOE, nrays, generator=None,
         u1 = _uniform64(generator, nrays)
         u2 = _uniform64(generator, nrays)
         if isinstance(aperture, RoundAperture):
-            r = np.sqrt(u1) * float(aperture.r)
+            r = np.sqrt(u1) * config.host_float(aperture.r)
             phi = u2 * 2 * math.pi
             x64, z64 = r * np.cos(phi), r * np.sin(phi)
-            area = math.pi * float(aperture.r) ** 2
+            area = math.pi * config.host_float(aperture.r) ** 2
         else:
-            dX = aperture.right - aperture.left
-            dZ = aperture.top - aperture.bottom
-            x64 = u1 * dX + aperture.left
-            z64 = u2 * dZ + aperture.bottom
+            dX = right - left
+            dZ = top - bottom
+            x64 = u1 * dX + left
+            z64 = u2 * dZ + bottom
             area = dX * dZ
     x = torch.as_tensor(x64, dtype=dt, device=dev)
     z = torch.as_tensor(z64, dtype=dt, device=dev)
     # global sample coordinates in float64 from the exact f32/f64 locals
     xl, zl = _host64(x), _host64(z)
-    c64 = np.asarray(aperture.center, np.float64)
-    ex64 = np.asarray(aperture.ex, np.float64)
-    ez64 = np.asarray(aperture.ez, np.float64)
-    xglo = c64[0] + xl * ex64[0] + zl * ez64[0]
-    yglo = c64[1] + xl * ex64[1] + zl * ez64[1]
-    zglo = c64[2] + xl * ex64[2] + zl * ez64[2]
+    xglo, yglo, zglo = _frame_to_global64(aperture, xl, np.zeros_like(xl),
+                                          zl)
     area_t = torch.as_tensor(area, dtype=dt, device=dev)
     wave = _blank_wave(nrays, dt, dev, x=x, z=z,
                        dS=torch.full((nrays,), 1.0, dtype=dt, device=dev) *
@@ -346,7 +392,7 @@ def _prev_center(prevOE, dt, dev):
         lbc = new_beam(1, dtype=dt, device=dev).replace(x=cxa, y=cya, z=cza)
         lbc = prevOE.local_to_global(lbc)
         return (lbc.x[0], lbc.y[0], lbc.z[0])
-    return tuple(torch.tensor(float(v), dtype=dt, device=dev)
+    return tuple(torch.as_tensor(v, dtype=dt, device=dev)
                  for v in prevOE.center)
 
 
@@ -444,7 +490,15 @@ def kirchhoff_integral_xla(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     samples, in the tensors' own (float64) precision — the counterpart of
     the reference package's XLA path; no kernel (the k*r phase needs
     float64).  dst tensors (Nd,), src tensors (Ns,); *weights* masks dead
-    source samples (0/1)."""
+    source samples (0/1).
+
+    While autograd records, each chunk runs under
+    ``torch.utils.checkpoint``: the tape keeps the five (Nd,) chunk sums
+    and recomputes the (Nd, chunk) intermediates of one chunk at a time in
+    the backward pass, instead of holding those of every chunk (O(Nd x Ns)
+    complex values, several times over).  This path is the float64 truth
+    the float32 gradients are held to, at sizes where the plain tape would
+    not fit."""
     Ns = xs.shape[0]
     npad = (-Ns) % SRC_CHUNK
     n = [torch.broadcast_to(torch.as_tensor(ni, dtype=xs.dtype,
@@ -458,24 +512,30 @@ def kirchhoff_integral_xla(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     cdt = Es.dtype
     acc = [torch.zeros(xd.shape, dtype=cdt, device=xd.device)
            for _ in range(5)]
+    def chunk_sums(xs_, ys_, zs_, Esc, Epc, kk, n0, n1, n2, nl_, w_):
+        a = xd[:, None] - xs_[None]
+        b = yd[:, None] - ys_[None]
+        c = zd[:, None] - zs_[None]
+        pathAfter = sqrt_rn(a ** 2 + b ** 2 + c ** 2)
+        ns = (a * n0[None] + b * n1[None] + c * n2[None]) / pathAfter
+        kk, Esc, Epc = kk[None], Esc[None], Epc[None]
+        U = kk * 1j / (4 * PI) * (nl_[None] + ns) * \
+            torch.exp(1j * kk * pathAfter) / pathAfter * w_[None]
+        abcU = kk ** 2 / (4 * PI) * (Esc + Epc) * U / pathAfter
+        return (torch.sum(Esc * U, dim=1), torch.sum(Epc * U, dim=1),
+                torch.sum(abcU * a, dim=1), torch.sum(abcU * b, dim=1),
+                torch.sum(abcU * c, dim=1))
     for j in range(0, Ns + npad, SRC_CHUNK):
         sl = slice(j, j + SRC_CHUNK)
-        a = xd[:, None] - xs[None, sl]
-        b = yd[:, None] - ys[None, sl]
-        c = zd[:, None] - zs[None, sl]
-        pathAfter = sqrt_rn(a ** 2 + b ** 2 + c ** 2)
-        ns = (a * n[0][None, sl] + b * n[1][None, sl] +
-              c * n[2][None, sl]) / pathAfter
-        kk = k[None, sl]
-        U = kk * 1j / (4 * PI) * (nl[None, sl] + ns) * \
-            torch.exp(1j * kk * pathAfter) / pathAfter * weights[None, sl]
-        Esc, Epc = Es[None, sl], Ep[None, sl]
-        acc[0] = acc[0] + torch.sum(Esc * U, dim=1)
-        acc[1] = acc[1] + torch.sum(Epc * U, dim=1)
-        abcU = kk ** 2 / (4 * PI) * (Esc + Epc) * U / pathAfter
-        acc[2] = acc[2] + torch.sum(abcU * a, dim=1)
-        acc[3] = acc[3] + torch.sum(abcU * b, dim=1)
-        acc[4] = acc[4] + torch.sum(abcU * c, dim=1)
+        args = (xs[sl], ys[sl], zs[sl], Es[sl], Ep[sl], k[sl], n[0][sl],
+                n[1][sl], n[2][sl], nl[sl], weights[sl])
+        if torch.is_grad_enabled():
+            part = torch.utils.checkpoint.checkpoint(
+                chunk_sums, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            part = chunk_sums(*args)
+        acc = [a_ + p_ for a_, p_ in zip(acc, part)]
     return tuple(acc)
 
 
@@ -640,9 +700,9 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
     if (toOE is None or not _is_oe(toOE)) and _is_oe(oe):
         # aperture/screen receiver fed by an OE: rotate the accumulators
         # from the fromOE's rolled s/p basis to the virgin/global basis
-        rollAngle = float(oe.roll) + float(getattr(oe, 'positionRoll', 0.0))
-        if rollAngle != 0.0:
-            cosY, sinY = math.cos(rollAngle), math.sin(rollAngle)
+        rollAngle = oe.roll + getattr(oe, 'positionRoll', 0.0)
+        if isinstance(rollAngle, torch.Tensor) or rollAngle != 0.0:
+            cosY, sinY = cos(rollAngle), sin(rollAngle)
             EsR, EpR = rotate_y(out.Es, out.Ep, cosY, sinY)
             JssR, JppR, JspR = rotate_coherency_matrix(
                 out.Jss, out.Jpp, out.Jsp, rollAngle)
