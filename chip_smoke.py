@@ -8,7 +8,8 @@ process per source, in parallel), then runs twelve phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, the build time;
+   versions, the build time, the registers and spills of the adjoint and
+   histogram kernels;
 2. kernels against their plain PyTorch versions on the card: kernel B1
    (recentred; mono, narrowband, poly, every ``accumulate`` value) and B2
    (per-pair double-float; 'fast', 'exact') at 8192 x 16384 pairs to
@@ -33,7 +34,9 @@ non-zero if any fails:
    'exact') against the recentred result to < 5e-3;
 5. the ``kernels`` line: every kernel with its launches, time, plain
    version's time, bound and (B4, B4-bwd) the library call's time at the
-   main-path shapes.  The adjoint kernels are held against the plain
+   main-path shapes; for B3 also the share of its second kernel (the sum
+   of the partials), its scratch and its registers and spills from the
+   build log (``-Xptxas -v``).  The adjoint kernels are held against the plain
    blocked backward there too, on the slices it can do in seconds (it
    takes 1.6 ns a pair): the destination rows of the last 8192
    destinations against all sources, the source rows of the last 2048
@@ -60,8 +63,11 @@ non-zero if any fails:
    cotangent to 1e-4 of its largest magnitude (f32 sums in another order;
    the kernels differentiate the sincos polynomials as (2 pi cos,
    -2 pi sin), the plain version the polynomials themselves, 1.3e-5 a
-   pair, which a sum of few terms does not average down); B4's backward (the gather) against advanced indexing, exactly
-   equal, for k = 1 and 3, 128 x 128 and 1024 x 1024, 1D, special values;
+   pair, which a sum of few terms does not average down), and two
+   launches on the same inputs bit-identical; B4's backward (the gather)
+   against advanced indexing, exactly equal, for k = 1 and 3, 128 x 128
+   and 1024 x 1024, 1D, special values, 1 to 7 rays, views at a 4-byte
+   offset and float64;
 9. the gradient main path: value and gradient of a Gaussian-weighted focal
    flux of the phase-3 chain (2e5 samples per wave, 256 x 256 screen,
    float32) with respect to the source waist (field cotangents), the
@@ -139,8 +145,9 @@ PEAK_BYTES = 3.35e12
 #: B3 exact  — forward 239; reverse: the amplitude part 89, the phase part
 #:             (frac_two_pi, kappa r, kp, dd sqrt, dd squares) 43 = 132;
 #:             sums 20                                            = 391
-#: The kernels take two passes over the pairs (one per side, no atomics),
-#: so they do nearly twice this.
+#: The kernels evaluate each pair once (one pass, csrc/kirchhoff_bwd.cuh);
+#: what they add to this is the sum of each pair's destination cotangents
+#: over the warp (a transpose-reduce) and the partial sums across blocks.
 OPS_PER_PAIR = {'kirchhoff_recentred:mono': 116,
                 'kirchhoff_ddphase:fast': 230,
                 'kirchhoff_ddphase:exact': 267,
@@ -286,7 +293,43 @@ def phase_card():
     t = time.perf_counter() - t0
     print(f'phase 1 build: {len(_cuda.SOURCES)} sources with nvcc in '
           f'{t:.2f} s', flush=True)
+    for name in ('kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
+                 'hist2d'):
+        for fn, regs, st, ld in ptxas_rows(_cuda.build_log(name)):
+            print(f'phase 1 ptxas {name} {fn}: {regs} registers, spill '
+                  f'stores {st} B, loads {ld} B', flush=True)
     return card
+
+
+def ptxas_rows(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of a
+    build log (``-Xptxas -v``); kernels by their mangled names."""
+    import re
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn:
+            rows.append((fn, int(m.group(1)), *spill))
+            fn = None
+    return rows
+
+
+def adjoint_registers(scheme, v):
+    """(registers, spill bytes) of the adjoint kernel of one variant."""
+    from xrt_tpu_torch.ops import _cuda
+    pair = 'RecentredPair' if scheme == 'recentred' else 'DDPair'
+    for fn, regs, st, ld in ptxas_rows(_cuda.build_log(
+            f'kirchhoff_{scheme}_bwd')):
+        if 'adjoint_kernel' in fn and f'{pair}ILi{v}E' in fn:
+            return regs, st + ld
+    raise PhaseError(f'no ptxas line for the {scheme} adjoint {v}')
 
 
 def kernel_case_args(mode, Nd=8192, Ns=16384, seed=3):
@@ -903,7 +946,10 @@ def phase_adjoint_kernels(timing):
         G = torch.randn((10, Nd), device='cuda',
                         generator=torch.Generator('cuda').manual_seed(7))
         got = launch_adjoint(scheme, v, D, tk._pad_sources(S), P, G)
+        again = launch_adjoint(scheme, v, D, tk._pad_sources(S), P, G)
         torch.cuda.synchronize()
+        same = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        check(same, f'B3 {mode}: two launches on the same inputs differ')
         if mode == 'mono':      # warm-up
             tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G)
         plain_ms, ref = cuda_ms(lambda: tk.kirchhoff_bwd_blocked(
@@ -919,7 +965,8 @@ def phase_adjoint_kernels(timing):
         print(f'phase 8 B3 {mode}: {Nd} x {Ns}, kernel vs plain blocked '
               f'backward, max row rel: dst keys {relD:.2e}, src keys '
               f'{relS:.2e}, scalars {relP:.2e} (limit {ADJ_LIMIT:.0e}); '
-              f'kernel {ms:.2f} ms, plain {plain_ms:.1f} ms', flush=True)
+              f'two launches bit-identical; kernel {ms:.2f} ms, plain '
+              f'{plain_ms:.1f} ms', flush=True)
         check(max(relD, relS, relP) < ADJ_LIMIT,
               f'B3 {mode}: {relD:.3e} / {relS:.3e} / {relP:.3e}')
         plain_ms_of[mode] = plain_ms
@@ -938,6 +985,22 @@ def phase_adjoint_kernels(timing):
                   f'{ybins} x {xbins}, kernel vs advanced indexing '
                   f'{"equal" if same else "DIFFER"}', flush=True)
             check(same, f'B4-bwd {case} k={k} differs from indexing')
+    # the scalar path (views one ray into their storage: 4-byte, not
+    # 16-byte, aligned), ray counts 1 to 7 (the scalar tail) and float64
+    x, y, _, xbins, ybins, xlim, ylim = hist_case('ragged', 3)
+    for k in (1, 3):
+        g = torch.rand((ybins, xbins, k), device='cuda',
+                       generator=torch.Generator('cuda').manual_seed(k))
+        cases = [(x[1:], y[1:], g), (x.double(), y.double(), g.double())] + \
+            [(x[:m], y[:m], g) for m in range(1, 8)]
+        for xx, yy, gg in cases:
+            got = th.hist2d_bwd_kernel(xx, yy, gg, xbins, ybins, xlim, ylim)
+            check(torch.equal(got, th.hist2d_bwd_plain(
+                xx, yy, gg, xbins, ybins, xlim, ylim)),
+                f'B4-bwd k={k}: {xx.shape[0]} rays of {xx.dtype} at offset '
+                f'{xx.storage_offset()} differ from indexing')
+        print(f'phase 8 B4-bwd k={k}: views at a 4-byte offset, 1 to 7 rays '
+              f'and float64 equal to advanced indexing', flush=True)
 
 
 def sweep_plain_blocks():
@@ -1380,6 +1443,14 @@ def adjoint_rows(timing):
               f'{name}:{variant} at {Nd} x {Ns}: non-finite cotangents')
         ms = statistics.median(cuda_ms(lambda: launch_adjoint(
             scheme, v, D, S, P, G))[0] for _ in range(3))
+        # the second kernel's share: the partials of one pass summed
+        parts = tk._adjoint_pass(scheme, v, D, S, P, G)
+        red_ms = statistics.median(cuda_ms(lambda: tk._adjoint_reduce(
+            scheme, v, parts[0], parts[1], D, S))[0] for _ in range(3))
+        scratch = sum(t.numel() * t.element_size() for t in parts
+                      if t is not None)
+        del parts
+        regs, spill = adjoint_registers(scheme, v)
         t0 = time.perf_counter()
         relD, relS, relP, ab = sliced_adjoint_errors(scheme, v, D, S, P, G,
                                                      got, Ns)
@@ -1393,9 +1464,12 @@ def adjoint_rows(timing):
         else:
             plain_ms, plain_shape = timing['adjoint_plain_ms'][variant], \
                 '8192x16384'
-        print(f'phase 5 {key}: {Nd} x {Ns} pairs, kernel {ms:.2f} ms (both '
-              f'passes), bound {bms:.2f} ms ({by}), '
-              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s; against the plain '
+        print(f'phase 5 {key}: {Nd} x {Ns} pairs, kernel {ms:.2f} ms (one '
+              f'pass, the reduction of its partials {red_ms:.3f} ms of it), '
+              f'bound {bms:.2f} ms ({by}), {bms / ms:.1%} of bound, '
+              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s; scratch '
+              f'{scratch / 2 ** 30:.3f} GiB; {regs} registers, {spill} B '
+              f'spilled; against the plain '
               f'blocked backward on the last {ADJ_DST_SLICE} destinations '
               f'and the last {ADJ_SRC_SLICE} sources ({t_ref:.1f} s), max '
               f'row rel: dst keys {relD:.2e}, src keys {relS:.2e}, scalars '
@@ -1408,6 +1482,8 @@ def adjoint_rows(timing):
                          launches=int(launches.get(key, 0)),
                          max_abs_err=ab, max_rel_err=max(relD, relS, relP),
                          err_shape=f'{Nd}x{Ns}, on slices', ms=ms,
+                         reduce_ms=red_ms, scratch_bytes=scratch,
+                         registers=regs, spill_bytes=spill,
                          plain_ms=plain_ms, plain_shape=plain_shape,
                          bound_ms=bms, bound_by=by, library_ms=None,
                          library=None, library_reason=NO_LIBRARY))
@@ -1442,9 +1518,11 @@ def adjoint_rows(timing):
                                    for _ in range(3))
         bms = 1e3 * (4.0 * n * (2 + k) + 4.0 * bins * bins * k) / PEAK_BYTES
         print(f'phase 5 {key}: {n} rays from {bins} x {bins} x {k}, '
-              f'kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, indexing gather '
-              f'{lib_ms:.3f} ms, bound {bms:.3f} ms (bytes), '
-              f'{n / (ms * 1e-3):.3e} rays/s, equal to indexing', flush=True)
+              f'kernel {ms:.3f} ms ({bms / ms:.1%} of bound), plain '
+              f'{plain_ms:.2f} ms, indexing gather {lib_ms:.3f} ms '
+              f'({bms / lib_ms:.1%}), bound {bms:.3f} ms (bytes); kernel / '
+              f'indexing {ms / lib_ms:.3f}; {n / (ms * 1e-3):.3e} rays/s, '
+              f'equal to indexing', flush=True)
         rows.append(dict(name=key, route='cuda', source=SOURCES['hist2d'],
                          replaces=REPLACES['hist2d'],
                          launches=int(timing['trace_grad_launches'].get(

@@ -26,12 +26,15 @@ check).  On the card:
   (measured on an H100: 3.2e-5 at 129 x 257, 1.1e-5 at 8192 x 16384; the
   kernels differentiate the sincos polynomials as (2 pi cos, -2 pi sin),
   the plain version the polynomials themselves, 1.3e-5 per pair, which a
-  short sum does not average down); ragged sizes; ``backward()``
-  through the wrapper launches them, also from a side stream; the forward
-  through the autograd function has the bits of a direct launch, and
-  neither reads a scalar to the host;
+  short sum does not average down); ragged sizes and the edges of the
+  one-pass kernel's tiling (1, 31 and 33 destinations, sources no multiple
+  of the tile, a grid of one block); two launches give the same bits;
+  ``backward()`` through the wrapper launches them, also from a side
+  stream; the forward through the autograd function has the bits of a
+  direct launch, and neither reads a scalar to the host;
 * the histogram's adjoint (B4-bwd) against advanced indexing: exactly
-  equal, and ``backward()`` through ``hist2d`` launches it.
+  equal, also for 1 to 7 rays, views at a 4-byte (not 16-byte) offset and
+  float64, and ``backward()`` through ``hist2d`` launches it.
 """
 import numpy as np
 import pytest
@@ -183,6 +186,78 @@ def test_adjoint_kernels_match_plain_blocked_backward(cuda, mode, sizes):
     if bP is not None:
         assert max(_row_errors(bP[:, None], rP[:, None])) < 1e-4
         assert float(bP[tk._PARAM_KEYS.index('invR0')]) == 0.0
+
+
+def _adjoint(D, S, P, G, scheme, v):
+    if scheme == 'recentred':
+        return tk._launch_recentred_bwd(D, S, P, G, v)
+    return tk._launch_ddphase_bwd(D, S, G, v) + (None,)
+
+
+def _check_adjoint(scheme, v, D, S, P, G, Ns, got):
+    rD, rS, rP = tk.kirchhoff_bwd_blocked(scheme, v, D, S[:, :Ns], P, G,
+                                          dst_block=512, src_chunk=512)
+    assert max(_row_errors(got[0], rD)) < 1e-4
+    assert max(_row_errors(got[1][:, :Ns], rS)) < 1e-4
+    if rP is not None:
+        assert max(_row_errors(got[2][:, None], rP[:, None])) < 1e-4
+
+
+@pytest.mark.parametrize('Nd', [1, 31, 33])
+@pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly', 'fast',
+                                  'exact'])
+def test_adjoint_kernels_tiling_edges(cuda, mode, Nd):
+    """The first 1, 31 or 33 of 1000 destinations (fewer than a stage, one
+    more or one less than a warp) against 300 sources, no multiple of the
+    128-source tile.  A destination row of so few destinations is one sum
+    of f32 terms that cancel (measured: 1.1e-4 of itself for one 'fast'
+    destination), so it is held, like the rows of the 1000 x 3000 case
+    above, to 1e-4 of the row's largest magnitude over all 1000."""
+    Ns = 300
+    args = _args(cuda, poly=mode != 'mono', Ns=Ns, Nd=1000)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    G = torch.randn((10, 1000), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    scale = tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G, dst_block=512,
+                                     src_chunk=512)[0].abs().amax(dim=1)
+    D, G = D[:, :Nd].contiguous(), G[:, :Nd].contiguous()
+    got = _adjoint(D, tk._pad_sources(S), P, G, scheme, v)
+    assert all(torch.isfinite(t).all() for t in got if t is not None)
+    rD, rS, rP = tk.kirchhoff_bwd_blocked(scheme, v, D, S, P, G,
+                                          dst_block=512, src_chunk=512)
+    assert float(((got[0] - rD).abs().amax(dim=1) / scale).max()) < 1e-4
+    assert max(_row_errors(got[1][:, :Ns], rS)) < 1e-4
+    if rP is not None:
+        assert max(_row_errors(got[2][:, None], rP[:, None])) < 1e-4
+
+
+@pytest.mark.parametrize('mode', ['mono', 'poly', 'fast'])
+def test_adjoint_kernels_on_a_grid_of_one_block(cuda, mode):
+    """33 destinations and 100 sources padded to one 128-source tile: one
+    slab, one source group."""
+    Nd, Ns = 33, 100
+    args = _args(cuda, poly=mode != 'mono', Ns=Ns, Nd=Nd)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    S128 = torch.cat([S, S.new_zeros((S.shape[0], tk.ADJ_TILE - Ns))], 1)
+    assert tk.adjoint_grid(Nd, tk.ADJ_TILE) == (1, tk.ADJ_CHUNK, 1)
+    G = torch.randn((10, Nd), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(4))
+    got = _adjoint(D, S128, P, G, scheme, v)
+    _check_adjoint(scheme, v, D, S, P, G, Ns, got)
+
+
+@pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly', 'fast',
+                                  'exact'])
+def test_adjoint_kernels_give_the_same_bits_twice(cuda, mode):
+    args = _args(cuda, poly=mode != 'mono', Ns=16384, Nd=8192)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    S = tk._pad_sources(S)
+    G = torch.randn((10, 8192), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(5))
+    a = _adjoint(D, S, P, G, scheme, v)
+    b = _adjoint(D, S, P, G, scheme, v)
+    for x, y in zip(a, b):
+        assert (x is None and y is None) or torch.equal(x, y)
 
 
 @pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly', 'fast',
@@ -357,3 +432,30 @@ def test_backward_through_hist2d_launches_the_gather(cuda):
                                                    XLIM, YLIM))
     with pytest.raises(ValueError):
         th.hist2d_bwd_kernel(x, y, c.double(), xbins, ybins, XLIM, YLIM)
+
+
+@pytest.mark.parametrize('k', [1, 3])
+def test_hist2d_adjoint_kernel_edges(cuda, k):
+    """1 to 7 rays (the scalar tail of the four-ray groups), views at a
+    4-byte but not 16-byte offset (the scalar path), a cotangent table at
+    such an offset, and float64."""
+    x, y, _, xbins, ybins, _ = _hist_rays(cuda, 'special', k)
+    g = torch.rand((ybins, xbins, k), device=cuda)
+    cases = [(x[:m], y[:m], g) for m in range(1, 8)]
+    cases += [(x[1:], y[1:], g), (x[1:-1], y[2:], g), (x[:-1], y[1:], g),
+              (x.double(), y.double(), g.double()),
+              (x.double()[1:], y.double()[1:], g.double())]
+    for xx, yy, gg in cases:
+        got = th.hist2d_bwd_kernel(xx, yy, gg, xbins, ybins, XLIM, YLIM)
+        assert got.dtype == xx.dtype
+        assert torch.equal(got, th.hist2d_bwd_plain(xx, yy, gg, xbins, ybins,
+                                                    XLIM, YLIM))
+    got = th.hist2d_bwd_kernel(x[3:], None, g[:1], xbins, 1, XLIM)
+    assert torch.equal(got, th.hist2d_bwd_plain(x[3:], None, g[:1], xbins, 1,
+                                                XLIM))
+    # a cotangent table at a 4-byte offset
+    g1 = torch.rand(g.numel() + 1, device=cuda)[1:].view(g.shape)
+    assert torch.equal(th.hist2d_bwd_kernel(x, y, g1, xbins, ybins, XLIM,
+                                            YLIM),
+                       th.hist2d_bwd_plain(x, y, g1, xbins, ybins, XLIM,
+                                           YLIM))

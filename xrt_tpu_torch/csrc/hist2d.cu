@@ -24,11 +24,23 @@
 //
 // The backward (hist2d_bwd_kernel) is the adjoint with respect to the
 // weights: a gather, wbar[i, :] = g[iy(i), ix(i), :] for a ray inside the
-// limits and 0 otherwise, one thread per ray.  It recomputes both bin
-// indices with the forward's expression, operation for operation, so a ray
-// reads the bin it was added to.  The coordinates and the limits get no
-// gradient (floor).  Bound: bytes, 4 * (2 + k) per ray (x, y read, k
-// cotangents written) plus the gathered bins.
+// limits and 0 otherwise.  It recomputes both bin indices with the
+// forward's expression, operation for operation (ray_bin), so a ray reads
+// the bin it was added to.  The coordinates and the limits get no gradient
+// (floor).  Bound: bytes, (2 + k) * sizeof(T) per ray (x and y read once,
+// k cotangents written once) plus the table.  So at k = 1 it moves the
+// ray streams at full width: each thread takes 4 consecutive rays, with
+// 16-byte loads of x and y and a 16-byte store of their cotangents.  The
+// one-touch ray streams are evict-first (__ldcs, __stcs: 1e7 rays are 80 MB
+// of x and y, more than the 50 MB L2), so the cotangent table (64-192 KB,
+// read through __ldg) stays cached.  At k = 3 the table's scattered reads
+// weigh more than the stream width: one ray a thread (measured faster
+// there than four), and a colour bin read with two loads, not three
+// (bin_row).  One thread per group of rays: a grid-stride loop over two
+// blocks per SM (the earlier design) keeps too few loads in flight.  Rays
+// past the last group of 4 take one thread each, and x, y or wbar that are
+// not 16-byte aligned (a view at an odd offset is legal input) take the
+// path of one ray per thread.
 #include <cuda_runtime.h>
 
 namespace {
@@ -84,50 +96,161 @@ hist2d_kernel(const T* __restrict__ x, const T* __restrict__ y,
   }
 }
 
+// the bin of a ray, as in hist2d_kernel, operation for operation; -1 when
+// the ray is outside
+template <typename T>
+__device__ __forceinline__ int ray_bin(T xv, T yv, bool has_y, T xlo,
+                                       T xspan, T xb, int xbins, T ylo,
+                                       T yspan, T yb) {
+  const T fx = floor((xv - xlo) / xspan * xb);
+  bool inside = fx >= T(0) && fx < xb && isfinite(xv);
+  int bin = 0;
+  if (has_y) {
+    const T fy = floor((yv - ylo) / yspan * yb);
+    inside = inside && fy >= T(0) && fy < yb && isfinite(yv);
+    if (inside) bin = static_cast<int>(fy) * xbins;
+  }
+  return inside ? bin + static_cast<int>(fx) : -1;
+}
+
+// 16 bytes of a one-touch stream, evict-first
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 t = __ldcs(reinterpret_cast<const double2*>(p));
+  v[0] = t.x;
+  v[1] = t.y;
+}
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store16(double* p, const double* v) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+// the K cotangents of bin (zeros for -1).  The loads do not depend on
+// whether the ray is inside (an outside ray reads bin 0), so a thread's
+// loads for all its rays can be in flight together.  The three values of a
+// colour bin are read as an aligned pair and a single value (which is
+// first depends on the bin's parity): gathers scattered over the table are
+// what limits the kernel at k = 3, and two loads are fewer than three.
 template <typename T, int K>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void bin_row(const T* g, int bin, T* o) {
+  const int b = bin < 0 ? 0 : bin;
+  T v[K];
+  if constexpr (K == 3) {
+    using P2 = typename Pair<T>::type;
+    const bool odd = b & 1;
+    const P2 p = __ldg(reinterpret_cast<const P2*>(g + 3 * b + odd));
+    const T q = __ldg(g + 3 * b + (odd ? 0 : 2));
+    v[0] = odd ? q : p.x;
+    v[1] = odd ? p.x : p.y;
+    v[2] = odd ? p.y : q;
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = __ldg(g + b * K + j);
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j) o[j] = bin < 0 ? T(0) : v[j];
+}
+
+constexpr int BWD_THREADS = 256;
+constexpr int RAYS = 4;  // consecutive rays per thread on the vector path
+
+// VEC: each thread takes RAYS consecutive rays (the rays past the last
+// group one each; x, y and wbar 16-byte aligned, k = 1), else one ray.
+// HAS_Y: a 2D histogram.
+template <typename T, int K, bool HAS_Y, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS)
 hist2d_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
                   const T* __restrict__ g, long long n, T xlo, T xspan,
                   int xbins, T ylo, T yspan, int ybins,
                   T* __restrict__ wbar) {
+  constexpr int E = 16 / sizeof(T);  // values per 16 bytes
   const T xb = static_cast<T>(xbins), yb = static_cast<T>(ybins);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const T xv = x[i];
-    const T fx = floor((xv - xlo) / xspan * xb);
-    bool inside = fx >= T(0) && fx < xb && isfinite(xv);
-    int bin = 0;
-    if (y != nullptr) {
-      const T yv = y[i];
-      const T fy = floor((yv - ylo) / yspan * yb);
-      inside = inside && fy >= T(0) && fy < yb && isfinite(yv);
-      if (inside) bin = static_cast<int>(fy) * xbins;
-    }
-    if (inside) bin = (bin + static_cast<int>(fx)) * K;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  long long done = 0;
+  if constexpr (VEC) {
+    const long long q = tid;
+    done = n / RAYS * RAYS;
+    if (q * RAYS < done) {
+      T xv[RAYS], yv[RAYS] = {}, out[RAYS * K];
 #pragma unroll
-    for (int j = 0; j < K; ++j) wbar[i * K + j] = inside ? g[bin + j] : T(0);
+      for (int e = 0; e < RAYS; e += E) load16(x + q * RAYS + e, xv + e);
+      if constexpr (HAS_Y) {
+#pragma unroll
+        for (int e = 0; e < RAYS; e += E) load16(y + q * RAYS + e, yv + e);
+      }
+      int bins[RAYS];
+#pragma unroll
+      for (int r = 0; r < RAYS; ++r)
+        bins[r] = ray_bin(xv[r], yv[r], HAS_Y, xlo, xspan, xb, xbins, ylo,
+                          yspan, yb);
+#pragma unroll
+      for (int r = 0; r < RAYS; ++r) bin_row<T, K>(g, bins[r], out + r * K);
+#pragma unroll
+      for (int e = 0; e < RAYS * K; e += E)
+        store16(wbar + q * RAYS * K + e, out + e);
+    }
   }
+  const long long i = done + tid;
+  if (i < n) {
+    T o[K];
+    bin_row<T, K>(g, ray_bin(__ldcs(x + i), HAS_Y ? __ldcs(y + i) : T(0),
+                             HAS_Y, xlo, xspan, xb, xbins, ylo, yspan, yb),
+                  o);
+#pragma unroll
+    for (int j = 0; j < K; ++j) __stcs(wbar + i * K + j, o[j]);
+  }
+}
+
+template <typename T, int K, bool HAS_Y, bool VEC>
+void launch_bwd_kernel(long long threads, const void* x, const void* y,
+                       const void* g, long long n, double xlo, double xspan,
+                       int xbins, double ylo, double yspan, int ybins,
+                       void* wbar, cudaStream_t s) {
+  const long long blocks = (threads + BWD_THREADS - 1) / BWD_THREADS;
+  hist2d_bwd_kernel<T, K, HAS_Y, VEC>
+      <<<static_cast<unsigned>(blocks), BWD_THREADS, 0, s>>>(
+          static_cast<const T*>(x), static_cast<const T*>(y),
+          static_cast<const T*>(g), n, static_cast<T>(xlo),
+          static_cast<T>(xspan), xbins, static_cast<T>(ylo),
+          static_cast<T>(yspan), ybins, static_cast<T*>(wbar));
 }
 
 template <typename T, int K>
 int launch_bwd(const void* x, const void* y, const void* g, long long n,
                double xlo, double xspan, int xbins, double ylo, double yspan,
                int ybins, void* wbar, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > static_cast<long long>(sms) * 2)
-    blocks = static_cast<long long>(sms) * 2;
-  hist2d_bwd_kernel<T, K><<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(g), n, static_cast<T>(xlo),
-      static_cast<T>(xspan), xbins, static_cast<T>(ylo),
-      static_cast<T>(yspan), ybins, static_cast<T*>(wbar));
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  // at k = 3 the scattered reads of the table, not the streams, limit the
+  // kernel, and one ray a thread measured faster than four
+  const bool vec = K == 1 && aligned(x) && (y == nullptr || aligned(y)) &&
+                   aligned(wbar);
+  // one thread per group of rays (a grid-stride loop over fewer blocks
+  // keeps fewer loads in flight: measured slower), enough for the tail
+  const long long groups = n / RAYS, tail = n - groups * RAYS;
+  const long long threads = vec ? (groups > tail ? groups : tail) : n;
+#define XRT_BWD(HY, V)                                                     \
+  launch_bwd_kernel<T, K, HY, V>(threads, x, y, g, n, xlo, xspan, xbins,   \
+                                 ylo, yspan, ybins, wbar, s)
+  if (y != nullptr && vec) XRT_BWD(true, K == 1);
+  else if (y != nullptr) XRT_BWD(true, false);
+  else if (vec) XRT_BWD(false, K == 1);
+  else XRT_BWD(false, false);
+#undef XRT_BWD
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,10 +19,10 @@ Histograms are differentiable with respect to the weights (the
 coordinates and the limits get no gradient: ``floor``).  The adjoint is a
 gather, ``Wbar[i, :] = g[iy(i), ix(i), :]`` for a ray inside the limits
 and 0 otherwise: on CUDA tensors the hand-written kernel
-:func:`hist2d_bwd_kernel` (one thread per ray, the forward's bin formula
-operation for operation), on CPU tensors :func:`hist2d_bwd_plain`
-(advanced indexing).  Both directions go through one
-``torch.autograd.Function``.
+:func:`hist2d_bwd_kernel` (the forward's bin formula operation for
+operation; at k = 1 four rays a thread with 16-byte loads and stores), on
+CPU tensors :func:`hist2d_bwd_plain` (advanced indexing).  Both
+directions go through one ``torch.autograd.Function``.
 
 Bin index, in both: ``floor((v - lo) / (hi - lo) * bins)`` as separate
 subtract, divide and multiply in the tensors' dtype.  The reference
@@ -165,8 +165,10 @@ def hist2d_bwd_plain(x, y, g, xbins, ybins, xlimits, ylimits=None):
 
 def hist2d_bwd_kernel(x, y, g, xbins, ybins, xlimits, ylimits=None):
     """The CUDA adjoint kernel: the same function as
-    :func:`hist2d_bwd_plain` on CUDA tensors, one thread per ray.  Raises
-    on anything the kernel does not take and on a failed launch."""
+    :func:`hist2d_bwd_plain` on CUDA tensors: at k = 1 four consecutive
+    rays a thread with 16-byte loads and stores (where x, y and the result
+    are 16-byte aligned), else one ray a thread.  Raises on anything the
+    kernel does not take and on a failed launch."""
     from .ops import _cuda
     k = g.shape[-1]
     if x.device.type != 'cuda' or g.device != x.device:
@@ -178,6 +180,8 @@ def hist2d_bwd_kernel(x, y, g, xbins, ybins, xlimits, ylimits=None):
                          f'3) of {x.dtype}, not {tuple(g.shape)} of '
                          f'{g.dtype}')
     x, g = x.contiguous(), g.contiguous()
+    if g.data_ptr() % 16:       # the kernel reads a colour bin as a pair
+        g = g.clone()
     y = None if y is None else y.contiguous()
     xlo, xhi = float(xlimits[0]), float(xlimits[1])
     ylo, yhi = (0.0, 1.0) if y is None else \

@@ -8,8 +8,12 @@ the CPU tests import every module on a host without ``nvcc``.
 
 ``--fmad=false`` keeps every ``a * b + c`` a separate multiply and add: a
 contracted FMA breaks the Dekker split of the double-float code (see
-``csrc/dd.cuh``).  No ``--use_fast_math``: ``sqrtf``, ``1.0f / x``,
-``sinf`` and ``cosf`` stay IEEE.
+``csrc/dd.cuh``).  A ``__fmaf_rn`` written by hand is still an FMA, so the
+adjoint kernels fuse their reverse sweeps explicitly where no error-free
+transform lives.  No ``--use_fast_math``: ``sqrtf``, ``1.0f / x``,
+``sinf`` and ``cosf`` stay IEEE.  ``-Xptxas -v`` puts every kernel's
+registers and spills into the build log, which is kept beside the library
+(:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / 'build' / \
     'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC',
+              '-Xptxas', '-v')
 #: kernel sources, one shared library each
 SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
            'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
@@ -74,10 +79,16 @@ def build(names=SOURCES) -> dict:
         if p.returncode != 0:
             failed.append(f'{name}:\n{log}')
             continue
+        out.with_suffix('.log').write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of the last build of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix('.log').read_text()
 
 
 @functools.lru_cache(maxsize=None)

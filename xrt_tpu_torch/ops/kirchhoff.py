@@ -553,9 +553,16 @@ def kirchhoff_integral_recentred(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
 #: sources per shared-memory stage of the CUDA kernels (csrc: CHUNK); the
 #: wrappers zero-pad the sources to a multiple of it
 KERNEL_SRC_CHUNK = 256
-#: threads per block of the CUDA kernels (csrc: BLOCK): the dst pass of the
-#: recentred adjoint writes one row of scalar partials per block
-KERNEL_BLOCK = 128
+#: the one-pass adjoint kernels (csrc/kirchhoff_bwd.cuh): sources per tile
+#: (one per thread; a divisor of KERNEL_SRC_CHUNK) and destinations per
+#: shared-memory stage
+ADJ_TILE, ADJ_CHUNK = 128, 64
+#: at most this many source groups; each has a private set of destination
+#: partial rows, (groups, rows, Nd) floats of scratch
+ADJ_MAX_GROUPS = 128
+#: (destination slabs) x (source groups) aimed at: about ten waves of the
+#: blocks an H100 holds at once, so the last wave's tail is short
+ADJ_TARGET_BLOCKS = 4096
 _RECENTRED_VARIANTS = {'mono': 0, 'narrowband': 1, 'poly': 2}
 _DD_VARIANTS = {'fast': 0, 'exact': 1}
 _RECENTRED_NAMES = {v: kk for kk, v in _RECENTRED_VARIANTS.items()}
@@ -581,12 +588,19 @@ _RECENTRED_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                        _P, _P, _P]
 _DDPHASE_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P,
                      _P]
-# (variant, dst, nd, src, ns_pad[, params], gout, ddst, dsrc[, ppart],
-#  stream)
-_RECENTRED_BWD_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
-                           _P, _P, _P, _P, _P, _P]
-_DDPHASE_BWD_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
-                         _P, _P, _P, _P]
+# the adjoints' pass: (variant, dst, nd, src, ns_pad, params, gout, nslab,
+# slab, ngroup, dpart, spart, ppart, stream); their reduction: (variant,
+# dpart, ngroup, nd, ddst, spart, nslab, ns_pad, dsrc, stream)
+_ADJ_PASS_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P,
+                      _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+                      _P, _P]
+_ADJ_REDUCE_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P, _P,
+                        ctypes.c_int, ctypes.c_int, _P, _P]
+#: distinct cotangent rows (of a destination, of a source) of the adjoint
+#: kernels by (scheme, variant): hi/lo halves share one
+_ADJ_ROWS = {('recentred', 0): (6, 20), ('recentred', 1): (6, 23),
+             ('recentred', 2): (7, 23), ('ddphase', 0): (3, 17),
+             ('ddphase', 1): (3, 17)}
 
 
 def _soa(d, keys):
@@ -660,51 +674,96 @@ def _launch_ddphase(D, S, variant):
     return out
 
 
-def _launch_recentred_bwd(D, S, P, G, variant):
-    """The adjoint kernels of B1 (``csrc/kirchhoff_recentred_bwd.cu``: a dst
-    pass and a src pass): cotangents (of D, of the padded S, of P) for the
-    output cotangents *G* (10, Nd).  The scalars' block partials are summed
-    in float64."""
+def adjoint_grid(nd, ns_pad):
+    """(nslab, slab, ngroup) of the adjoint kernels' grid for *nd*
+    destinations and *ns_pad* padded sources: block (a, g) runs the source
+    tiles g, g + ngroup, ... against the *slab* destinations of slab a."""
+    ntiles = ns_pad // ADJ_TILE
+    ngroup = min(ntiles, ADJ_MAX_GROUPS)
+    nslab = min(-(-ADJ_TARGET_BLOCKS // ngroup), -(-nd // ADJ_CHUNK))
+    slab = -(-nd // nslab)
+    slab = -(-slab // ADJ_CHUNK) * ADJ_CHUNK
+    return -(-nd // slab), slab, ngroup
+
+
+def adjoint_scratch(scheme, variant, nd, ns_pad):
+    """Shapes of the adjoint kernels' scratch: the destination partials
+    (ngroup, rows, nd) and source partials (nslab, rows, ns_pad), float32,
+    and the scalars' block partials (nslab * ngroup, 10), float64 (None for
+    'ddphase')."""
+    nslab, _, ngroup = adjoint_grid(nd, ns_pad)
+    rd, rs = _ADJ_ROWS[(scheme, variant)]
+    return ((ngroup, rd, nd), (nslab, rs, ns_pad),
+            (nslab * ngroup, len(_PARAM_KEYS)) if scheme == 'recentred'
+            else None)
+
+
+def _adjoint_pass(scheme, variant, D, S, P, G):
+    """The pass of the adjoint kernels (``csrc/kirchhoff_<scheme>_bwd.cu``,
+    one pass over the pairs): its partials (dpart, spart, ppart)."""
     from . import _cuda
-    dev = _check_kernel_inputs(D, S, P, G)
-    D, S, P, G = D.contiguous(), S.contiguous(), P.contiguous(), \
-        G.contiguous()
-    Nd = D.shape[1]
-    bD = torch.empty_like(D)
-    bS = torch.empty_like(S)
-    nblk = -(-Nd // KERNEL_BLOCK)
-    parts = torch.empty((nblk, len(_PARAM_KEYS)), dtype=torch.float64,
-                        device=dev)
-    fn = _cuda.entry('kirchhoff_recentred_bwd',
-                     'kirchhoff_recentred_bwd_launch',
-                     _RECENTRED_BWD_ARGTYPES)
+    dev = _check_kernel_inputs(*(t for t in (D, S, P, G) if t is not None))
+    nd, ns_pad = D.shape[1], S.shape[1]
+    if ns_pad % ADJ_TILE:
+        raise ValueError(f'adjoint kernels: {ns_pad} sources are not padded '
+                         f'to a multiple of {ADJ_TILE}')
+    nslab, slab, ngroup = adjoint_grid(nd, ns_pad)
+    dshape, sshape, pshape = adjoint_scratch(scheme, variant, nd, ns_pad)
+    dpart = torch.empty(dshape, dtype=torch.float32, device=dev)
+    spart = torch.empty(sshape, dtype=torch.float32, device=dev)
+    ppart = None if pshape is None else \
+        torch.empty(pshape, dtype=torch.float64, device=dev)
+    fn = _cuda.entry(f'kirchhoff_{scheme}_bwd',
+                     f'kirchhoff_{scheme}_bwd_launch', _ADJ_PASS_ARGTYPES)
     with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
-                 P.data_ptr(), G.data_ptr(), bD.data_ptr(), bS.data_ptr(),
-                 parts.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, 'kirchhoff_recentred_bwd')
-    LAUNCHES[f'kirchhoff_recentred_bwd:{_RECENTRED_NAMES[variant]}'] += 1
-    return bD, bS, parts.sum(dim=0).to(torch.float32)
+        err = fn(variant, D.data_ptr(), nd, S.data_ptr(), ns_pad,
+                 None if P is None else P.data_ptr(), G.data_ptr(), nslab,
+                 slab, ngroup, dpart.data_ptr(), spart.data_ptr(),
+                 None if ppart is None else ppart.data_ptr(),
+                 _cuda.stream_ptr(dev))
+    _cuda.check(err, f'kirchhoff_{scheme}_bwd')
+    return dpart, spart, ppart
+
+
+def _adjoint_reduce(scheme, variant, dpart, spart, D, S):
+    """The adjoint kernels' second kernel: the partials summed in a fixed
+    order into the cotangents of D and of the padded S."""
+    from . import _cuda
+    bD, bS = torch.empty_like(D), torch.empty_like(S)
+    fn = _cuda.entry(f'kirchhoff_{scheme}_bwd',
+                     f'kirchhoff_{scheme}_bwd_reduce', _ADJ_REDUCE_ARGTYPES)
+    with torch.cuda.device(D.device):
+        err = fn(variant, dpart.data_ptr(), dpart.shape[0], D.shape[1],
+                 bD.data_ptr(), spart.data_ptr(), spart.shape[0], S.shape[1],
+                 bS.data_ptr(), _cuda.stream_ptr(D.device))
+    _cuda.check(err, f'kirchhoff_{scheme}_bwd')
+    return bD, bS
+
+
+def _launch_adjoint(scheme, variant, D, S, P, G):
+    """The adjoint kernels of B1 (*scheme* 'recentred') or B2 ('ddphase'):
+    cotangents (of D, of the padded S, of P or None) for the output
+    cotangents *G* (10, Nd); one launch in :data:`LAUNCHES`.  The scalars'
+    block partials are summed in float64."""
+    D, S, G = D.contiguous(), S.contiguous(), G.contiguous()
+    P = None if P is None else P.contiguous()
+    dpart, spart, ppart = _adjoint_pass(scheme, variant, D, S, P, G)
+    bD, bS = _adjoint_reduce(scheme, variant, dpart, spart, D, S)
+    names = _RECENTRED_NAMES if scheme == 'recentred' else _DD_NAMES
+    LAUNCHES[f'kirchhoff_{scheme}_bwd:{names[variant]}'] += 1
+    bP = None if ppart is None else ppart.sum(dim=0).to(torch.float32)
+    return bD, bS, bP
+
+
+def _launch_recentred_bwd(D, S, P, G, variant):
+    """The adjoint kernel of B1: cotangents (of D, of the padded S, of
+    P)."""
+    return _launch_adjoint('recentred', variant, D, S, P, G)
 
 
 def _launch_ddphase_bwd(D, S, G, variant):
-    """The adjoint kernels of B2 (``csrc/kirchhoff_ddphase_bwd.cu``):
-    cotangents (of D, of the padded S)."""
-    from . import _cuda
-    dev = _check_kernel_inputs(D, S, G)
-    D, S, G = D.contiguous(), S.contiguous(), G.contiguous()
-    Nd = D.shape[1]
-    bD = torch.empty_like(D)
-    bS = torch.empty_like(S)
-    fn = _cuda.entry('kirchhoff_ddphase_bwd', 'kirchhoff_ddphase_bwd_launch',
-                     _DDPHASE_BWD_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
-                 G.data_ptr(), bD.data_ptr(), bS.data_ptr(),
-                 _cuda.stream_ptr(dev))
-    _cuda.check(err, 'kirchhoff_ddphase_bwd')
-    LAUNCHES[f'kirchhoff_ddphase_bwd:{_DD_NAMES[variant]}'] += 1
-    return bD, bS
+    """The adjoint kernel of B2: cotangents (of D, of the padded S)."""
+    return _launch_adjoint('ddphase', variant, D, S, None, G)[:2]
 
 
 def _kernel_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights,
