@@ -8,13 +8,16 @@ process per source, in parallel), then runs twelve phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
-   versions, the build time, the registers and spills of the adjoint and
-   histogram kernels;
+   versions, the build time, the registers and spills of the forward
+   Kirchhoff, adjoint and histogram kernels;
 2. kernels against their plain PyTorch versions on the card: kernel B1
    (recentred; mono, narrowband, poly, every ``accumulate`` value) and B2
    (per-pair double-float; 'fast', 'exact') at 8192 x 16384 pairs to
    max|d| / max|ref| < 2e-5 (f32 sums of ~1e4 terms taken in another
-   order), and the double-float device helpers bit for bit; the
+   order), and the double-float device helpers bit for bit (also on
+   products spanning positions of 1e-6 to 1e5 mm, their squares and
+   kappa x r to ~1e13, where two_prod's FMA must give the Dekker bits),
+   and sincosf against sinf / cosf bit for bit (B2 'exact' uses it); the
    histogram kernel B4 for k = 1 and 3 against its plain version with the
    sums taken in float64: 1e7 uniform rays into 128 x 128 (block-private
    shared-memory copies) and into 1024 x 1024 (global atomics), the 1D
@@ -34,10 +37,11 @@ non-zero if any fails:
    'exact') against the recentred result to < 5e-3;
 5. the ``kernels`` line: every kernel with its launches, time, plain
    version's time, bound and (B4, B4-bwd) the library call's time at the
-   main-path shapes; for B3 also the share of its second kernel (the sum
-   of the partials), its scratch and its registers and spills from the
-   build log (``-Xptxas -v``).  The adjoint kernels are held against the plain
-   blocked backward there too, on the slices it can do in seconds (it
+   main-path shapes; for B1, B2 and B3 also the share of their second
+   kernel (the sum of the partials), their scratch and their registers
+   and spills from the build log (``-Xptxas -v``).  The adjoint kernels
+   are held against the plain blocked backward there too, on the slices
+   it can do in seconds (it
    takes 1.6 ns a pair): the destination rows of the last 8192
    destinations against all sources, the source rows of the last 2048
    sources against all destinations, and, from a second launch at the same
@@ -120,17 +124,18 @@ PEAK_BYTES = 3.35e12
 
 #: f32 operations per (destination, source) pair, read off the kernel
 #: sources term by term (a reciprocal, a square root, a rintf, cosf or
-#: sinf each count as one operation):
+#: sinf each count as one operation, an FMA as two; two_prod is a multiply
+#: and an FMA, 3):
 #: B1 mono   — offsets 3, wp2 6, A 1, 1/A 1, x 2, delta series 6, delta 2,
 #:             phase 9, reduction 2, sincos polynomials 22, lw 1, num 8,
 #:             pre 4, U 3, ax/ay/az 9, f 1, g 8, ten sums 28      = 116
-#: B2 fast   — dd differences 33, three two_prods 51, two_sums 12, lo 11,
-#:             sqrt + 1/r 2, q 17, corr 5, k r two_prod 17, ml 4,
+#: B2 fast   — dd differences 33, three two_prods 9, two_sums 12, lo 11,
+#:             sqrt + 1/r 2, q 3, corr 5, k r two_prod 3, ml 4,
 #:             frac 7, sincos 22, nsk 7, pre 2, U 3, f 1, g 8, sums 28
-#:                                                                = 230
-#: B2 exact  — dd differences 33, three dd squares 69, two dd adds 22,
-#:             dd sqrt 35, kappa 24, kappa r 24, frac_two_pi 8, 1/r 1,
-#:             cos + sin 2, nsk 7, pre 2, U 3, f 1, g 8, sums 28  = 267
+#:                                                                = 160
+#: B2 exact  — dd differences 33, three dd squares 27, two dd adds 22,
+#:             dd sqrt 21, kappa 10, kappa r 10, frac_two_pi 8, 1/r 1,
+#:             cos + sin 2, nsk 7, pre 2, U 3, f 1, g 8, sums 28  = 183
 #: The adjoints (B3), the least work for one pair: the forward pair without
 #: its ten sums, one reverse sweep, and one add per cotangent row.
 #: B3 mono   — forward 88; reverse: field cotangents 12, g's 10, ax/ay/az 9,
@@ -139,21 +144,21 @@ PEAK_BYTES = 3.35e12
 #:             kappa 4, series and 1/A 23, t 12                  = 137;
 #:             sums: 6 destination rows, 20 source rows, 8 scalars = 34
 #:                                                                = 259
-#: B3 fast   — forward 202; reverse: the amplitude part 89, the phase part
+#: B3 fast   — forward 132; reverse: the amplitude part 89, the phase part
 #:             (kp, corr, s0, resid, 1/r, s2, the differences) 40  = 129;
-#:             sums: 3 destination, 17 source rows = 20           = 351
-#: B3 exact  — forward 239; reverse: the amplitude part 89, the phase part
+#:             sums: 3 destination, 17 source rows = 20           = 281
+#: B3 exact  — forward 155; reverse: the amplitude part 89, the phase part
 #:             (frac_two_pi, kappa r, kp, dd sqrt, dd squares) 43 = 132;
-#:             sums 20                                            = 391
+#:             sums 20                                            = 307
 #: The kernels evaluate each pair once (one pass, csrc/kirchhoff_bwd.cuh);
 #: what they add to this is the sum of each pair's destination cotangents
 #: over the warp (a transpose-reduce) and the partial sums across blocks.
 OPS_PER_PAIR = {'kirchhoff_recentred:mono': 116,
-                'kirchhoff_ddphase:fast': 230,
-                'kirchhoff_ddphase:exact': 267,
+                'kirchhoff_ddphase:fast': 160,
+                'kirchhoff_ddphase:exact': 183,
                 'kirchhoff_recentred_bwd:mono': 259,
-                'kirchhoff_ddphase_bwd:fast': 351,
-                'kirchhoff_ddphase_bwd:exact': 391}
+                'kirchhoff_ddphase_bwd:fast': 281,
+                'kirchhoff_ddphase_bwd:exact': 307}
 #: f32 keys read per destination and per source, and outputs per
 #: destination, of every kernel of the line (mono B1 and both B2 variants)
 KEYS = (6, 20, 10)
@@ -293,7 +298,8 @@ def phase_card():
     t = time.perf_counter() - t0
     print(f'phase 1 build: {len(_cuda.SOURCES)} sources with nvcc in '
           f'{t:.2f} s', flush=True)
-    for name in ('kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
+    for name in ('kirchhoff_recentred', 'kirchhoff_ddphase',
+                 'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
                  'hist2d'):
         for fn, regs, st, ld in ptxas_rows(_cuda.build_log(name)):
             print(f'phase 1 ptxas {name} {fn}: {regs} registers, spill '
@@ -321,15 +327,17 @@ def ptxas_rows(log):
     return rows
 
 
-def adjoint_registers(scheme, v):
-    """(registers, spill bytes) of the adjoint kernel of one variant."""
+def kernel_registers(scheme, v, adjoint=False):
+    """(registers, spill bytes) of the forward (B1, B2) or adjoint (B3)
+    kernel of one variant."""
     from xrt_tpu_torch.ops import _cuda
     pair = 'RecentredPair' if scheme == 'recentred' else 'DDPair'
-    for fn, regs, st, ld in ptxas_rows(_cuda.build_log(
-            f'kirchhoff_{scheme}_bwd')):
-        if 'adjoint_kernel' in fn and f'{pair}ILi{v}E' in fn:
+    lib, fn_name = (f'kirchhoff_{scheme}_bwd', 'adjoint_kernel') if adjoint \
+        else (f'kirchhoff_{scheme}', 'forward_kernel')
+    for fn, regs, st, ld in ptxas_rows(_cuda.build_log(lib)):
+        if fn_name in fn and f'{pair}ILi{v}E' in fn:
             return regs, st + ld
-    raise PhaseError(f'no ptxas line for the {scheme} adjoint {v}')
+    raise PhaseError(f'no ptxas line for {lib} {v}')
 
 
 def kernel_case_args(mode, Nd=8192, Ns=16384, seed=3):
@@ -393,16 +401,58 @@ def phase_kernels():
     a = (torch.rand(n, generator=g, dtype=torch.float64) * 2e4 - 1e4)
     b = (torch.rand(n, generator=g, dtype=torch.float64) * 2 - 1)
     c = (torch.rand(n, generator=g, dtype=torch.float64) - 0.5)
-    a, b, c = (v.float().cuda() for v in (a, b, c))
-    got = dd.selftest(a, b, c)
-    plain = torch.stack([*dd.two_sum(a, b), *dd.two_prod(a, b),
-                         dd.frac_cycles(a, b), *dd.sincos_cycles(c)])
-    cpu = dd.selftest(a.cpu(), b.cpu(), c.cpu()).cuda()
-    bad = int((got != plain).sum()) + int((got != cpu).sum())
-    check(bad == 0, f'dd helpers differ from plain torch in {bad} values')
-    print(f'phase 2 dd helpers: two_sum, two_prod, frac_cycles, '
-          f'sincos_cycles bit-identical to plain torch (card and CPU) on '
-          f'{n} inputs', flush=True)
+
+    def logu(lo, hi, m):
+        e = torch.rand(m, generator=g, dtype=torch.float64) * (hi - lo) + lo
+        sign = torch.where(torch.rand(m, generator=g) < 0.5, -1.0, 1.0)
+        return sign * 10.0 ** e
+    # products the kernels form: position differences of 1e-6 to 1e5 mm
+    # against each other and themselves, kappa (1e6 to 1e8 / mm) times r
+    # (1e2 to 1e5 mm)
+    m = n // 4
+    sq = logu(-6, 5, m)
+    wide_a = torch.cat([logu(-6, 5, m), sq, logu(6, 8, m).abs(), a[:m]])
+    wide_b = torch.cat([logu(-6, 5, m), sq, logu(2, 5, m).abs(), b[:m]])
+    for name, (x, y) in (('uniform', (a, b)), ('spanning', (wide_a,
+                                                            wide_b))):
+        x, y, z = (v.float().cuda() for v in (x, y, c))
+        got = dd.selftest(x, y, z)
+        plain = torch.stack([*dd.two_sum(x, y), *dd.two_prod(x, y),
+                             dd.frac_cycles(x, y), *dd.sincos_cycles(z)])
+        cpu = dd.selftest(x.cpu(), y.cpu(), z.cpu()).cuda()
+        bad = int((got != plain).sum()) + int((got != cpu).sum())
+        check(bad == 0, f'dd helpers differ from plain torch in {bad} '
+              f'values ({name} inputs)')
+        print(f'phase 2 dd helpers: two_sum, two_prod (one FMA), '
+              f'frac_cycles, sincos_cycles bit-identical to plain torch '
+              f'(card and CPU; two_prod the Dekker product) on {n} {name} '
+              f'inputs', flush=True)
+    # B2 'exact' takes sin and cos from one sincosf: only because they are
+    # the bits of sinf and cosf, which its adjoint recomputes
+    x = torch.cat([(4 * torch.rand(n, generator=g, dtype=torch.float64) -
+                    2) * math.pi, torch.tensor(
+        [0.0, -0.0, math.pi / 2, -math.pi / 2, math.pi, -math.pi,
+         2 * math.pi, -2 * math.pi, 1e-30, 3e-39, 1e5, -1e5, 1e30])])
+    bad = sincosf_mismatches(x.float().cuda())
+    check(bad == 0, f'sincosf differs from sinf / cosf in {bad} values')
+    print(f'phase 2 sincosf: sin and cos bit-identical to sinf and cosf on '
+          f'{x.numel()} phases (B2 \'exact\' takes them from one sincosf)',
+          flush=True)
+
+
+def sincosf_mismatches(x):
+    """The values of the CUDA tensor *x* where one sincosf on the card
+    does not give the bits of sinf and cosf."""
+    import ctypes
+    import torch
+    from xrt_tpu_torch.ops import _cuda
+    out = torch.empty((4, x.numel()), device=x.device)
+    fn = _cuda.entry('dd_selftest', 'sincosf_selftest_launch',
+                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    _cuda.check(fn(x.data_ptr(), x.numel(), out.data_ptr(),
+                   _cuda.stream_ptr(x.device)), 'sincosf_selftest')
+    return int(((out[0] != out[2]) | (out[1] != out[3])).sum())
 
 
 def phase_main(timing):
@@ -469,9 +519,11 @@ def hop_inputs(run, els):
 
 
 def time_kernel(name, variant, stage, with_plain=True):
-    """(kernel ms, plain ms, max abs err, rel err, Nd, Ns) of one kernel at
-    one stage's shapes: the kernel alone by CUDA events (median of 3), the
-    plain version once (or skipped: None for its three numbers)."""
+    """(kernel ms, plain ms, max abs err, rel err, Nd, Ns, extra) of one
+    kernel at one stage's shapes: the kernel alone by CUDA events (median
+    of 3), the plain version once (or skipped: None for its three numbers);
+    *extra* holds the time of its second kernel (the sum of the source
+    groups' partials), its scratch bytes, registers and spill bytes."""
     import torch
     from xrt_tpu_torch import waves as W
     from xrt_tpu_torch.ops import kirchhoff as tk
@@ -491,12 +543,20 @@ def time_kernel(name, variant, stage, with_plain=True):
     launch()
     torch.cuda.synchronize()
     ms = statistics.median(cuda_ms(launch)[0] for _ in range(3))
+    part = tk._forward_pass(scheme, v, D, S, P)
+    red_ms = statistics.median(cuda_ms(lambda: tk._forward_reduce(
+        name, part))[0] for _ in range(3))
+    regs, spill = kernel_registers(scheme, v)
+    extra = dict(reduce_ms=red_ms, scratch_bytes=part.numel() * 4,
+                 registers=regs, spill_bytes=spill,
+                 grid=tk.forward_grid(Nd, tk.forward_sources(S).shape[0]))
+    del part
     if not with_plain:
-        return ms, None, None, None, Nd, Ns
+        return ms, None, None, None, Nd, Ns, extra
     out = tk._complex5(launch())
     plain_ms, ref = cuda_ms(plain)
     rel, ab = rel_err(out, ref)
-    return ms, plain_ms, ab, rel, Nd, Ns
+    return ms, plain_ms, ab, rel, Nd, Ns, extra
 
 
 def phase_cross(timing):
@@ -544,10 +604,17 @@ def phase_kernel_line(timing):
     rows = []
     stages = timing['stages']
     for hop, stage in enumerate(stages, 1):
-        ms, _, _, _, Nd, Ns = time_kernel('kirchhoff_recentred', 'mono',
-                                          stage, with_plain=False)
+        ms, _, _, _, Nd, Ns, ex = time_kernel('kirchhoff_recentred', 'mono',
+                                              stage, with_plain=False)
+        bms, _ = bound_ms('kirchhoff_recentred:mono', Nd, Ns)
         print(f'phase 5 hop {hop} kernel B1 alone: {Nd} x {Ns} pairs, '
-              f'{ms:.2f} ms, {Nd * Ns / (ms * 1e-3):.3e} pairs/s',
+              f'{ms:.2f} ms, '
+              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s, {bms / ms:.1%} of its '
+              f'operation bound {bms:.2f} ms; grid {ex["grid"][0]} tiles x '
+              f'{ex["grid"][1]} source groups, the sum of their partials '
+              f'{ex["reduce_ms"]:.3f} ms ({ex["reduce_ms"] / ms:.2%}), '
+              f'scratch {ex["scratch_bytes"] / 2 ** 20:.1f} MiB; '
+              f'{ex["registers"]} registers, {ex["spill_bytes"]} B spilled',
               flush=True)
     specs = [('kirchhoff_recentred', 'mono', stages[0],
               timing['main']['launches']),
@@ -557,18 +624,24 @@ def phase_kernel_line(timing):
               timing['b2_launches'])]
     for name, variant, stage, launches in specs:
         key = f'{name}:{variant}'
-        ms, plain_ms, ab, rel, Nd, Ns = time_kernel(name, variant, stage)
+        ms, plain_ms, ab, rel, Nd, Ns, ex = time_kernel(name, variant,
+                                                        stage)
         check(rel < 2e-5, f'{key} at main-path shapes: {rel:.3e}')
         bms, by = bound_ms(key, Nd, Ns)
-        print(f'phase 5 {key}: {Nd} x {Ns} pairs, kernel {ms:.2f} ms, '
-              f'plain {plain_ms:.1f} ms, bound {bms:.2f} ms ({by}), '
-              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s, max rel {rel:.2e}',
-              flush=True)
+        print(f'phase 5 {key}: {Nd} x {Ns} pairs, kernel {ms:.2f} ms (the '
+              f'sum of the groups\' partials {ex["reduce_ms"]:.3f} ms of '
+              f'it), plain {plain_ms:.1f} ms, bound {bms:.2f} ms ({by}), '
+              f'{bms / ms:.1%} of bound, {Nd * Ns / (ms * 1e-3):.3e} pairs/s, '
+              f'max rel {rel:.2e}; {ex["registers"]} registers, '
+              f'{ex["spill_bytes"]} B spilled', flush=True)
         rows.append(dict(name=key, route='cuda', source=SOURCES[name],
                          replaces=REPLACES[name],
                          launches=int(launches.get(key, 0)),
                          max_abs_err=ab, max_rel_err=rel, ms=ms,
-                         plain_ms=plain_ms,
+                         reduce_ms=ex['reduce_ms'],
+                         scratch_bytes=ex['scratch_bytes'],
+                         registers=ex['registers'],
+                         spill_bytes=ex['spill_bytes'], plain_ms=plain_ms,
                          bound_ms=bms, bound_by=by, library_ms=None))
     return rows
 
@@ -1450,7 +1523,7 @@ def adjoint_rows(timing):
         scratch = sum(t.numel() * t.element_size() for t in parts
                       if t is not None)
         del parts
-        regs, spill = adjoint_registers(scheme, v)
+        regs, spill = kernel_registers(scheme, v, adjoint=True)
         t0 = time.perf_counter()
         relD, relS, relP, ab = sliced_adjoint_errors(scheme, v, D, S, P, G,
                                                      got, Ns)

@@ -8,8 +8,13 @@ check).  On the card:
 
 * each kernel (B1 mono/narrowband/poly, B2 fast/exact) against its plain
   PyTorch version on the same CUDA tensors, to max|d| / max|ref| < 2e-5
-  (f32 sums of ~1e3 terms in another order);
-* the double-float device helpers bit for bit against the torch dd;
+  (f32 sums of ~1e3 terms in another order), through the wrapper for every
+  ``accumulate`` value with its launch counted; the edges of the forward
+  skeleton's tiling (1, 2, 31, 33 and 257 destinations against 1, 255 and
+  257 sources, a grid of one block), two launches with the same bits, and
+  a launch from a side stream;
+* the double-float device helpers bit for bit against the torch dd, and
+  sincosf against sinf / cosf;
 * the wrappers count their launches, and a failing launch raises;
 * the histogram kernel (B4) against its plain version with the sums taken
   in float64, for k = 1 and 3: both variants (block-private shared-memory
@@ -127,6 +132,23 @@ def test_dd_helpers_bit_identical(cuda):
     assert torch.equal(got, dd.selftest(a.cpu(), b.cpu(), c.cpu()).to(cuda))
 
 
+def test_sincosf_gives_the_bits_of_sinf_and_cosf(cuda):
+    """B2 'exact' takes sin and cos from one sincosf: the bits of sinf and
+    cosf, which its adjoint recomputes."""
+    import ctypes
+    from xrt_tpu_torch.ops import _cuda
+    g = torch.Generator().manual_seed(1)
+    x = ((4 * torch.rand(200_000, generator=g, dtype=torch.float64) - 2) *
+         np.pi).float().to(cuda)
+    out = torch.empty((4, x.numel()), device=cuda)
+    fn = _cuda.entry('dd_selftest', 'sincosf_selftest_launch',
+                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
+    _cuda.check(fn(x.data_ptr(), x.numel(), out.data_ptr(),
+                   _cuda.stream_ptr(cuda)), 'sincosf_selftest')
+    assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+
+
 def test_float64_is_refused_by_the_kernel(cuda):
     args = _args(cuda, poly=False, Ns=300, Nd=100)
     _, v, D, S, P = tk._kernel_inputs(*args, 'mono')
@@ -137,19 +159,101 @@ def test_float64_is_refused_by_the_kernel(cuda):
 
 
 def test_refused_launch_raises(cuda):
-    """A launch the C entry point refuses (sources not padded to its
+    """A launch the C entry point refuses (source rows not padded to its
     chunk) comes back as a nonzero cudaError_t, and the check raises."""
     from xrt_tpu_torch.ops import _cuda
     fn = _cuda.entry('kirchhoff_recentred', 'kirchhoff_recentred_launch',
-                     tk._RECENTRED_ARGTYPES)
+                     tk._FWD_ARGTYPES)
     D = torch.zeros((6, 4), device=cuda)
-    S = torch.zeros((20, 100), device=cuda)
-    out = torch.empty((10, 4), device=cuda)
+    rows = torch.zeros((100, 20), device=cuda)
+    part = torch.empty((1, 10, 4), device=cuda)
     P = torch.zeros(10, device=cuda)
-    err = fn(0, D.data_ptr(), 4, S.data_ptr(), 100, P.data_ptr(),
-             out.data_ptr(), _cuda.stream_ptr(cuda))
+    err = fn(0, D.data_ptr(), 4, rows.data_ptr(), 100, P.data_ptr(), 1,
+             part.data_ptr(), _cuda.stream_ptr(cuda))
     with pytest.raises(RuntimeError):
         _cuda.check(err, 'kirchhoff_recentred')
+
+
+# ---- B1, B2: the forward skeleton -----------------------------------------
+
+ACCUMULATE = ['vpu', 'mxu', 'mxu2', 'mxu-fast', 'mxu32']
+
+
+FORWARD = ['mono', 'narrowband', 'poly', 'fast', 'exact']
+
+
+def _forward(D, S, P, scheme, v):
+    if scheme == 'recentred':
+        return tk._launch_recentred(D, S, P, v)
+    return tk._launch_ddphase(D, S, v)
+
+
+@pytest.mark.parametrize('acc', ACCUMULATE)
+@pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly'])
+def test_every_accumulate_value_launches_the_kernel(cuda, mode, acc):
+    args = _args(cuda, poly=mode != 'mono')
+    kw = dict(monochromatic=mode == 'mono', narrowband=mode == 'narrowband')
+    before = dict(tk.LAUNCHES)
+    got = tk.kirchhoff_integral_kernel(*args, accumulate=acc, **kw)
+    torch.cuda.synchronize()
+    name = f'kirchhoff_recentred:{mode}'
+    assert tk.LAUNCHES[name] == before.get(name, 0) + 1
+    assert sum(tk.LAUNCHES.values()) == sum(before.values()) + 1
+    assert _rel(got, tk.kirchhoff_integral_recentred(*args, **kw)) < 2e-5
+
+
+@pytest.mark.parametrize('Ns', [1, 255, 257])
+@pytest.mark.parametrize('Nd', [1, 2, 31, 33, 257])
+@pytest.mark.parametrize('mode', FORWARD)
+def test_forward_tiling_edges(cuda, mode, Nd, Ns):
+    """The first Nd of 300 destinations (one thread's two, a warp's edges,
+    a tile and one more) against Ns sources (one, and either side of two
+    128-source chunks).  A sum over one destination can cancel, so each
+    output is held to 2e-5 of its largest magnitude over all 300."""
+    args = _args(cuda, poly=mode != 'mono', Ns=Ns, Nd=300)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    ref = tk._plain_rows(scheme, v, D, S, P)
+    scale = ref.abs().amax(dim=1, keepdim=True)
+    got = _forward(D[:, :Nd].contiguous(), S, P, scheme, v)
+    assert torch.isfinite(got).all()
+    assert float(((got - ref[:, :Nd]).abs() / scale).max()) < 2e-5
+
+
+@pytest.mark.parametrize('mode', FORWARD)
+def test_forward_on_a_grid_of_one_block(cuda, mode):
+    """33 destinations and 60 sources: one tile, one chunk, one group."""
+    args = _args(cuda, poly=mode != 'mono', Ns=60, Nd=33)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    assert tk.forward_grid(33, tk.forward_sources(S).shape[0]) == (1, 1)
+    got = _forward(D, S, P, scheme, v)
+    assert _rel(got, tk._plain_rows(scheme, v, D, S, P)) < 2e-5
+
+
+@pytest.mark.parametrize('mode', FORWARD)
+def test_forward_gives_the_same_bits_twice(cuda, mode):
+    """8192 x 16384: 64 source groups, whose partials a second kernel adds
+    in a fixed order."""
+    args = _args(cuda, poly=mode != 'mono', Ns=16384, Nd=8192)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    assert tk.forward_grid(8192, tk.forward_sources(S).shape[0])[1] > 1
+    a = _forward(D, S, P, scheme, v)
+    b = _forward(D, S, P, scheme, v)
+    assert torch.equal(a, b)
+    assert _rel(a, tk._plain_rows(scheme, v, D, S, P)) < 2e-5
+
+
+@pytest.mark.parametrize('mode', ['mono', 'fast'])
+def test_forward_from_a_side_stream(cuda, mode):
+    args = _args(cuda, poly=mode != 'mono', Ns=3000, Nd=1000)
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    ref = _forward(D, S, P, scheme, v)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = _forward(D, S, P, scheme, v)
+    side.synchronize()
+    assert torch.equal(ref, got)
 
 
 # ---- B3: the adjoint kernels ---------------------------------------------

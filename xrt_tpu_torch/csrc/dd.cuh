@@ -9,7 +9,12 @@
 //  * FMA contraction breaks the Dekker split c - (c - a) and the two-sum
 //    error terms.  The kernels are built with --fmad=false, so every
 //    a * b + c below stays a rounded multiply followed by a rounded add,
-//    exactly as the plain PyTorch version computes it.
+//    exactly as the plain PyTorch version computes it, unless it is
+//    written as __fmaf_rn.
+//  * two_prod takes its error term from one FMA: p = a * b and
+//    e = fma(a, b, -p) give the same (p, e) bits as the plain version's
+//    Dekker product (the exact error of a rounded product is unique) while
+//    nothing overflows or underflows, in 2 instructions instead of 16.
 //  * Round-half-to-even: jnp.round / torch.round, so rintf (not roundf).
 //  * No --use_fast_math: sqrtf and 1.0f / x stay correctly rounded.
 #pragma once
@@ -41,10 +46,7 @@ __device__ __forceinline__ void split(float a, float& hi, float& lo) {
 
 __device__ __forceinline__ dd two_prod(float a, float b) {
   float p = a * b;
-  float ahi, alo, bhi, blo;
-  split(a, ahi, alo);
-  split(b, bhi, blo);
-  float e = ((ahi * bhi - p) + ahi * blo + alo * bhi) + alo * blo;
+  float e = __fmaf_rn(a, b, -p);
   return {p, e};
 }
 
@@ -121,6 +123,27 @@ __device__ __forceinline__ void sincos_cycles(float c, float& s, float& co) {
   cv = cv * c2 + static_cast<float>(-19.73903432200607);
   cv = cv * c2 + static_cast<float>(0.999999443415578);
   co = cv;
+}
+
+// The same polynomials with each Horner step one FMA, for the kernels'
+// amplitude: within an ulp or two of sincos_cycles, not its bits (those
+// are what the self-test holds against the plain version).
+__device__ __forceinline__ void sincos_cycles_fma(float c, float& s,
+                                                  float& co) {
+  float c2 = c * c;
+  float sv = static_cast<float>(-12.37227202917199);
+  sv = __fmaf_rn(sv, c2, static_cast<float>(41.26979637356224));
+  sv = __fmaf_rn(sv, c2, static_cast<float>(-76.59489967393306));
+  sv = __fmaf_rn(sv, c2, static_cast<float>(81.59765524711817));
+  sv = __fmaf_rn(sv, c2, static_cast<float>(-41.34148025958734));
+  sv = __fmaf_rn(sv, c2, static_cast<float>(6.283183465409586));
+  s = sv * c;
+  float cv = static_cast<float>(-21.28277632550657);
+  cv = __fmaf_rn(cv, c2, static_cast<float>(58.91242234401467));
+  cv = __fmaf_rn(cv, c2, static_cast<float>(-85.29594600637849));
+  cv = __fmaf_rn(cv, c2, static_cast<float>(64.93061147431378));
+  cv = __fmaf_rn(cv, c2, static_cast<float>(-19.73903432200607));
+  co = __fmaf_rn(cv, c2, static_cast<float>(0.999999443415578));
 }
 
 // 1 / (2 pi) as a dd constant

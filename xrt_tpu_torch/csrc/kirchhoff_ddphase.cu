@@ -13,28 +13,32 @@
 // f32 sums as kernel B1.  It serves geometries outside the recentred
 // envelope (short distances, long footprints).
 //
-// What bounds it: f32 ALU work per pair (~230 operations in 'fast', ~270
-// with cosf/sinf in 'exact'; chip_smoke.py counts them term by term); the
-// bytes are O(Nd + Ns).
+// What bounds it: the SMs' f32 instruction rate: ~160 operations a pair in
+// 'fast', ~185 with cosf/sinf in 'exact' (two_prod at 3; chip_smoke.py
+// counts them term by term); the bytes are O(Nd + Ns).
 //
-// Design: as B1 — one thread per destination point holding its six
-// (hi, lo) coordinates and ten accumulators in registers, the block
-// staging CHUNK sources' twenty keys in shared memory per step, and the
-// sums taken per chunk before they join the accumulators.  The
-// per-source folding (kappa = k/2pi in dd, kw, kwnl, k2) is done in plain
-// PyTorch before the launch, as the XLA code around the TPU kernel did.
+// Design: the forward skeleton csrc/kirchhoff_fwd.cuh with this pair
+// function, as B1: two destinations a thread holding their six (hi, lo)
+// coordinates, 16-byte broadcast loads of the sources' twenty keys from a
+// double-buffered stage, a grid of destination tiles x source groups, and
+// the groups' partials added in a fixed order in double.  The per-source
+// folding (kappa = k/2pi in dd, kw, kwnl, k2) is done in plain PyTorch
+// before the launch, as the XLA code around the TPU kernel did.
 //
-// Build: nvcc --fmad=false (see dd.cuh): every two_sum / two_prod here
-// must stay error-free.
+// FMA policy: built with --fmad=false (see dd.cuh).  The distance and the
+// phase are the plain version's double-float code, unfused: every two_sum
+// and quick_two_sum must stay error-free, and two_prod takes its error
+// term from one written FMA (the bits of the Dekker product).  Fused with
+// __fmaf_rn: the obliquity dot product, pre, the weight g, the sin/cos
+// polynomials ('fast': sincos_cycles_fma) and the ten sums.  1/r is
+// __frcp_rn (the bits of 1.0f / r); 'exact' takes sin and cos from one
+// sincosf, which gives the bits of sinf and cosf on the card.
 #include <cuda_runtime.h>
 
 #include "dd.cuh"
+#include "kirchhoff_fwd.cuh"
 
 namespace {
-
-constexpr int BLOCK = 128;
-constexpr int CHUNK = 256;
-constexpr int NSK = 20;
 
 // source key rows (ops/kirchhoff.py _DD_SRC_KEYS)
 enum Src {
@@ -42,124 +46,109 @@ enum Src {
   SER, SEI, N0, N1, N2
 };
 
-template <int V>
-__global__ void __launch_bounds__(BLOCK)
-kirchhoff_ddphase_kernel(const float* __restrict__ dst, int nd,
-                         const float* __restrict__ src, int ns_pad,
-                         float* __restrict__ out) {
-  __shared__ float sh[NSK][CHUNK];
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < nd;
-  const int ii = live ? i : nd - 1;
-  const xdd::dd xd{dst[0 * nd + ii], dst[1 * nd + ii]};
-  const xdd::dd yd{dst[2 * nd + ii], dst[3 * nd + ii]};
-  const xdd::dd zd{dst[4 * nd + ii], dst[5 * nd + ii]};
-
-  float acc[10];
-#pragma unroll
-  for (int q = 0; q < 10; ++q) acc[q] = 0.0f;
-
-  for (int base = 0; base < ns_pad; base += CHUNK) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < NSK * CHUNK; t += BLOCK) {
-      const int key = t / CHUNK, j = t - key * CHUNK;
-      sh[key][j] = src[key * ns_pad + base + j];
-    }
-    __syncthreads();
-    float part[10];
-#pragma unroll
-    for (int q = 0; q < 10; ++q) part[q] = 0.0f;
-    for (int j = 0; j < CHUNK; ++j) {
-      const xdd::dd dx = xdd::sub(xd, {sh[XSH][j], sh[XSL][j]});
-      const xdd::dd dy = xdd::sub(yd, {sh[YSH][j], sh[YSL][j]});
-      const xdd::dd dz = xdd::sub(zd, {sh[ZSH][j], sh[ZSL][j]});
-      const float kp0 = sh[KP0][j], kp1 = sh[KP1][j];
-      float sph, cph, rinv;
-      if constexpr (V == 0) {
-        // _phase_dd_fast: kp = kappa = k / (2 pi) as dd
-        const xdd::dd p1 = xdd::two_prod(dx.h, dx.h);
-        const xdd::dd p2 = xdd::two_prod(dy.h, dy.h);
-        const xdd::dd p3 = xdd::two_prod(dz.h, dz.h);
-        const xdd::dd s1 = xdd::two_sum(p1.h, p2.h);
-        const xdd::dd s2 = xdd::two_sum(s1.h, p3.h);
-        const float lo = s1.l + s2.l + p1.l + p2.l + p3.l +
-                         2.0f * (dx.h * dx.l + dy.h * dy.l + dz.h * dz.l);
-        const float s0 = sqrtf(s2.h);
-        rinv = 1.0f / s0;
-        const xdd::dd qq = xdd::two_prod(s0, s0);
-        const float corr = ((s2.h - qq.h) + (lo - qq.l)) * (0.5f * rinv);
-        const xdd::dd mm = xdd::two_prod(kp0, s0);
-        const float ml = mm.l + kp0 * corr + kp1 * s0;
-        const float cyc = xdd::frac_cycles(mm.h, ml);
-        xdd::sincos_cycles(cyc, sph, cph);
-      } else {
-        // _phase_dd: kp = k as dd; radian phase, IEEE cos / sin
-        const xdd::dd r2 =
-            xdd::add(xdd::add(xdd::sqr(dx), xdd::sqr(dy)), xdd::sqr(dz));
-        const xdd::dd r = xdd::sqrt(r2);
-        const xdd::dd ka = xdd::mul({kp0, kp1}, xdd::inv_two_pi());
-        const xdd::dd mm = xdd::mul(ka, r);
-        const float phase = xdd::frac_two_pi(mm.h, mm.l);
-        rinv = 1.0f / r.h;
-        cph = cosf(phase);
-        sph = sinf(phase);
-      }
-      const float a = dx.h, b = dy.h, c = dz.h;
-      const float nsk = (a * sh[N0][j] + b * sh[N1][j] + c * sh[N2][j]) *
-                        (rinv * sh[KW][j]);
-      const float pre = (sh[KWNL][j] + nsk) * rinv;
-      const float U_r = -pre * sph;
-      const float U_i = pre * cph;
-      const float f = sh[K2][j] * rinv;
-      const float ser = sh[SER][j], sei = sh[SEI][j];
-      const float g_r = f * (ser * U_r - sei * U_i);
-      const float g_i = f * (ser * U_i + sei * U_r);
-      const float esr = sh[ESR][j], esi = sh[ESI][j];
-      const float epr = sh[EPR][j], epi = sh[EPI][j];
-      part[0] += esr * U_r - esi * U_i;
-      part[1] += esr * U_i + esi * U_r;
-      part[2] += epr * U_r - epi * U_i;
-      part[3] += epr * U_i + epi * U_r;
-      part[4] += g_r * a;
-      part[5] += g_i * a;
-      part[6] += g_r * b;
-      part[7] += g_i * b;
-      part[8] += g_r * c;
-      part[9] += g_i * c;
-    }
-#pragma unroll
-    for (int q = 0; q < 10; ++q) acc[q] += part[q];
-  }
-  if (live) {
-#pragma unroll
-    for (int q = 0; q < 10; ++q) out[q * nd + i] = acc[q];
-  }
+__device__ __forceinline__ float fma_(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
 }
+
+// V: 0 'fast', 1 'exact'
+template <int V>
+struct DDPair {
+  static constexpr int NDK = 6;
+  static constexpr int NSK = 20;
+  static constexpr int NP = 0;
+
+  __device__ __forceinline__ static void eval(const float* d, const float* s,
+                                              const float*, float* acc) {
+    // ---- the distance and the phase, unfused ----
+    const xdd::dd dx = xdd::sub({d[0], d[1]}, {s[XSH], s[XSL]});
+    const xdd::dd dy = xdd::sub({d[2], d[3]}, {s[YSH], s[YSL]});
+    const xdd::dd dz = xdd::sub({d[4], d[5]}, {s[ZSH], s[ZSL]});
+    const float kp0 = s[KP0], kp1 = s[KP1];
+    float sph, cph, rinv;
+    if constexpr (V == 0) {
+      // _phase_dd_fast: kp = kappa = k / (2 pi) as dd
+      const xdd::dd p1 = xdd::two_prod(dx.h, dx.h);
+      const xdd::dd p2 = xdd::two_prod(dy.h, dy.h);
+      const xdd::dd p3 = xdd::two_prod(dz.h, dz.h);
+      const xdd::dd s1 = xdd::two_sum(p1.h, p2.h);
+      const xdd::dd s2 = xdd::two_sum(s1.h, p3.h);
+      const float lo = s1.l + s2.l + p1.l + p2.l + p3.l +
+                       2.0f * (dx.h * dx.l + dy.h * dy.l + dz.h * dz.l);
+      const float s0 = sqrtf(s2.h);
+      rinv = __frcp_rn(s0);
+      const xdd::dd qq = xdd::two_prod(s0, s0);
+      const float corr = ((s2.h - qq.h) + (lo - qq.l)) * (0.5f * rinv);
+      const xdd::dd mm = xdd::two_prod(kp0, s0);
+      const float ml = mm.l + kp0 * corr + kp1 * s0;
+      const float cyc = xdd::frac_cycles(mm.h, ml);
+      xdd::sincos_cycles_fma(cyc, sph, cph);
+    } else {
+      // _phase_dd: kp = k as dd; radian phase, IEEE cos / sin
+      const xdd::dd r2 =
+          xdd::add(xdd::add(xdd::sqr(dx), xdd::sqr(dy)), xdd::sqr(dz));
+      const xdd::dd r = xdd::sqrt(r2);
+      const xdd::dd ka = xdd::mul({kp0, kp1}, xdd::inv_two_pi());
+      const xdd::dd mm = xdd::mul(ka, r);
+      const float phase = xdd::frac_two_pi(mm.h, mm.l);
+      rinv = __frcp_rn(r.h);
+      // the bits of cosf and sinf, which the adjoint recomputes (held by
+      // chip_smoke.py phase 2), with one argument reduction
+      sincosf(phase, &sph, &cph);
+    }
+
+    // ---- the amplitude and the ten sums, fused ----
+    const float a = dx.h, b = dy.h, c = dz.h;
+    const float dotn = fma_(a, s[N0], fma_(b, s[N1], c * s[N2]));
+    const float pre = fma_(dotn, rinv * s[KW], s[KWNL]) * rinv;
+    const float U_r = -pre * sph;
+    const float U_i = pre * cph;
+    const float f = s[K2] * rinv;
+    const float ser = s[SER], sei = s[SEI];
+    const float g_r = f * fma_(ser, U_r, -sei * U_i);
+    const float g_i = f * fma_(ser, U_i, sei * U_r);
+    const float esr = s[ESR], esi = s[ESI], epr = s[EPR], epi = s[EPI];
+    acc[0] = fma_(esr, U_r, fma_(-esi, U_i, acc[0]));
+    acc[1] = fma_(esr, U_i, fma_(esi, U_r, acc[1]));
+    acc[2] = fma_(epr, U_r, fma_(-epi, U_i, acc[2]));
+    acc[3] = fma_(epr, U_i, fma_(epi, U_r, acc[3]));
+    acc[4] = fma_(g_r, a, acc[4]);
+    acc[5] = fma_(g_i, a, acc[5]);
+    acc[6] = fma_(g_r, b, acc[6]);
+    acc[7] = fma_(g_i, b, acc[7]);
+    acc[8] = fma_(g_r, c, acc[8]);
+    acc[9] = fma_(g_i, c, acc[9]);
+  }
+};
 
 }  // namespace
 
-// dst: (6, nd) f32 (x, y, z as hi/lo rows); src: (20, ns_pad) f32 with
-// ns_pad a multiple of CHUNK; out: (10, nd) f32.  variant 0 'fast',
-// 1 'exact'.  Returns cudaGetLastError() after launch.
+// The pass.  dst: (6, nd) f32 (x, y, z as hi/lo rows); src: (ns_pad, 20)
+// f32, the sources' keys as rows, ns_pad a multiple of 128; grid and ngroup
+// from ops/kirchhoff.py forward_grid; part: (ngroup, 10, nd) f32.  variant
+// 0 'fast', 1 'exact'; params unused.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int kirchhoff_ddphase_launch(int variant, const float* dst,
                                         int nd, const float* src,
-                                        int ns_pad, float* out,
+                                        int ns_pad, const float* params,
+                                        int ngroup, float* part,
                                         void* stream) {
-  if (nd <= 0) return 0;
-  if (ns_pad % CHUNK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nd + BLOCK - 1) / BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
     case 0:
-      kirchhoff_ddphase_kernel<0><<<grid, BLOCK, 0, s>>>(dst, nd, src,
-                                                         ns_pad, out);
-      break;
+      return xfwd::launch<DDPair<0>>(dst, nd, src, ns_pad, params, ngroup,
+                                     part, s);
     case 1:
-      kirchhoff_ddphase_kernel<1><<<grid, BLOCK, 0, s>>>(dst, nd, src,
-                                                         ns_pad, out);
-      break;
+      return xfwd::launch<DDPair<1>>(dst, nd, src, ns_pad, params, ngroup,
+                                     part, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The ten sums out (10, nd) of the partials part (ngroup, 10, nd), added
+// in a fixed order in double.  Returns cudaGetLastError() after the launch.
+extern "C" int kirchhoff_ddphase_reduce(const float* part, int ngroup,
+                                        int nd, float* out, void* stream) {
+  return xfwd::launch_reduce(part, ngroup, nd, out,
+                             static_cast<cudaStream_t>(stream));
 }

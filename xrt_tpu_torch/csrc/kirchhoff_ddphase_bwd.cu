@@ -33,9 +33,10 @@
 //
 // FMA policy: built with --fmad=false (see dd.cuh).  The recomputed
 // distance and phase are the forward's double-float code, unfused: their
-// error-free transforms (two_sum, two_prod's Dekker split) are exact only
-// without contraction.  The amplitude part (the obliquity dot product, h)
-// and the reverse sweep are written with __fmaf_rn.
+// error-free transforms (two_sum, quick_two_sum) are exact only without
+// contraction, and two_prod takes its error term from one written FMA
+// (the bits of the Dekker product).  The amplitude part (the obliquity dot
+// product, h) and the reverse sweep are written with __fmaf_rn.
 #include <cuda_runtime.h>
 
 #include "dd.cuh"

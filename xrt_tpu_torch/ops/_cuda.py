@@ -7,13 +7,18 @@ shared headers and the flags, so an edited source rebuilds) and bound with
 the CPU tests import every module on a host without ``nvcc``.
 
 ``--fmad=false`` keeps every ``a * b + c`` a separate multiply and add: a
-contracted FMA breaks the Dekker split of the double-float code (see
-``csrc/dd.cuh``).  A ``__fmaf_rn`` written by hand is still an FMA, so the
-adjoint kernels fuse their reverse sweeps explicitly where no error-free
-transform lives.  No ``--use_fast_math``: ``sqrtf``, ``1.0f / x``,
-``sinf`` and ``cosf`` stay IEEE.  ``-Xptxas -v`` puts every kernel's
-registers and spills into the build log, which is kept beside the library
-(:func:`build_log`).
+contracted FMA breaks the error-free transforms of the double-float code
+(see ``csrc/dd.cuh``).  A ``__fmaf_rn`` written by hand is still an FMA,
+so the kernels fuse explicitly where no error-free transform lives: the
+amplitude and the ten sums of the forward kernels (B1, B2 on the skeleton
+``csrc/kirchhoff_fwd.cuh``), the reverse sweeps of the adjoint kernels (B3
+on ``csrc/kirchhoff_bwd.cuh``), and ``two_prod``'s error term.  The pair
+functions of both skeletons are also compiled for the host by the CPU
+tests (``tests/test_torch_forward.py``, ``tests/test_torch_adjoint.py``)
+against a stub of the CUDA runtime.  No ``--use_fast_math``: ``sqrtf``,
+``1.0f / x``, ``sinf`` and ``cosf`` stay IEEE.  ``-Xptxas -v`` puts every
+kernel's registers and spills into the build log, which is kept beside
+the library (:func:`build_log`).
 """
 from __future__ import annotations
 

@@ -550,9 +550,19 @@ def kirchhoff_integral_recentred(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
 # PyTorch's convention dL/dRe + i dL/dIm (the reference package returns its
 # conjugate, dL/dRe - i dL/dIm).
 
-#: sources per shared-memory stage of the CUDA kernels (csrc: CHUNK); the
-#: wrappers zero-pad the sources to a multiple of it
+#: the autograd functions zero-pad the sources to a multiple of this, the
+#: padding the adjoint kernels take (a multiple of ADJ_TILE)
 KERNEL_SRC_CHUNK = 256
+#: the forward kernels B1 and B2 (csrc/kirchhoff_fwd.cuh): destinations a
+#: block (two a thread) and sources a shared-memory stage; the wrapper pads
+#: the sources' rows to a multiple of the stage
+FWD_TILE, FWD_CHUNK = 256, 128
+#: at most this many source groups; each has private partial rows,
+#: (groups, 10, Nd) floats of scratch
+FWD_MAX_GROUPS = 64
+#: (destination tiles) x (source groups) aimed at: several full waves of
+#: the blocks an H100 holds at once, at both main-path hops
+FWD_TARGET_BLOCKS = 4096
 #: the one-pass adjoint kernels (csrc/kirchhoff_bwd.cuh): sources per tile
 #: (one per thread; a divisor of KERNEL_SRC_CHUNK) and destinations per
 #: shared-memory stage
@@ -583,11 +593,11 @@ GRAD_DST_BLOCK = {'cpu': 2048, 'cuda': 8192}
 GRAD_SRC_CHUNK = {'cpu': 256, 'cuda': 2048}
 
 _P = ctypes.c_void_p
-# (variant, dst, nd, src, ns_pad[, params], out, stream) of the C entries
-_RECENTRED_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
-                       _P, _P, _P]
-_DDPHASE_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P,
-                     _P]
+# the forward kernels' pass: (variant, dst, nd, src rows, ns_pad, params,
+# ngroup, part, stream); their reduction: (part, ngroup, nd, out, stream)
+_FWD_ARGTYPES = [ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int, _P,
+                 ctypes.c_int, _P, _P]
+_FWD_REDUCE_ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, _P, _P]
 # the adjoints' pass: (variant, dst, nd, src, ns_pad, params, gout, nslab,
 # slab, ngroup, dpart, spart, ppart, stream); their reduction: (variant,
 # dpart, ngroup, nd, ddst, spart, nslab, ns_pad, dsrc, stream)
@@ -638,38 +648,76 @@ def _pad_sources(S):
     return S.contiguous()
 
 
+def forward_sources(S):
+    """The forward kernels' source rows: the structure of arrays *S* (keys,
+    Ns) as (Ns padded to :data:`FWD_CHUNK`, keys padded to 4) rows, zeros
+    past the last source and key; one copy."""
+    nk, ns = S.shape
+    rows = S.new_zeros((-(-ns // FWD_CHUNK) * FWD_CHUNK, -(-nk // 4) * 4))
+    rows[:ns, :nk] = S.t()
+    return rows
+
+
+def forward_grid(nd, ns_pad):
+    """(ntile, ngroup) of the forward kernels' grid for *nd* destinations
+    and *ns_pad* padded sources: block (a, g) sums the source chunks g,
+    g + ngroup, ... for the :data:`FWD_TILE` destinations of tile a."""
+    ntile = -(-nd // FWD_TILE)
+    ngroup = min(ns_pad // FWD_CHUNK, FWD_MAX_GROUPS,
+                 -(-FWD_TARGET_BLOCKS // ntile))
+    return ntile, max(ngroup, 1)
+
+
+def _forward_pass(scheme, variant, D, S, P):
+    """The pass of kernel B1 (*scheme* 'recentred') or B2 ('ddphase'): the
+    source groups' partial sums (ngroup, 10, Nd)."""
+    from . import _cuda
+    dev = _check_kernel_inputs(*(t for t in (D, S, P) if t is not None))
+    D = D.contiguous()
+    P = None if P is None else P.contiguous()
+    rows = forward_sources(S)
+    nd, ns_pad = D.shape[1], rows.shape[0]
+    _, ngroup = forward_grid(nd, ns_pad)
+    part = torch.empty((ngroup, 10, nd), dtype=torch.float32, device=dev)
+    fn = _cuda.entry(f'kirchhoff_{scheme}', f'kirchhoff_{scheme}_launch',
+                     _FWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(variant, D.data_ptr(), nd, rows.data_ptr(), ns_pad,
+                 None if P is None else P.data_ptr(), ngroup,
+                 part.data_ptr(), _cuda.stream_ptr(dev))
+    _cuda.check(err, f'kirchhoff_{scheme}')
+    return part
+
+
+def _forward_reduce(name, part):
+    """The forward kernels' second kernel: the ten sums (10, Nd) of the
+    partials *part* (ngroup, 10, Nd) of ``csrc/<name>.cu``, added in a
+    fixed order in double."""
+    from . import _cuda
+    ngroup, _, nd = part.shape
+    out = torch.empty((10, nd), dtype=torch.float32, device=part.device)
+    fn = _cuda.entry(name, f'{name}_reduce', _FWD_REDUCE_ARGTYPES)
+    with torch.cuda.device(part.device):
+        err = fn(part.data_ptr(), ngroup, nd, out.data_ptr(),
+                 _cuda.stream_ptr(part.device))
+    _cuda.check(err, name)
+    return out
+
+
 def _launch_recentred(D, S, P, variant):
     """Kernel B1 on the structure of arrays *D* (6 or 8, Nd), *S* (20, 23 or
-    24, Ns padded to the kernel's chunk) and the scalars *P* (10,), all f32
-    on one CUDA device.  Returns the ten sums (10, Nd)."""
-    from . import _cuda
-    dev = _check_kernel_inputs(D, S, P)
-    D, S, P = D.contiguous(), S.contiguous(), P.contiguous()
-    Nd = D.shape[1]
-    out = torch.empty((10, Nd), dtype=torch.float32, device=dev)
-    fn = _cuda.entry('kirchhoff_recentred', 'kirchhoff_recentred_launch',
-                     _RECENTRED_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
-                 P.data_ptr(), out.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, 'kirchhoff_recentred')
+    24, Ns) and the scalars *P* (10,), all f32 on one CUDA device.  Returns
+    the ten sums (10, Nd); one launch in :data:`LAUNCHES`."""
+    out = _forward_reduce('kirchhoff_recentred',
+                          _forward_pass('recentred', variant, D, S, P))
     LAUNCHES[f'kirchhoff_recentred:{_RECENTRED_NAMES[variant]}'] += 1
     return out
 
 
 def _launch_ddphase(D, S, variant):
-    """Kernel B2 on *D* (6, Nd) and *S* (20, Ns padded); (10, Nd)."""
-    from . import _cuda
-    dev = _check_kernel_inputs(D, S)
-    D, S = D.contiguous(), S.contiguous()
-    Nd = D.shape[1]
-    out = torch.empty((10, Nd), dtype=torch.float32, device=dev)
-    fn = _cuda.entry('kirchhoff_ddphase', 'kirchhoff_ddphase_launch',
-                     _DDPHASE_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), Nd, S.data_ptr(), S.shape[1],
-                 out.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, 'kirchhoff_ddphase')
+    """Kernel B2 on *D* (6, Nd) and *S* (20, Ns); (10, Nd)."""
+    out = _forward_reduce('kirchhoff_ddphase',
+                          _forward_pass('ddphase', variant, D, S, None))
     LAUNCHES[f'kirchhoff_ddphase:{_DD_NAMES[variant]}'] += 1
     return out
 
