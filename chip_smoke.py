@@ -18,15 +18,19 @@ non-zero if any fails:
    products spanning positions of 1e-6 to 1e5 mm, their squares and
    kappa x r to ~1e13, where two_prod's FMA must give the Dekker bits),
    and sincosf against sinf / cosf bit for bit (B2 'exact' uses it); the
-   histogram kernel B4 for k = 1 and 3 against its plain version with the
-   sums taken in float64: 1e7 uniform rays into 128 x 128 (block-private
-   shared-memory copies) and into 1024 x 1024 (global atomics), the 1D
-   case, a focused beam (95% of the rays in four bins), rays on edges /
-   NaN / +-inf / outside (identical non-empty bins) and a ray count that
-   is no multiple of the block, to max|h - h64| / max|h64| < 1e-5 (f32
-   partial sums merged by atomics in an order that changes from run to
-   run; 1e-4 for the focused beam, where one bin takes a quarter of a
-   block's rays, ~1e4, in one running f32 sum);
+   histogram kernel B4 (``hist2d_kernel``) for k = 1 and 3 against its
+   plain version with the sums taken in float64: 1e7 uniform rays into
+   128 x 128 (a private copy of the table in every CTA's shared memory) and
+   into 1024 x 1024 (device memory), the 1D case, a focused beam (95% of
+   the rays in four bins), rays on edges / NaN / +-inf / outside
+   (identical non-empty bins) and a ray count that is no multiple of the
+   block, to max|h - h64| / max|h64| < 1e-5 (1e-4 for the focused beam),
+   two launches bit-identical; both routes bit-identical on one input;
+   NaN and +-inf weights as ``index_add_`` gives them; float64 to 1e-12;
+   and a plot's eight histograms in one launch (``hist_plot``) at 128 and
+   1024 bins, uniform, focused and special rays, each histogram and the
+   total against ``hist_plot_plain`` with float64 sums to the same limits,
+   two launches and both routes bit-identical, float64 to 1e-12;
 3. the main path: the Gaussian -> slit -> toroid -> 256 x 256 screen
    WaveChain at 2e5 samples per wave in float32 (4.0e10 + 1.3e10 pairs),
    with the per-hop stage times, the chain time (median of 3 after a
@@ -37,7 +41,9 @@ non-zero if any fails:
    'exact') against the recentred result to < 5e-3;
 5. the ``kernels`` line: every kernel with its launches, time, plain
    version's time, bound and (B4, B4-bwd) the library call's time at the
-   main-path shapes; for B1, B2 and B3 also the share of their second
+   main-path shapes (``hist_plot`` has no library call; beside it the time
+   of the step it replaces, colorize and eight ``hist2d_kernel``
+   launches); for B1, B2 and B3 also the share of their second
    kernel (the sum of the partials), their scratch and their registers
    and spills from the build log (``-Xptxas -v``).  The adjoint kernels
    are held against the plain blocked backward there too, on the slices
@@ -52,9 +58,11 @@ non-zero if any fails:
    rays per pass in float32 through ``run_ray_tracing`` (one plot of
    128-bin axes, auto limits, 4 repeats, a CUDA generator), with the
    calibration time, the time per pass (median of 3 runs after a
-   warm-up), rays/s, the split of one pass by CUDA events and the
-   histogram launches (exactly 8 per pass); then the same with a
-   1024 x 1024 plot at 1 repeat, which takes the global-atomics variant;
+   warm-up), rays/s, the split of one pass by CUDA events (the histogram
+   step split into the ``_plot_arrays`` glue and ``hist_plot``) and the
+   histogram launches (exactly one ``hist_plot`` per pass); then the same
+   with a 1024 x 1024 plot at 1 repeat, whose 2D colour columns go to
+   device memory;
 7. the trace cross-check: one pass at 2e5 rays in float32 against float64
    from the same float64 samples: transmitted fraction to 1e-4, weighted
    centroids to 1e-3 of the image size and sizes to 1e-3.
@@ -97,8 +105,8 @@ non-zero if any fails:
     (B4 forward and backward) at 1e7 rays in float32, with times, peak
     memory and launches; the same through the three-column histogram of a
     colour plot (weights Jss, Jpp and their sum: twice the flux, so twice
-    the gradient); and at 2e5 rays float32 against float64 and a finite
-    difference (rtol 0.1).
+    the gradient), at 128 x 128 and at 1024 x 1024 bins; and at 2e5 rays
+    float32 against float64 and a finite difference (rtol 0.1).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -168,12 +176,14 @@ SOURCES = {'kirchhoff_recentred': 'xrt_tpu_torch/csrc/kirchhoff_recentred.cu',
            'xrt_tpu_torch/csrc/kirchhoff_recentred_bwd.cu',
            'kirchhoff_ddphase_bwd':
            'xrt_tpu_torch/csrc/kirchhoff_ddphase_bwd.cu',
-           'hist2d': 'xrt_tpu_torch/csrc/hist2d.cu'}
+           'hist2d': 'xrt_tpu_torch/csrc/hist2d.cu',
+           'hist_plot': 'xrt_tpu_torch/csrc/hist_plot.cu'}
 REPLACES = {'kirchhoff_recentred': 'xrt_tpu/ops/kirchhoff.py:565',
             'kirchhoff_ddphase': 'xrt_tpu/ops/kirchhoff.py:903',
             'kirchhoff_recentred_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
             'kirchhoff_ddphase_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
-            'hist2d': 'xrt_tpu/histogram.py:89'}
+            'hist2d': 'xrt_tpu/histogram.py:89',
+            'hist_plot': 'xrt_tpu/histogram.py:89'}
 #: the adjoint kernels against the plain blocked backward: the limit on
 #: max|row - ref| / max|ref| of every key row and scalar's cotangent
 ADJ_LIMIT = 1e-4
@@ -300,7 +310,7 @@ def phase_card():
           f'{t:.2f} s', flush=True)
     for name in ('kirchhoff_recentred', 'kirchhoff_ddphase',
                  'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
-                 'hist2d'):
+                 'hist2d', 'hist_plot'):
         for fn, regs, st, ld in ptxas_rows(_cuda.build_log(name)):
             print(f'phase 1 ptxas {name} {fn}: {regs} registers, spill '
                   f'stores {st} B, loads {ld} B', flush=True)
@@ -697,6 +707,67 @@ def hist_errors(got, ref):
                                                            ref != 0))
 
 
+def bits_equal(a, b):
+    """Whether two histograms (tensors or dicts of them) have the same bits
+    (NaN included)."""
+    import torch
+    if isinstance(a, dict):
+        return all(bits_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32 if a.dtype == torch.float32 else torch.int64),
+        b.view(torch.int32 if b.dtype == torch.float32 else torch.int64))
+
+
+def plot_case(case, bins, n=TRACE_NRAYS, seed=1):
+    """The arguments of ``hist_plot_kernel`` for one check: rays as
+    ``hist_case``'s, cData over a hue range, flux and w2d, a plot mask."""
+    import numpy as np
+    import torch
+    g = torch.Generator('cuda').manual_seed(seed)
+
+    def rand(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device='cuda')
+    x, y = rand(-1.1, 1.4), rand(-0.6, 1.8)
+    c = rand(8870.0, 9130.0)
+    flux = rand(0.0, 2.0)
+    w2d = flux * rand(0.5, 1.0)
+    mask = rand(0, 1) < 0.9
+    xlim, ylim, clim = (-1.0, 1.3), (-0.5, 1.7), (8890.0, 9110.0)
+    if case == 'focused':       # 95% of the rays in four bins of each axis
+        sel = rand(0, 1) < 0.95
+        x = torch.where(sel, rand(0.0, 2 * 2.3 / bins), x)
+        y = torch.where(sel, rand(0.5, 0.5 + 2 * 2.2 / bins), y)
+        c = torch.where(sel, rand(9000.0, 9000.0 + 440.0 / bins), c)
+    elif case == 'special':     # edges, NaN and +-inf in every input
+        for v, (lo, hi) in ((x, xlim), (y, ylim), (c, clim)):
+            v[:bins + 1] = torch.from_numpy(np.linspace(lo, hi, bins + 1))
+        bad = torch.tensor([np.nan, np.inf, -np.inf, 0.0, 7.0])
+        for j, v in enumerate((x, y, c, flux, w2d)):
+            v[2000 + 10 * j:2005 + 10 * j] = bad
+    return (x, y, c, flux, w2d, mask, (bins, bins, bins), (xlim, ylim, clim),
+            0.85, 1.0)
+
+
+def plot_errors(got, ref):
+    """(max over the eight histograms and the total of max|h - h64| /
+    max|h64| on the finite bins, whether the non-empty, NaN and infinite
+    bins are the same)"""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    rel, same = 0.0, True
+    for k in th.PLOT_HISTS + ('intensity',):
+        g, r = got[k], ref[k]
+        fin = torch.isfinite(r)
+        same &= bool(torch.equal(torch.isnan(g), torch.isnan(r)) and
+                     torch.equal(g[~fin & ~torch.isnan(r)],
+                                 r[~fin & ~torch.isnan(r)].to(g.dtype)) and
+                     torch.equal(g[fin] != 0, r[fin] != 0))
+        if fin.any():
+            rel = max(rel, float((g[fin].double() - r[fin]).abs().max() /
+                                 r[fin].abs().max()))
+    return rel, same
+
+
 def phase_hist_kernel():
     import torch
     from xrt_tpu_torch import histogram as th
@@ -704,31 +775,94 @@ def phase_hist_kernel():
         for k in (1, 3):
             args = hist_case(case, k)
             got = th.hist2d_kernel(*args)
+            again = th.hist2d_kernel(*args)
             torch.cuda.synchronize()
             ref = th.hist2d_plain(*args, sum_dtype=torch.float64)
             rel, _, same = hist_errors(got, ref)
+            twice = bits_equal(got, again)
             lim = 1e-4 if case == 'focused' else 1e-5
             print(f'phase 2 B4 {case} k={k}: {args[0].shape[0]} rays into '
                   f'{args[4]} x {args[3]}, kernel vs plain (float64 sums) '
                   f'max rel {rel:.2e} (limit {lim:.0e}), non-empty bins '
-                  f'{"identical" if same else "DIFFER"}', flush=True)
+                  f'{"identical" if same else "DIFFER"}, two launches '
+                  f'{"bit-identical" if twice else "DIFFER"}', flush=True)
             check(rel < lim, f'B4 {case} k={k}: {rel:.3e} >= {lim:.0e}')
             check(same, f'B4 {case} k={k}: the sets of non-empty bins '
                   'differ')
+            check(twice, f'B4 {case} k={k}: two launches differ')
+    # every route that takes the table gives the same bits
+    for k in (1, 3):
+        for bins in (64, 128):
+            x, y, W, _, _, xlim, ylim = hist_case('focused', k, n=1_000_000)
+            first = th.ROUTES.index(th.hist_route(bins, bins, k))
+            outs = {r: th.hist2d_kernel(x, y, W, bins, bins, xlim, ylim,
+                                        route=r)
+                    for r in th.ROUTES[first:]}
+            same = all(bits_equal(outs[r], o) for r in outs
+                       for o in outs.values())
+            print(f'phase 2 B4 k={k} {bins} x {bins}: routes {list(outs)} '
+                  f'{"bit-identical" if same else "DIFFER"}', flush=True)
+            check(same, f'B4 k={k} {bins}: routes differ')
+    # non-finite weights give the float sum's NaN / +-inf, on every route
+    x, y, W, _, _, xlim, ylim = hist_case('shared', 3, n=1_000_000)
+    W[:7, 0] = torch.tensor([float('nan'), float('inf'), -float('inf'),
+                             float('inf'), float('inf'), -float('inf'), 1.0])
+    W[3:5, 1] = float('inf')
+    ref = th.hist2d_plain(x, y, W, 64, 64, xlim, ylim,
+                          sum_dtype=torch.float64)
+    for r in th.ROUTES:
+        got = th.hist2d_kernel(x, y, W, 64, 64, xlim, ylim, route=r)
+        fin = torch.isfinite(ref)
+        ok = torch.equal(torch.isnan(got), torch.isnan(ref)) and \
+            torch.equal(got[~fin & ~torch.isnan(ref)],
+                        ref[~fin & ~torch.isnan(ref)].float())
+        check(ok and int((~fin).sum()) > 0,
+              f'B4 {r}: non-finite weights not as index_add_ gives them')
     x, y, W, xbins, ybins, xlim, ylim = hist_case('shared', 3, n=1_000_000)
-    a = th.hist2d_kernel(x, y, W, xbins, ybins, xlim, ylim, use_shared=True)
-    b = th.hist2d_kernel(x, y, W, xbins, ybins, xlim, ylim,
-                         use_shared=False)
-    rel = float((a - b).abs().max() / a.abs().max())
-    check(rel < 1e-5, f'B4 shared vs global variant: {rel:.3e}')
     d = th.hist2d_kernel(x.double(), y.double(), W.double(), xbins, ybins,
                          xlim, ylim)
     ref = th.hist2d_plain(x.double(), y.double(), W.double(), xbins, ybins,
                           xlim, ylim)
     rel64 = float((d - ref).abs().max() / ref.abs().max())
     check(rel64 < 1e-12, f'B4 float64 kernel vs plain: {rel64:.3e}')
-    print(f'phase 2 B4: shared vs global variant on one input max rel '
-          f'{rel:.2e}; float64 kernel vs plain {rel64:.2e}', flush=True)
+    print(f'phase 2 B4: non-finite weights as index_add_ gives them on the '
+          f'shared-memory and device-memory routes; float64 kernel vs plain '
+          f'{rel64:.2e}', flush=True)
+    # a plot's eight histograms in one launch (hist_plot)
+    for bins in (128, 1024):
+        for case in ('uniform', 'focused', 'special'):
+            args = plot_case(case, bins)
+            got = th.hist_plot_kernel(*args)
+            again = th.hist_plot_kernel(*args)
+            ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+            rel, same = plot_errors(got, ref)
+            twice = bits_equal(got, again)
+            lim = 1e-4 if case == 'focused' else 1e-5
+            print(f'phase 2 hist_plot {case} {bins} bins: eight histograms '
+                  f'vs plain (float64 sums) max rel {rel:.2e} (limit '
+                  f'{lim:.0e}), non-empty and non-finite bins '
+                  f'{"identical" if same else "DIFFER"}, two launches '
+                  f'{"bit-identical" if twice else "DIFFER"}', flush=True)
+            check(rel < lim, f'hist_plot {case} {bins}: {rel:.3e}')
+            check(same, f'hist_plot {case} {bins}: bins differ')
+            check(twice, f'hist_plot {case} {bins}: two launches differ')
+    for bins in (32, 64):
+        args = plot_case('focused', bins, n=1_000_000)
+        first = th.ROUTES.index(th.plot_route((bins,) * 3))
+        outs = [th.hist_plot_kernel(*args, route=r)
+                for r in th.ROUTES[first:]]
+        same = all(bits_equal(outs[0], o) for o in outs[1:])
+        d64 = [v.double() if v.is_floating_point() else v for v in args[:6]]
+        got = th.hist_plot_kernel(*d64, *args[6:])
+        ref = th.hist_plot_plain(*d64, *args[6:])
+        rel64 = max(float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+                    for k in th.PLOT_HISTS)
+        print(f'phase 2 hist_plot {bins} bins: routes '
+              f'{list(th.ROUTES[first:])} '
+              f'{"bit-identical" if same else "DIFFER"}; float64 kernel vs '
+              f'plain {rel64:.2e}', flush=True)
+        check(same, f'hist_plot {bins}: routes differ')
+        check(rel64 < 1e-12, f'hist_plot float64 {bins}: {rel64:.3e}')
 
 
 def trace_beamline(nrays, dtype):
@@ -819,9 +953,8 @@ def phase_trace(timing):
     check(abs(s2 / s1 - 1) < 1e-5, f'trace: total2D {s2} vs total1D_x {s1}')
     check(math.isfinite(plot.intensity) and plot.intensity > 0,
           'trace: intensity not finite or zero')
-    check(launches == {'hist2d:k1:shared': 4 * 4 * reps,
-                       'hist2d:k3:shared': 4 * 4 * reps},
-          f'trace: not exactly 8 histogram launches per pass: {launches}')
+    check(launches == {f'hist_plot:{th.plot_route((128,) * 3)}': 4 * reps},
+          f'trace: not exactly one hist_plot launch per pass: {launches}')
     check(not tk.LAUNCHES, f'trace launched {dict(tk.LAUNCHES)}')
 
     # one pass by hand, split by CUDA events; the limits are the plot's
@@ -837,6 +970,19 @@ def phase_trace(timing):
     ev[4].record()
     runner._accumulate(trace_plot(128), hists)
     ev[5].record()
+    # the histogram step's two parts: the plot's arrays (getters, mask,
+    # counters: eager torch) and the one hist_plot launch
+    hp = events(3)
+    hp[0].record()
+    x, y, cData, inten, flux, mask, _ = runner._plot_arrays(
+        plot, {'screen': img})
+    hp[1].record()
+    plot_args = (x, y, cData, flux, inten, mask,
+                 (128, 128, 128), tuple(tuple(a.limits) for a in (
+                     plot.xaxis, plot.yaxis, plot.caxis)),
+                 plot.colorFactor, plot.colorSaturation)
+    th.hist_plot_kernel(*plot_args)
+    hp[2].record()
     lb = rotate_beam(global_to_virgin_local(beam, tor.center),
                      rotationSequence=tor.rotationSequence,
                      pitch=-tor.pitch, roll=-tor.roll, yaw=-tor.yaw)
@@ -858,7 +1004,9 @@ def phase_trace(timing):
           f'reflect {ms[1]:.1f} ms (bracket + search alone '
           f'{ev[6].elapsed_time(ev[7]):.1f} ms in {len(evals) - 4} Illinois '
           f'iterations), expose {ms[2]:.1f} ms, '
-          f'histograms (8 launches + colorize) {ms[3]:.1f} ms, accumulate '
+          f'histograms (one hist_plot launch) {ms[3]:.2f} ms, of which '
+          f'_plot_arrays glue {hp[0].elapsed_time(hp[1]):.2f} ms and '
+          f'hist_plot {hp[1].elapsed_time(hp[2]):.2f} ms, accumulate '
           f'{ms[4]:.1f} ms', flush=True)
     # the source with a CPU generator: float64 draws on the host, copied
     t0 = time.perf_counter()
@@ -869,7 +1017,7 @@ def phase_trace(timing):
           f'generator (float64 draws on the host, copied) {host_ms:.1f} ms',
           flush=True)
 
-    # a 1024 x 1024 plot: the 2D histograms take the global-atomics variant
+    # a 1024 x 1024 plot: the 2D histograms take the device-memory route
     th.LAUNCHES.clear()
     big = trace_plot(1024)
     runner.run_ray_tracing(big, repeats=1, run_process=run_process, rng=rng)
@@ -877,21 +1025,22 @@ def phase_trace(timing):
     print(f'phase 6 1024-bin plot, 1 repeat: launches {big_launches}, '
           f'nRaysGood {big.nRaysGood}, intensity {big.intensity:.6e}',
           flush=True)
-    check(big_launches == {'hist2d:k1:shared': 3, 'hist2d:k3:shared': 3,
-                           'hist2d:k1:global': 1, 'hist2d:k3:global': 1},
+    check(big_launches == {f'hist_plot:{th.plot_route((1024,) * 3)}': 1},
           f'1024-bin plot: launches {big_launches}')
     check(abs(big.intensity / (plot.intensity / reps) - 1) < 1e-2,
           '1024-bin plot: intensity differs from the main run')
-    x, y, cData, inten, flux, mask, _ = runner._plot_arrays(
-        plot, {'screen': img})
     fm = mask.to(x.dtype)
+    big_args = plot_args[:6] + ((1024, 1024, 1024), tuple(
+        tuple(a.limits) for a in (big.xaxis, big.yaxis, big.caxis))) + \
+        plot_args[8:]
     timing['trace'] = dict(
         launches=launches, big_launches=big_launches, x=x, y=y,
         w=(inten * fm)[:, None].contiguous(),
-        rgb=th.colorize(cData, flux * fm, plot.caxis.limits,
+        rgb=th.colorize(cData, torch.abs(flux * fm), plot.caxis.limits,
                         plot.colorFactor, plot.colorSaturation),
         xlim=tuple(plot.xaxis.limits), ylim=tuple(plot.yaxis.limits),
-        xlim_big=tuple(big.xaxis.limits), ylim_big=tuple(big.yaxis.limits))
+        xlim_big=tuple(big.xaxis.limits), ylim_big=tuple(big.yaxis.limits),
+        plot_args={128: plot_args, 1024: big_args})
 
 
 def phase_trace_cross():
@@ -928,21 +1077,23 @@ def phase_trace_cross():
 
 def hist_rows(timing):
     """The rows of the histogram kernel at the trace main path's shapes,
-    on the rays of one of its passes."""
+    on the rays of one of its passes: ``hist2d_kernel`` (its launches from
+    the trace gradient, phase 12) and ``hist_plot`` (its launches from the
+    trace runs, phase 6)."""
     import torch
     from xrt_tpu_torch import histogram as th
     tr = timing['trace']
+    glaunch = timing['trace_grad_launches']
     rows = []
-    specs = [('hist2d:k1', tr['w'], 128, 'shared', tr['launches']),
-             ('hist2d:k3', tr['rgb'], 128, 'shared', tr['launches']),
-             ('hist2d:k3:global', tr['rgb'], 1024, 'global',
-              tr['big_launches'])]
-    for name, W, bins, variant, launches in specs:
+    specs = [('hist2d:k1', tr['w'], 128), ('hist2d:k3', tr['rgb'], 128),
+             ('hist2d:k3:global', tr['rgb'], 1024)]
+    for name, W, bins in specs:
         k = W.shape[1]
-        big = variant == 'global'
+        big = bins == 1024
         args = (tr['x'], tr['y'], W, bins, bins,
                 tr['xlim_big' if big else 'xlim'],
                 tr['ylim_big' if big else 'ylim'])
+        route = th.hist_route(bins, bins, k)
         kernel = lambda: th.hist2d_kernel(*args)
         kernel()
         torch.cuda.synchronize()
@@ -968,20 +1119,70 @@ def hist_rows(timing):
         lib_ms = statistics.median(cuda_ms(library, 3)[0] for _ in range(3))
         n = W.shape[0]
         bms = 1e3 * (4.0 * n * (2 + k) + 4.0 * bins * bins * k) / PEAK_BYTES
-        key = f'hist2d:k{k}:{variant}'
-        print(f'phase 5 {name}: {n} rays into {bins} x {bins} x {k}, kernel '
-              f'{ms:.3f} ms, plain {plain_ms:.2f} ms, index_add_ '
-              f'{lib_ms:.3f} ms, bound {bms:.3f} ms (bytes), '
+        key = f'hist2d:k{k}:{route}'
+        print(f'phase 5 {name}: {n} rays into {bins} x {bins} x {k} '
+              f'({route}), kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, '
+              f'index_add_ {lib_ms:.4f} ms, bound {bms:.4f} ms (bytes), '
               f'{n / (ms * 1e-3):.3e} rays/s, max rel {rel:.2e}',
               flush=True)
         rows.append(dict(name=name, route='cuda', source=SOURCES['hist2d'],
                          replaces=REPLACES['hist2d'],
-                         launches=int(launches.get(key, 0)),
+                         launches=int(glaunch.get(key, 0)),
                          max_abs_err=ab, max_rel_err=rel, ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
                          library_ms=lib_ms))
         check(rows[-1]['launches'] > 0, f'{name} was not launched on its '
               'path')
+    for bins in (128, 1024):
+        args = tr['plot_args'][bins]
+        route = th.plot_route((bins,) * 3)
+        kernel = lambda: th.hist_plot_kernel(*args)
+        kernel()
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(kernel, 5)[0] for _ in range(3))
+        got = kernel()
+        plain_ms, _ = cuda_ms(lambda: th.hist_plot_plain(*args))
+        ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+        rel, same = plot_errors(got, ref)
+        ab = max(float((got[k].double() - ref[k]).abs().max())
+                 for k in th.PLOT_HISTS)
+        check(same, f'hist_plot {bins}: bins differ from the plain version')
+        check(rel < 1e-5, f'hist_plot {bins} at main-path shapes: {rel:.3e}')
+        # the step it replaces: colorize and eight hist2d_kernel launches
+        x, y, c, flux, w2d, mask, _, (xl, yl, cl), cf, sat = args
+
+        def eight():
+            fm = mask.to(x.dtype)
+            af = torch.abs(flux * fm)
+            rgb = th.colorize(c, af, cl, cf, sat)
+            w2 = (w2d * fm)[:, None]
+            return [th.hist2d_kernel(v, None, wv, bins, 1, lim)
+                    for v, lim in ((x, xl), (y, yl), (c, cl))
+                    for wv in (af[:, None], rgb)] + [
+                th.hist2d_kernel(x, y, w2, bins, bins, xl, yl),
+                th.hist2d_kernel(x, y, rgb, bins, bins, xl, yl)]
+        eight()
+        eight_ms = statistics.median(cuda_ms(eight, 3)[0] for _ in range(3))
+        n = x.shape[0]
+        nout = 4 * (3 * bins + bins * bins) + 1
+        bms = 1e3 * (21.0 * n + 4.0 * nout) / PEAK_BYTES
+        key = f'hist_plot:{route}'
+        launches = tr['launches' if bins == 128 else 'big_launches']
+        print(f'phase 5 hist_plot {bins} bins: {n} rays into eight '
+              f'histograms ({route}), kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.2f} ms, library none (colorize and eight '
+              f'hist2d_kernel launches: {eight_ms:.4f} ms), bound '
+              f'{bms:.4f} ms (bytes), {n / (ms * 1e-3):.3e} rays/s, max rel '
+              f'{rel:.2e}', flush=True)
+        rows.append(dict(name=f'hist_plot:{bins}', route='cuda',
+                         source=SOURCES['hist_plot'],
+                         replaces=REPLACES['hist_plot'],
+                         launches=int(launches.get(key, 0)),
+                         max_abs_err=ab, max_rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
+                         library_ms=None, eight_launches_ms=eight_ms))
+        check(rows[-1]['launches'] > 0, f'hist_plot {bins} was not launched '
+              'on its path')
     return rows
 
 
@@ -1383,9 +1584,9 @@ def phase_trace_grad(timing):
     src, tor, scr = trace_beamline(n, torch.float32)
     rng = torch.Generator('cuda').manual_seed(31)
 
-    def step(beam, rgb=False):
+    def step(beam, rgb=False, bins=128):
         pitch = torch.tensor(TRACE_PITCH, device='cuda', requires_grad=True)
-        flux = trace_flux(src, tor, scr, beam, pitch, rgb=rgb)
+        flux = trace_flux(src, tor, scr, beam, pitch, bins=bins, rgb=rgb)
         g, = torch.autograd.grad(flux, [pitch])
         torch.cuda.synchronize()
         return float(flux.detach()), float(g)
@@ -1416,7 +1617,8 @@ def phase_trace_grad(timing):
           f'{medf * 1e3:.1f} ms; peak device memory {peak / 2 ** 30:.2f} '
           f'GiB; launches of the 3 steps {launches}', flush=True)
     check(math.isfinite(g) and g != 0.0, f'trace gradient {g}')
-    check(launches == {'hist2d:k1:shared': 3, 'hist2d_bwd:k1': 3},
+    check(launches == {f'hist2d:k1:{th.hist_route(128, 128, 1)}': 3,
+                       'hist2d_bwd:k1': 3},
           f'trace gradient: launches {launches}')
     th.LAUNCHES.clear()
     flux3, g3 = step(beam, rgb=True)
@@ -1428,9 +1630,23 @@ def phase_trace_grad(timing):
           flush=True)
     check(abs(flux3 / (2 * flux) - 1) < 1e-4 and abs(g3 / (2 * g) - 1) < 1e-4,
           f'three-column trace gradient {g3} against 2 x {g}')
-    check(launches3 == {'hist2d:k3:shared': 1, 'hist2d_bwd:k3': 1},
+    check(launches3 == {f'hist2d:k3:{th.hist_route(128, 128, 3)}': 1,
+                        'hist2d_bwd:k3': 1},
           f'three-column trace gradient: launches {launches3}')
-    timing['trace_grad_launches'] = {**launches, **launches3}
+    # the same at 1024 x 1024 bins: the table in device memory
+    th.LAUNCHES.clear()
+    flux_big, g_big = step(beam, rgb=True, bins=1024)
+    launches_big = dict(th.LAUNCHES)
+    print(f'phase 12 trace gradient through the three-column histogram at '
+          f'1024 x 1024 bins: flux {flux_big:.6e}, gradient {g_big:.6e}; '
+          f'launches {launches_big}', flush=True)
+    check(math.isfinite(g_big) and g_big != 0.0 and
+          abs(flux_big / flux3 - 1) < 1e-2,
+          f'1024-bin trace gradient {g_big}, flux {flux_big} vs {flux3}')
+    check(launches_big == {f'hist2d:k3:{th.hist_route(1024, 1024, 3)}': 1,
+                           'hist2d_bwd:k3': 1},
+          f'1024-bin trace gradient: launches {launches_big}')
+    timing['trace_grad_launches'] = {**launches, **launches3, **launches_big}
 
     res = {}
     for dt in (torch.float32, torch.float64):

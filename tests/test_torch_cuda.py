@@ -16,14 +16,19 @@ check).  On the card:
 * the double-float device helpers bit for bit against the torch dd, and
   sincosf against sinf / cosf;
 * the wrappers count their launches, and a failing launch raises;
-* the histogram kernel (B4) against its plain version with the sums taken
-  in float64, for k = 1 and 3: both variants (block-private shared-memory
-  copies, global atomics), the 1D case, a focused beam, rays on edges /
-  NaN / +-inf / outside (identical sets of non-empty bins), and a ray count
-  that is no multiple of the block.  Limit max|h - h64| / max|h64| < 1e-5
-  (float32 partial sums merged by atomics in an order that changes from
-  run to run); 1e-4 for the focused beam, where one bin takes a quarter
-  of a block's rays in one running float32 sum;
+* the histogram kernel (B4, ``hist2d_kernel``) against its plain version
+  with the sums taken in float64, for k = 1 and 3: 128 x 128 (the table in
+  every CTA's shared memory) and 1024 x 1024 (device memory), the 1D case,
+  a focused beam, rays on edges / NaN / +-inf / outside (identical sets of
+  non-empty bins), and a ray count that is no multiple of the block.  Limit
+  max|h - h64| / max|h64| < 1e-5; 1e-4 for the focused beam.  Its sums are
+  fixed-point integers: two launches, and both routes on one input, give
+  the same bits; NaN and +-inf weights give what ``index_add_`` gives;
+* a plot's eight histograms in one launch (``hist_plot_kernel``) at 128
+  and 1024 bins, uniform, focused and special rays: each histogram and the
+  total against ``hist_plot_plain`` with float64 sums to the same limits,
+  two launches and both routes bit-identical, float64 to 1e-12;
+  ``runner.histogram_plot`` on CUDA beams is one such launch;
 * the adjoint kernels (B3: recentred mono / narrowband / poly, per-pair
   double-float 'fast' / 'exact') against the plain blocked backward on the
   same CUDA tensors, row by row: every key row and every scalar to 1e-4
@@ -430,15 +435,16 @@ XLIM, YLIM = (-1.0, 1.3), (-0.5, 1.7)     # spans with inexact reciprocals
 
 
 def _hist_rays(device, case, k, n=1_000_003, seed=0):
-    """(x, y, W, xbins, ybins, use_shared) of one case, float32."""
+    """(x, y, W, xbins, ybins, route) of one case, float32: the route the
+    kernel takes for its table."""
     rng = np.random.RandomState(seed)
-    xbins, ybins, shared = 128, 128, True
+    xbins, ybins = 128, 128
     if case == 'ragged':
         n = 12_345
     x = rng.uniform(-1.1, 1.4, n)
     y = rng.uniform(-0.6, 1.8, n)
     if case == 'global':
-        xbins, ybins, shared = 1024, 1024, False
+        xbins, ybins = 1024, 1024
     elif case == '1d':
         ybins, y = 1, None
     elif case == 'focused':     # 95% of the rays in four bins
@@ -457,19 +463,21 @@ def _hist_rays(device, case, k, n=1_000_003, seed=0):
     def F(v):
         return None if v is None else \
             torch.from_numpy(np.asarray(v, np.float32)).to(device)
-    return F(x), F(y), F(W), xbins, ybins, shared
+    return F(x), F(y), F(W), xbins, ybins, th.hist_route(xbins, ybins, k)
+
+
+HIST_CASES = ['shared', 'global', '1d', 'focused', 'special', 'ragged']
 
 
 @pytest.mark.parametrize('k', [1, 3])
-@pytest.mark.parametrize('case', ['shared', 'global', '1d', 'focused',
-                                  'special', 'ragged'])
+@pytest.mark.parametrize('case', HIST_CASES)
 def test_hist2d_kernel_matches_plain(cuda, case, k):
-    x, y, W, xbins, ybins, shared = _hist_rays(cuda, case, k)
+    x, y, W, xbins, ybins, route = _hist_rays(cuda, case, k)
     ylim = None if y is None else YLIM
     th.LAUNCHES.clear()
     got = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, ylim)
     torch.cuda.synchronize()
-    name = f'hist2d:k{k}:{"shared" if shared else "global"}'
+    name = f'hist2d:k{k}:{route}'
     assert dict(th.LAUNCHES) == {name: 1}
     ref = th.hist2d_plain(x, y, W, xbins, ybins, XLIM, ylim,
                           sum_dtype=torch.float64)
@@ -483,12 +491,31 @@ def test_hist2d_kernel_matches_plain(cuda, case, k):
         assert h.shape == (ybins, xbins) and th.LAUNCHES[name] == 2
 
 
-def test_hist2d_both_variants_agree_and_float64(cuda):
-    x, y, W, xbins, ybins, _ = _hist_rays(cuda, 'shared', 3, n=200_001)
-    a = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, YLIM, use_shared=True)
-    b = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, YLIM,
-                         use_shared=False)
-    assert float((a - b).abs().max() / a.abs().max()) < 1e-5
+@pytest.mark.parametrize('k', [1, 3])
+@pytest.mark.parametrize('case', HIST_CASES)
+def test_hist2d_kernel_gives_the_same_bits_twice(cuda, case, k):
+    """Fixed-point sums: no order of the adds shows in the result."""
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, case, k)
+    ylim = None if y is None else YLIM
+    a = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, ylim)
+    b = th.hist2d_kernel(x, y, W, xbins, ybins, XLIM, ylim)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize('k', [1, 3])
+def test_hist2d_both_variants_agree_and_float64(cuda, k):
+    """Both routes give the same bits on a table that a CTA's shared memory
+    holds (64 x 64, and 128 x 128 at k = 1), and the float64 kernel holds
+    the plain version to 1e-12."""
+    for bins in (64, 128):
+        x, y, W, _, _, route = _hist_rays(cuda, 'focused', k, n=200_001)
+        routes = th.ROUTES[th.ROUTES.index(th.hist_route(bins, bins, k)):]
+        outs = [th.hist2d_kernel(x, y, W, bins, bins, XLIM, YLIM, route=r)
+                for r in routes]
+        assert len(outs) == 2 or (bins, k) == (128, 3)
+        for o in outs[1:]:
+            assert torch.equal(outs[0].view(torch.int32), o.view(torch.int32))
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, 'shared', k, n=200_001)
     d = th.hist2d_kernel(x.double(), y.double(), W.double(), xbins, ybins,
                          XLIM, YLIM)
     ref = th.hist2d_plain(x.double(), y.double(), W.double(), xbins, ybins,
@@ -496,15 +523,168 @@ def test_hist2d_both_variants_agree_and_float64(cuda):
     assert float((d - ref).abs().max() / ref.abs().max()) < 1e-12
 
 
+def test_hist2d_nonfinite_weights_give_the_plain_values(cuda):
+    """A NaN, +inf or -inf weight makes its bin what index_add_ makes it;
+    the other bins keep their sums."""
+    x, y, W, xbins, ybins, _ = _hist_rays(cuda, 'shared', 3, n=100_000)
+    W = W.clone()
+    W[:7, 0] = torch.tensor([float('nan'), float('inf'), -float('inf'),
+                             float('inf'), float('inf'), -float('inf'), 1.0])
+    W[3:5, 1] = float('inf')
+    W[4:6, 2] = -float('inf')
+    for r in th.ROUTES:
+        got = th.hist2d_kernel(x, y, W, 64, 64, XLIM, YLIM, route=r)
+        ref = th.hist2d_plain(x, y, W, 64, 64, XLIM, YLIM,
+                              sum_dtype=torch.float64)
+        fin = torch.isfinite(ref)
+        assert int((~fin).sum()) > 0
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+        assert torch.equal(got[~fin & ~torch.isnan(ref)],
+                           ref[~fin & ~torch.isnan(ref)].float())
+        assert float((got[fin].double() - ref[fin]).abs().max()) < \
+            1e-5 * float(ref[fin].abs().max())
+
+
 def test_hist2d_refused_launch_raises(cuda):
     """A histogram too large for shared memory, forced onto the shared
-    variant, is refused by the C entry point; nothing falls back."""
+    route, is refused by the C entry point; nothing falls back."""
     x, y, W, _, _, _ = _hist_rays(cuda, 'shared', 3, n=1000)
     th.LAUNCHES.clear()
     with pytest.raises(RuntimeError):
-        th.hist2d_kernel(x, y, W, 1024, 1024, XLIM, YLIM, use_shared=True)
+        th.hist2d_kernel(x, y, W, 1024, 1024, XLIM, YLIM, route='shared')
     with pytest.raises(TypeError):
         th.hist2d_kernel(x, y, W.double(), 16, 16, XLIM, YLIM)
+    with pytest.raises(ValueError):
+        th.hist2d_kernel(x, y, W, 16, 16, XLIM, YLIM, route='smem')
+    assert not th.LAUNCHES
+
+
+# ---- B4 on the trace's main path: a plot's eight histograms in one launch
+
+CLIM = (8890.0, 9110.0)
+
+
+def _plot_rays(device, case, bins, n=1_000_003, seed=1):
+    """(x, y, cData, flux, w2d, mask) of one case, float32."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-1.1, 1.4, n)
+    y = rng.uniform(-0.6, 1.8, n)
+    c = rng.uniform(8870, 9130, n)
+    f = rng.uniform(0.0, 2.0, n)
+    w = f * rng.uniform(0.5, 1.0, n)
+    m = rng.uniform(size=n) < 0.9
+    if case == 'focused':       # 95% of the rays in four bins of each axis
+        sel = rng.uniform(size=n) < 0.95
+        x = np.where(sel, rng.uniform(0.0, 2 * 2.3 / bins, n), x)
+        y = np.where(sel, rng.uniform(0.5, 0.5 + 2 * 2.2 / bins, n), y)
+        c = np.where(sel, rng.uniform(9000.0, 9000.0 + 440.0 / bins, n), c)
+    elif case == 'special':     # edges, hi, NaN and +-inf in every input
+        for v, (lo, hi) in ((x, XLIM), (y, YLIM), (c, CLIM)):
+            v[:bins + 1] = np.linspace(lo, hi, bins + 1)
+        for j, v in enumerate((x, y, c, f, w)):
+            v[2000 + 10 * j:2005 + 10 * j] = [np.nan, np.inf, -np.inf, 0, 7]
+
+    def F(v):
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device)
+    return F(x), F(y), F(c), F(f), F(w), torch.from_numpy(m).to(device)
+
+
+def _plot(rays, bins, sat=1.0):
+    return (*rays, (bins, bins, bins), (XLIM, YLIM, CLIM), 0.85, sat)
+
+
+@pytest.mark.parametrize('bins', [128, 1024])
+@pytest.mark.parametrize('case', ['uniform', 'focused', 'special'])
+def test_hist_plot_matches_plain_float64_sums(cuda, case, bins):
+    """Each of the eight histograms within 1e-5 of its largest bin (1e-4
+    focused) of the plain version with float64 sums, with the same
+    non-empty bins and the same non-finite ones; one launch."""
+    args = _plot(_plot_rays(cuda, case, bins), bins)
+    th.LAUNCHES.clear()
+    got = th.hist_plot_kernel(*args)
+    torch.cuda.synchronize()
+    route = th.plot_route((bins,) * 3)
+    assert dict(th.LAUNCHES) == {f'hist_plot:{route}': 1}
+    ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+    lim = 1e-4 if case == 'focused' else 1e-5
+    for k in th.PLOT_HISTS + ('intensity',):
+        g, r = got[k], ref[k]
+        assert g.dtype == torch.float32 and g.shape == r.shape, k
+        fin = torch.isfinite(r)
+        assert torch.equal(torch.isnan(g), torch.isnan(r)), k
+        assert torch.equal(g[~fin & ~torch.isnan(r)],
+                           r[~fin & ~torch.isnan(r)].float()), k
+        assert torch.equal(g[fin] != 0, r[fin] != 0), k
+        if fin.any():
+            scale = float(r[fin].abs().max())
+            assert float((g[fin].double() - r[fin]).abs().max()) <= \
+                lim * scale, k
+
+
+@pytest.mark.parametrize('sat', [1.0, 0.7, 1.6])
+@pytest.mark.parametrize('bins', [32, 64, 128, 1024])
+def test_hist_plot_same_bits_twice_and_on_every_route(cuda, bins, sat):
+    """Two launches, and both routes where a CTA's shared memory takes the
+    2D table (32 and 64 bins), give the same bits; float64 holds its plain
+    version to 1e-12."""
+    args = _plot(_plot_rays(cuda, 'focused', bins, n=300_001), bins, sat)
+    first = th.plot_route((bins,) * 3)
+    outs = [th.hist_plot_kernel(*args, route=r)
+            for r in th.ROUTES[th.ROUTES.index(first):]]
+    outs.append(th.hist_plot_kernel(*args))
+    for o in outs[1:]:
+        for k in th.PLOT_HISTS + ('intensity',):
+            assert torch.equal(outs[0][k].view(torch.int32),
+                               o[k].view(torch.int32)), k
+    d64 = [v.double() if v.dtype == torch.float32 else v for v in args[:6]]
+    got = th.hist_plot_kernel(*d64, *args[6:])
+    ref = th.hist_plot_plain(*d64, *args[6:])
+    for k in th.PLOT_HISTS:
+        assert float((got[k] - ref[k]).abs().max()) < \
+            1e-12 * float(ref[k].abs().max()), k
+
+
+def test_histogram_plot_is_one_launch_on_the_card(cuda):
+    """runner.histogram_plot on CUDA beams: one hist_plot launch for the
+    eight histograms, no other histogram launch, and the CPU run's values
+    within float32 sums' tolerance."""
+    from xrt_tpu_torch import interop, plotspec as tps, runner
+    rng = np.random.RandomState(2)
+    n = 50_000
+    d = dict(x=rng.uniform(-1.1, 1.4, n), y=np.zeros(n),
+             z=rng.uniform(-0.6, 1.8, n), a=np.zeros(n), b=np.ones(n),
+             c=np.zeros(n), E=rng.uniform(8880, 9120, n), path=np.zeros(n),
+             Jss=rng.uniform(0, 2, n), Jpp=rng.uniform(0, 0.5, n),
+             Jsp=np.zeros(n, complex),
+             state=rng.choice([1, 1, 1, 2, 3, -1], n).astype(np.int32))
+    plot = tps.XYCPlot(
+        beam='screen', xaxis=tps.XYCAxis('x', 'mm', bins=64, limits=XLIM),
+        yaxis=tps.XYCAxis('z', 'mm', bins=48, limits=YLIM),
+        caxis=tps.XYCAxis('energy', 'eV', bins=32, limits=CLIM))
+    res = {}
+    for dev in ('cpu', 'cuda'):
+        beam = interop.beam_from_numpy(d, device=dev, dtype=torch.float32)
+        th.LAUNCHES.clear()
+        res[dev] = runner.histogram_plot(plot, {'screen': beam})
+        torch.cuda.synchronize()
+        if dev == 'cuda':
+            assert dict(th.LAUNCHES) == {'hist_plot:shared': 1}
+    for k in th.PLOT_HISTS + ('intensity',):
+        g, r = res['cuda'][k].cpu(), res['cpu'][k]
+        assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max()), k
+
+
+def test_hist_plot_refuses_what_the_kernel_does_not_take(cuda):
+    args = _plot(_plot_rays(cuda, 'uniform', 1024, n=1000), 1024)
+    th.LAUNCHES.clear()
+    with pytest.raises(RuntimeError):   # 12 MB of 2D colour table in a CTA
+        th.hist_plot_kernel(*args, route='shared')
+    with pytest.raises(ValueError):
+        th.hist_plot_kernel(*[v.cpu() for v in args[:6]], *args[6:])
+    with pytest.raises(TypeError):
+        th.hist_plot_kernel(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):     # 1D tables past shared memory
+        th.hist_plot_kernel(*args[:6], (8192, 8192, 8192), *args[7:])
     assert not th.LAUNCHES
 
 
@@ -531,7 +711,8 @@ def test_backward_through_hist2d_launches_the_gather(cuda):
     c = torch.rand_like(h)
     (h * c).sum().backward()
     torch.cuda.synchronize()
-    assert dict(th.LAUNCHES) == {'hist2d:k3:shared': 1, 'hist2d_bwd:k3': 1}
+    assert dict(th.LAUNCHES) == {f'hist2d:k3:{th.hist_route(xbins, ybins, 3)}':
+                                 1, 'hist2d_bwd:k3': 1}
     assert torch.equal(W.grad, th.hist2d_bwd_plain(x, y, c, xbins, ybins,
                                                    XLIM, YLIM))
     with pytest.raises(ValueError):

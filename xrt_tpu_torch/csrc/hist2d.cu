@@ -1,131 +1,193 @@
-// Weighted histogram of N rays into (ybins, xbins, k) bins by scatter-add.
+// Weighted histogram of N rays into (ybins, xbins, k) bins, k = 1 or 3, and
+// its adjoint with respect to the weights.
 //
-// Replaces the TPU kernel xrt_tpu/histogram.py:89 hist2d_mxu (a row one-hot
-// contracted with a weighted column one-hot on the matrix unit, carried
-// across sequential grid steps).  That form exists because scatter is slow
-// on the TPU; on this card the same function is a scatter-add with atomics.
+// The forward (hist2d_kernel) replaces the TPU kernel
+// xrt_tpu/histogram.py:89 hist2d_mxu (a row one-hot contracted with a
+// weighted column one-hot on the matrix unit, carried across sequential
+// grid steps).  That form exists because scatter is slow on the TPU; on
+// this card the same function is a scatter-add.  Bound: bytes, sizeof(T) *
+// (2 + k) a ray (x, y and k weights; 1 + k for a 1D histogram, which passes
+// y = nullptr) read once, the output written once.  What can cost more is
+// the adds, and a focused beam that puts most rays into a few bins.  The
+// adds are fixed-point integers (csrc/hist_accum.cuh), so two launches, and
+// both routes, give the same bits.  The table lives where its size lets it
+// (route): a private copy of its low words in every CTA's shared memory
+// (128 x 128 x 3: 192 KB), else device memory (1024 x 1024 x 3), where the
+// rays of a warp that share a bin are summed by shuffles first.  A scale pass before it finds the largest finite |w| on
+// the device, a conversion pass after it writes the sums in the weights'
+// dtype.
 //
-// Bound: bytes.  Each ray is 4 * (2 + k) bytes read once (x, y and k
-// weights; 4 * (1 + k) for a 1D histogram, which passes y = nullptr) and
-// does a handful of operations; the output is written once.  What can cost
-// more than the stream is contention: a focused beam puts most rays into a
-// few bins.  So each block keeps a private copy of the histogram in shared
-// memory when it fits (128 x 128 x 3 floats = 192 KB fits the 227 KB a
-// block may use), adds with shared-memory atomics, and merges its non-zero
-// bins into the global result at the end.  The per-block partial sums also
-// keep a bin that receives millions of rays from being one long running
-// f32 sum.  Histograms too large for shared memory add straight into global
-// memory.
-//
-// Bin index, the same expression as the plain PyTorch version
-// (histogram._bin_index): floor((v - lo) / span * bins) with separate
-// subtract, divide and multiply (the build has --fmad=false), inside when
-// 0 <= index < bins and v is finite; v == hi is outside.
+// Bin index (hist_ray.cuh: axis_bin), the same expression as the plain
+// PyTorch version (histogram._bin_index): floor((v - lo) / span * bins)
+// with separate subtract, divide and multiply (the build has
+// --fmad=false), inside when 0 <= index < bins and v is finite; v == hi is
+// outside.
 //
 // The backward (hist2d_bwd_kernel) is the adjoint with respect to the
 // weights: a gather, wbar[i, :] = g[iy(i), ix(i), :] for a ray inside the
 // limits and 0 otherwise.  It recomputes both bin indices with the
-// forward's expression, operation for operation (ray_bin), so a ray reads
-// the bin it was added to.  The coordinates and the limits get no gradient
-// (floor).  Bound: bytes, (2 + k) * sizeof(T) per ray (x and y read once,
-// k cotangents written once) plus the table.  So at k = 1 it moves the
-// ray streams at full width: each thread takes 4 consecutive rays, with
-// 16-byte loads of x and y and a 16-byte store of their cotangents.  The
-// one-touch ray streams are evict-first (__ldcs, __stcs: 1e7 rays are 80 MB
-// of x and y, more than the 50 MB L2), so the cotangent table (64-192 KB,
-// read through __ldg) stays cached.  At k = 3 the table's scattered reads
-// weigh more than the stream width: one ray a thread (measured faster
-// there than four), and a colour bin read with two loads, not three
-// (bin_row).  One thread per group of rays: a grid-stride loop over two
-// blocks per SM (the earlier design) keeps too few loads in flight.  Rays
-// past the last group of 4 take one thread each, and x, y or wbar that are
-// not 16-byte aligned (a view at an odd offset is legal input) take the
-// path of one ray per thread.
-#include <cuda_runtime.h>
+// forward's expression (ray_bin), so a ray reads the bin it was added to.
+// The coordinates and the limits get no gradient (floor).  Bound: bytes,
+// (2 + k) * sizeof(T) per ray (x and y read once, k cotangents written
+// once) plus the table.  So at k = 1 it moves the ray streams at full
+// width: each thread takes 4 consecutive rays, with 16-byte loads of x and
+// y and a 16-byte store of their cotangents.  The one-touch ray streams are
+// evict-first (__ldcs, __stcs: 1e7 rays are 80 MB of x and y, more than the
+// 50 MB L2), so the cotangent table (64-192 KB, read through __ldg) stays
+// cached.  At k = 3 the table's scattered reads weigh more than the stream
+// width: one ray a thread (measured faster there than four), and a colour
+// bin read with two loads, not three (bin_row).  One thread per group of
+// rays: a grid-stride loop over two blocks per SM (the earlier design)
+// keeps too few loads in flight.  Rays past the last group of 4 take one
+// thread each, and x, y or wbar that are not 16-byte aligned (a view at an
+// odd offset is legal input) take the path of one ray per thread.
+#include "hist_accum.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;
-// the most dynamic shared memory a block may use on sm_90
-constexpr int MAX_SHARED_BYTES = 232448;
+using namespace xhist;
+
+template <typename T>
+struct HistArgs {
+  const T *x, *y, *w;  // y null: a 1D histogram (ybins 1)
+  long long n;
+  T xlo, xspan, xb, ylo, yspan, yb;
+  int xbins, ybins;
+  u64* mbits;        // the largest finite |w|, a double's bits
+  long long* acc;    // [bins][1] (k = 1) or [bins][4] (k = 3, padded)
+  unsigned* flags;   // [bins]: bits 3 col + (NaN, +inf, -inf)
+};
+
+// columns a bin of the device-memory sums (a sector for k = 3)
+template <int K>
+constexpr int kPadded = K == 1 ? 1 : 4;
 
 template <typename T, int K>
 __global__ void __launch_bounds__(THREADS)
-hist2d_kernel(const T* __restrict__ x, const T* __restrict__ y,
-              const T* __restrict__ w, long long n, T xlo, T xspan,
-              int xbins, T ylo, T yspan, int ybins, T* __restrict__ out,
-              int use_shared) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* priv = reinterpret_cast<T*>(smem);
-  const int nb = ybins * xbins * K;
-  if (use_shared) {
-    for (int i = threadIdx.x; i < nb; i += blockDim.x) priv[i] = T(0);
-    __syncthreads();
-  }
-  T* h = use_shared ? priv : out;
-  const T xb = static_cast<T>(xbins), yb = static_cast<T>(ybins);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+hist2d_scale_kernel(HistArgs<T> a) {
+  const long long groups = (a.n + RAYS - 1) / RAYS;
+  const bool vec = aligned16(a.w);
+  double m = 0.0;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < n; i += stride) {
-    const T xv = x[i];
-    const T fx = floor((xv - xlo) / xspan * xb);
-    // comparisons with NaN are false, so a NaN index is outside
-    bool inside = fx >= T(0) && fx < xb && isfinite(xv);
-    int bin = 0;
-    if (y != nullptr) {
-      const T yv = y[i];
-      const T fy = floor((yv - ylo) / yspan * yb);
-      inside = inside && fy >= T(0) && fy < yb && isfinite(yv);
-      if (inside) bin = static_cast<int>(fy) * xbins;
-    }
-    if (!inside) continue;
-    bin = (bin + static_cast<int>(fx)) * K;
+       g < groups; g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    T w[RAYS * K];
+    load_run<T, RAYS * K>(a.w, g * RAYS * K, a.n * K, vec, w);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const T wv = w[i * K + j];
-      if (wv != T(0)) atomicAdd(&h[bin + j], wv);
+    for (int j = 0; j < RAYS * K; ++j)
+      m = fmax(m, static_cast<double>(finite_abs(w[j])));
+  }
+  block_max_into(m, a.mbits);
+}
+
+template <typename T, int K, int ROUTE>
+__global__ void __launch_bounds__(THREADS)
+hist2d_kernel(HistArgs<T> a) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int bins = a.xbins * a.ybins;
+  if constexpr (ROUTE == kShared) {
+    for (int j = threadIdx.x; j < K * bins; j += blockDim.x) smem[j] = 0u;
+    __syncthreads();
+  }
+  const double scale =
+      ldexp(1.0, fixed_exp(max_of(a.mbits), scale_count<T>(a.n)));
+  const bool has_y = a.y != nullptr;
+  const bool vec = aligned16(a.x) && (!has_y || aligned16(a.y)) &&
+                   aligned16(a.w);
+  const int lane = threadIdx.x & 31;
+  const long long groups = (a.n + RAYS - 1) / RAYS;
+  // every lane of a warp takes the same number of steps (warp_sum)
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g - lane < groups; g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = g * RAYS;
+    T xv[RAYS], yv[RAYS] = {}, wv[RAYS * K];
+    load_run<T, RAYS>(a.x, i, a.n, vec, xv);
+    if (has_y) load_run<T, RAYS>(a.y, i, a.n, vec, yv);
+    load_run<T, RAYS * K>(a.w, i * K, a.n * K, vec, wv);
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r) {
+      int key = -1;
+      if (i + r < a.n) {
+        const int ix = axis_bin(xv[r], a.xlo, a.xspan, a.xb);
+        const int iy = has_y ? axis_bin(yv[r], a.ylo, a.yspan, a.yb) : 0;
+        key = ix >= 0 && iy >= 0 ? iy * a.xbins + ix : -1;
+      }
+      long long q[K];
+      unsigned bad = 0u;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        const unsigned f = nonfinite(wv[r * K + c]);
+        bad |= f << (3 * c);
+        q[c] = key < 0 || f ? 0 : to_fixed(wv[r * K + c], scale);
+      }
+      if (key >= 0 && bad) atomicOr(a.flags + key, bad);  // rare
+      if constexpr (ROUTE == kGlobal) {
+        const bool lead = warp_sum<K>(key, q);
+        global_add<K>(a.acc, lead ? key : -1, q);
+      } else if (key >= 0) {
+        smem_add<K>(smem, bins, key, q, a.acc + kPadded<K> * key);
+      }
     }
   }
-  if (use_shared) {
+  if constexpr (ROUTE == kShared) {
     __syncthreads();
-    for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-      const T v = priv[i];
-      if (v != T(0)) atomicAdd(&out[i], v);
-    }
+    merge_table<K, kPadded<K>>(smem, bins, a.acc);
   }
 }
 
-// the bin of a ray, as in hist2d_kernel, operation for operation; -1 when
-// the ray is outside
+// the sums and flags into out (bins, K) of the weights' dtype
+template <typename T, int K>
+__global__ void hist2d_out_kernel(HistArgs<T> a, T* out) {
+  const int e = fixed_exp(max_of(a.mbits), scale_count<T>(a.n));
+  const long long count = static_cast<long long>(a.xbins) * a.ybins * K;
+  for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       j < count; j += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long bin = j / K;
+    const int col = static_cast<int>(j - bin * K);
+    out[j] = with_flags(from_fixed(a.acc[kPadded<K> * bin + col], e, T(0)),
+                        (a.flags[bin] >> (3 * col)) & 7u);
+  }
+}
+
+template <typename T, int K>
+int launch(const HistArgs<T>& a, int route, void* out, cudaStream_t s) {
+  const long long groups = (a.n + RAYS - 1) / RAYS;
+  const long long smem =
+      route == kGlobal ? 0 : 4LL * K * a.xbins * a.ybins;
+  if (smem > MAX_SHARED_BYTES) return static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0, err = 0;
+  if (a.n > 0) {  // with no rays only the conversion runs: zeros
+    err = grid_blocks(groups, THREADS, 2, &blocks);
+    if (err) return err;
+    hist2d_scale_kernel<T, K><<<blocks, THREADS, 0, s>>>(a);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    const int b = static_cast<int>(smem);
+    err = route == kShared
+        ? launch_kernel(hist2d_kernel<T, K, kShared>, groups, b, s, a)
+        : launch_kernel(hist2d_kernel<T, K, kGlobal>, groups, b, s, a);
+    if (err) return err;
+  }
+  err = grid_blocks(static_cast<long long>(a.xbins) * a.ybins * K, 256, 8,
+                    &blocks);
+  if (err) return err;
+  hist2d_out_kernel<T, K><<<blocks, 256, 0, s>>>(a, static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bin of a ray, as hist2d_kernel adds it; -1 when the ray is outside
 template <typename T>
 __device__ __forceinline__ int ray_bin(T xv, T yv, bool has_y, T xlo,
                                        T xspan, T xb, int xbins, T ylo,
                                        T yspan, T yb) {
-  const T fx = floor((xv - xlo) / xspan * xb);
-  bool inside = fx >= T(0) && fx < xb && isfinite(xv);
-  int bin = 0;
-  if (has_y) {
-    const T fy = floor((yv - ylo) / yspan * yb);
-    inside = inside && fy >= T(0) && fy < yb && isfinite(yv);
-    if (inside) bin = static_cast<int>(fy) * xbins;
-  }
-  return inside ? bin + static_cast<int>(fx) : -1;
+  const int ix = axis_bin(xv, xlo, xspan, xb);
+  if (!has_y) return ix;
+  const int iy = axis_bin(yv, ylo, yspan, yb);
+  return ix >= 0 && iy >= 0 ? iy * xbins + ix : -1;
 }
 
-// 16 bytes of a one-touch stream, evict-first
-__device__ __forceinline__ void load16(const float* p, float* v) {
-  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-__device__ __forceinline__ void load16(const double* p, double* v) {
-  const double2 t = __ldcs(reinterpret_cast<const double2*>(p));
-  v[0] = t.x;
-  v[1] = t.y;
-}
 __device__ __forceinline__ void store16(float* p, const float* v) {
   __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
 }
@@ -164,7 +226,6 @@ __device__ __forceinline__ void bin_row(const T* g, int bin, T* o) {
 }
 
 constexpr int BWD_THREADS = 256;
-constexpr int RAYS = 4;  // consecutive rays per thread on the vector path
 
 // VEC: each thread takes RAYS consecutive rays (the rays past the last
 // group one each; x, y and wbar 16-byte aligned, k = 1), else one ray.
@@ -254,69 +315,47 @@ int launch_bwd(const void* x, const void* y, const void* g, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
-int launch(const void* x, const void* y, const void* w, long long n,
-           double xlo, double xspan, int xbins, double ylo, double yspan,
-           int ybins, void* out, int use_shared, cudaStream_t s) {
-  const long long bytes =
-      static_cast<long long>(ybins) * xbins * K * sizeof(T);
-  if (use_shared && bytes > MAX_SHARED_BYTES)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = use_shared ? static_cast<int>(bytes) : 0;
-  // as many blocks as the card holds at once, each looping over the rays:
-  // two blocks of 1024 threads fill an SM, unless the private copy of the
-  // shared-memory variant leaves room for one only
-  int per_sm = 2;
-  if (use_shared && 2 * bytes > MAX_SHARED_BYTES) per_sm = 1;
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > static_cast<long long>(sms) * per_sm)
-    blocks = static_cast<long long>(sms) * per_sm;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(hist2d_kernel<T, K>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  hist2d_kernel<T, K><<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(y),
-      static_cast<const T*>(w), n, static_cast<T>(xlo),
-      static_cast<T>(xspan), xbins, static_cast<T>(ylo),
-      static_cast<T>(yspan), ybins, static_cast<T*>(out), use_shared);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
+
+// int64 entries of the work buffer of hist2d_launch for a (ybins, xbins,
+// k) histogram: the sums, the scale pass's maximum (two entries) and the
+// flags (32 bits a bin).
+extern "C" long long hist2d_work(int k, int xbins, int ybins) {
+  const long long nb = static_cast<long long>(xbins) * ybins;
+  return nb * (k == 1 ? 1 : 4) + 2 + (nb + 1) / 2;
+}
 
 // x, y: (n,) of float (is_double 0) or double (1), y may be null for a 1D
 // histogram (ybins must then be 1); w: (n, k) row-major, k 1 or 3; out:
-// (ybins, xbins, k), zeroed by the caller.  xspan = xhi - xlo.  use_shared
-// picks the block-private variant (refused when the histogram does not fit
-// into shared memory), else atomics go straight to global memory.  Returns
-// cudaGetLastError() after the launch.
+// (ybins, xbins, k), written in full.  xspan = xhi - xlo.  route: 0 a
+// private copy of the table in each CTA's shared memory (a table too
+// large for it is refused), 1 device memory.  work: hist2d_work(k, xbins, ybins)
+// int64 zeros.  Returns the first failed launch's cudaError_t, or 0.
 extern "C" int hist2d_launch(int is_double, int k, const void* x,
                              const void* y, const void* w, long long n,
                              double xlo, double xspan, int xbins, double ylo,
-                             double yspan, int ybins, void* out,
-                             int use_shared, void* stream) {
-  if (n <= 0) return 0;
-  if (xbins <= 0 || ybins <= 0 || (y == nullptr && ybins != 1) ||
-      static_cast<long long>(xbins) * ybins * k > 0x7fffffffLL)
+                             double yspan, int ybins, void* out, int route,
+                             void* work, void* stream) {
+  const long long nb = static_cast<long long>(xbins) * ybins;
+  if (n < 0 || xbins <= 0 || ybins <= 0 || (y == nullptr && ybins != 1) ||
+      nb * 4 > 0x7fffffffLL || route < 0 || route > 1 || (k != 1 && k != 3))
     return static_cast<int>(cudaErrorInvalidValue);
+  long long* acc = static_cast<long long*>(work);
+  u64* mbits = reinterpret_cast<u64*>(acc + nb * (k == 1 ? 1 : 4));
+  unsigned* flags = reinterpret_cast<unsigned*>(mbits + 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define XRT_HIST_CASE(T, K)                                               \
-  return launch<T, K>(x, y, w, n, xlo, xspan, xbins, ylo, yspan, ybins,   \
-                      out, use_shared, s)
+#define XRT_HIST_CASE(T, K)                                                 \
+  return launch<T, K>(                                                      \
+      HistArgs<T>{static_cast<const T*>(x), static_cast<const T*>(y),       \
+                  static_cast<const T*>(w), n, T(xlo), T(xspan), T(xbins),  \
+                  T(ylo), T(yspan), T(ybins), xbins, ybins, mbits, acc,     \
+                  flags},                                                   \
+      route, out, s)
   if (!is_double && k == 1) XRT_HIST_CASE(float, 1);
   if (!is_double && k == 3) XRT_HIST_CASE(float, 3);
   if (is_double && k == 1) XRT_HIST_CASE(double, 1);
-  if (is_double && k == 3) XRT_HIST_CASE(double, 3);
+  XRT_HIST_CASE(double, 3);
 #undef XRT_HIST_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The adjoint with respect to the weights.  x, y, the limits and the bin

@@ -9,11 +9,21 @@ N rays into (ybins, xbins, k) bins with k weight columns (a 1D histogram
 is its ``ybins = 1`` case):
 
 * on CUDA tensors :func:`hist2d_kernel` launches the hand-written
-  scatter-add kernel ``csrc/hist2d.cu`` (which replaces the TPU kernel
+  kernel ``csrc/hist2d.cu`` (which replaces the TPU kernel
   ``xrt_tpu/histogram.py:89 hist2d_mxu``) and counts the launch in
-  :data:`LAUNCHES`; there is no size gate and no fallback;
+  :data:`LAUNCHES`; there is no fallback;
 * on CPU tensors :func:`hist2d_plain` does the same index arithmetic in
   torch and ``index_add_`` on the flat index.
+
+A plot's eight histograms (``runner.histogram_plot``) are one function
+too, :func:`hist_plot_plain` (``colorize`` and the eight histograms) on
+CPU tensors and one kernel, :func:`hist_plot_kernel` (``csrc/hist_plot.cu``),
+on CUDA tensors: one read of the rays for all eight.
+
+The kernels add fixed-point integers (``csrc/hist_accum.cuh``): two
+launches, and both routes of a table (:data:`ROUTES`), give the same bits.
+Their only rounding is one a weight, of at most 2^-29 m for float32
+weights of magnitude at most m (2^-63 n m for n float64 weights).
 
 Histograms are differentiable with respect to the weights (the
 coordinates and the limits get no gradient: ``floor``).  The adjoint is a
@@ -40,20 +50,56 @@ import ctypes
 
 import torch
 
-#: the most dynamic shared memory a block may use on sm_90, bytes: a
-#: histogram this small gets a private copy in every block
+#: the most dynamic shared memory a block may use on sm_90: a table that
+#: fits gets a private copy of its sums' low 32-bit words in every CTA
 MAX_SHARED_BYTES = 232448
+#: where a kernel's table lives: a private copy in each CTA's shared
+#: memory, or device memory
+ROUTES = ('shared', 'global')
 
-#: kernel launches by 'hist2d:k<k>:<shared|global>', counted where the
-#: kernel launches (``LAUNCHES.clear()`` before a run, read after it)
+#: kernel launches by 'hist2d:k<k>:<route>', 'hist2d_bwd:k<k>' and
+#: 'hist_plot:<route>', counted where the kernel launches
+#: (``LAUNCHES.clear()`` before a run, read after it)
 LAUNCHES: collections.Counter = collections.Counter()
 
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 +
              [ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
               ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-# the adjoint's entry: the same without the variant flag
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p])
+# the adjoint's entry: no route and no work buffer
 _BWD_ARGTYPES = _ARGTYPES[:13] + [ctypes.c_void_p]
+_PLOT_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6 +
+                  [ctypes.c_longlong] +
+                  [ctypes.c_double, ctypes.c_double, ctypes.c_int] * 3 +
+                  [ctypes.c_double, ctypes.c_double, ctypes.c_int] +
+                  [ctypes.c_void_p] * 3)
+
+
+def _route(sums, fixed=0):
+    """The route of a table of *sums* sums beside *fixed* that every CTA
+    keeps in shared memory anyway (4 bytes each): shared when the CTA holds
+    both."""
+    return 'shared' if 4 * (fixed + sums) <= MAX_SHARED_BYTES else 'global'
+
+
+def hist_route(xbins, ybins, k):
+    """Where :func:`hist2d_kernel` keeps a (ybins, xbins, k) table by
+    default."""
+    return _route(xbins * ybins * k)
+
+
+def plot_route(bins):
+    """Where :func:`hist_plot_kernel` keeps the 2D colour columns of a plot
+    of *bins* (x, y, c) by default."""
+    xb, yb, cb = bins
+    return _route(3 * xb * yb, 4 * (xb + yb + cb))
+
+
+def _check_route(route):
+    if route not in ROUTES:
+        raise ValueError(f'route must be one of {ROUTES}, not {route!r}')
+    return ROUTES.index(route)
 
 
 def _bin_index(v, limits, bins):
@@ -113,37 +159,42 @@ def hist2d_plain(x, y, W, xbins, ybins, xlimits, ylimits=None,
 
 
 def hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits=None,
-                  use_shared=None):
+                  route=None):
     """The CUDA kernel: the same function as :func:`hist2d_plain` on CUDA
-    tensors.  Each block keeps a private copy of the histogram in shared
-    memory when it fits (*use_shared* None picks that by size; True or
-    False force a variant, for tests), else atomics go to global memory.
-    Raises on anything the kernel does not take and on a failed launch."""
+    tensors, as fixed-point sums.  *route* None picks where the table lives
+    by its size (a private copy in each CTA's shared memory when it fits,
+    else device memory); a name of :data:`ROUTES` forces one (tests).
+    Raises on anything the kernel does not take and on a refused or failed
+    launch."""
     from .ops import _cuda
     _check(x, y, W, xbins, ybins)
     if x.device.type != 'cuda':
         raise ValueError('hist2d_kernel takes CUDA tensors')
     k = W.shape[1]
-    if ybins * xbins * k >= 2 ** 31:
+    if ybins * xbins * 4 >= 2 ** 31:
         raise ValueError('histogram too large for the kernel')
-    x, W = x.contiguous(), W.contiguous()
-    y = None if y is None else y.contiguous()
-    nbytes = ybins * xbins * k * W.element_size()
-    if use_shared is None:
-        use_shared = nbytes <= MAX_SHARED_BYTES
+    route = route or hist_route(xbins, ybins, k)
+    code = _check_route(route)
+    x, W = x.detach().contiguous(), W.detach().contiguous()
+    y = None if y is None else y.detach().contiguous()
     xlo, xhi = float(xlimits[0]), float(xlimits[1])
     ylo, yhi = (0.0, 1.0) if y is None else \
         (float(ylimits[0]), float(ylimits[1]))
-    out = torch.zeros((ybins, xbins, k), dtype=W.dtype, device=W.device)
+    lib = _cuda.load('hist2d')
+    lib.hist2d_work.argtypes = [ctypes.c_int] * 3
+    lib.hist2d_work.restype = ctypes.c_longlong
+    work = torch.zeros(lib.hist2d_work(k, xbins, ybins), dtype=torch.int64,
+                       device=x.device)
+    out = torch.empty((ybins, xbins, k), dtype=W.dtype, device=W.device)
     fn = _cuda.entry('hist2d', 'hist2d_launch', _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(int(x.dtype == torch.float64), k, x.data_ptr(),
                  None if y is None else y.data_ptr(), W.data_ptr(),
                  x.shape[0], xlo, xhi - xlo, xbins, ylo, yhi - ylo, ybins,
-                 out.data_ptr(), int(bool(use_shared)),
+                 out.data_ptr(), code, work.data_ptr(),
                  _cuda.stream_ptr(x.device))
     _cuda.check(err, 'hist2d')
-    LAUNCHES[f'hist2d:k{k}:{"shared" if use_shared else "global"}'] += 1
+    LAUNCHES[f'hist2d:k{k}:{route}'] += 1
     return out
 
 
@@ -265,5 +316,98 @@ def colorize(cData, flux, climits, colorFactor=0.85, colorSaturation=1.0):
     """Hue from *cData* mapped over *climits*, brightness from *flux*;
     returns (N, 3) RGB weights."""
     lo, hi = float(climits[0]), float(climits[1])
-    c01 = torch.clamp((cData - lo) * colorFactor / (hi - lo), 0.0, 1.0)
+    # a true division on every device, as in _bin_index and the kernel
+    span = torch.full((), hi - lo, dtype=cData.dtype, device=cData.device)
+    c01 = torch.clamp((cData - lo) * colorFactor / span, 0.0, 1.0)
     return hsv_to_rgb(c01, torch.full_like(c01, colorSaturation), flux)
+
+
+#: the histograms of a plot, in the order of the kernel's output
+PLOT_HISTS = ('xh', 'xhRGB', 'yh', 'yhRGB', 'eh', 'ehRGB', 'xyh', 'xyhRGB')
+
+
+def hist_plot_plain(x, y, cData, flux, w2d, mask, bins, limits,
+                    colorFactor=0.85, colorSaturation=1.0, sum_dtype=None):
+    """The plain version of one plot's histograms for one pass: the rays'
+    x, y and cData, their flux (brightness and the 1D weights) and w2d (the
+    2D intensity weight), the plot's ray mask; *bins* and *limits* of the
+    x, y and c axes.  Returns {name: histogram} for :data:`PLOT_HISTS` and
+    the total |flux| as 'intensity'.  *sum_dtype* takes the sums in another
+    dtype (float64: the truth a float32 kernel run is held against)."""
+    (xb, yb, cb), (xlim, ylim, clim) = bins, limits
+    fmask = mask.to(x.dtype)
+    aflux = torch.abs(flux * fmask)
+    w2d = w2d * fmask
+    rgb = colorize(cData, aflux, clim, colorFactor, colorSaturation)
+
+    def h(v, w, b, lim, vy=None, by=1, limy=None):
+        out = hist2d_plain(v, vy, w[:, None] if w.ndim == 1 else w, b, by,
+                           lim, limy, sum_dtype=sum_dtype)
+        out = out[0] if vy is None else out
+        return out[..., 0] if w.ndim == 1 else out
+    return dict(
+        xh=h(x, aflux, xb, xlim), xhRGB=h(x, rgb, xb, xlim),
+        yh=h(y, aflux, yb, ylim), yhRGB=h(y, rgb, yb, ylim),
+        eh=h(cData, aflux, cb, clim), ehRGB=h(cData, rgb, cb, clim),
+        xyh=h(x, w2d, xb, xlim, y, yb, ylim),
+        xyhRGB=h(x, rgb, xb, xlim, y, yb, ylim),
+        intensity=torch.sum(aflux.to(sum_dtype or aflux.dtype)))
+
+
+def hist_plot_kernel(x, y, cData, flux, w2d, mask, bins, limits,
+                     colorFactor=0.85, colorSaturation=1.0, route=None):
+    """The CUDA kernel of :func:`hist_plot_plain`: one launch for the eight
+    histograms, colorize and the total, with fixed-point sums.  The 1D
+    tables live in every CTA's shared memory; *route* places the 2D
+    table's colour columns (None: by their size; a name of :data:`ROUTES`
+    forces one).  Forward
+    only.  Raises on anything the kernel does not take and on a refused or
+    failed launch."""
+    from .ops import _cuda
+    (xb, yb, cb), (xlim, ylim, clim) = bins, limits
+    n = x.shape[0]
+    rays = (x, y, cData, flux, w2d)
+    if any(v.device.type != 'cuda' or v.device != x.device
+           for v in rays + (mask,)):
+        raise ValueError('hist_plot_kernel takes CUDA tensors on one device')
+    if x.dtype not in (torch.float32, torch.float64) or \
+            any(v.dtype != x.dtype for v in rays) or mask.dtype != torch.bool:
+        raise TypeError('hist_plot_kernel takes float32 or float64 rays of '
+                        'one dtype and a bool mask')
+    if any(v.shape != (n,) for v in rays + (mask,)):
+        raise ValueError('hist_plot_kernel takes (N,) rays and mask')
+    if min(xb, yb, cb) < 1 or xb * yb * 4 >= 2 ** 31 or \
+            16 * (xb + yb + cb) > MAX_SHARED_BYTES:
+        raise ValueError('plot bins out of the kernel\'s range: '
+                         f'{(xb, yb, cb)}')
+    route = route or plot_route(bins)
+    code = _check_route(route)
+    rays = [v.detach().contiguous() for v in rays]
+    mask = mask.contiguous()
+    lib = _cuda.load('hist_plot')
+    lib.hist_plot_work.argtypes = [ctypes.c_int] * 3
+    lib.hist_plot_work.restype = ctypes.c_longlong
+    work = torch.zeros(lib.hist_plot_work(xb, yb, cb), dtype=torch.int64,
+                       device=x.device)
+    nb = xb + yb + cb + xb * yb
+    out = torch.empty(4 * nb + 1, dtype=x.dtype, device=x.device)
+    axes = []
+    for (lo, hi), b in zip((xlim, ylim, clim), (xb, yb, cb)):
+        axes += [float(lo), float(hi) - float(lo), b]
+    fn = _cuda.entry('hist_plot', 'hist_plot_launch', _PLOT_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(int(x.dtype == torch.float64),
+                 *[v.data_ptr() for v in rays], mask.data_ptr(), n, *axes,
+                 float(colorFactor), float(colorSaturation), code,
+                 work.data_ptr(), out.data_ptr(), _cuda.stream_ptr(x.device))
+    _cuda.check(err, 'hist_plot')
+    LAUNCHES[f'hist_plot:{route}'] += 1
+    res, pos = {}, 0
+    for (name, b) in zip(PLOT_HISTS[0::2], (xb, yb, cb)):
+        res[name] = out[pos:pos + b]
+        res[name + 'RGB'] = out[pos + b:pos + 4 * b].view(b, 3)
+        pos += 4 * b
+    res['xyh'] = out[pos:pos + xb * yb].view(yb, xb)
+    res['xyhRGB'] = out[pos + xb * yb:pos + 4 * xb * yb].view(yb, xb, 3)
+    res['intensity'] = out[-1]
+    return res

@@ -39,7 +39,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: kernel sources, one shared library each
 SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
            'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
-           'hist2d')
+           'hist2d', 'hist_plot')
 
 
 def nvcc() -> str:

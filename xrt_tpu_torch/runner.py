@@ -2,8 +2,8 @@
 
 Port of the reference package's ``runner.py``.  One pass traces a full
 batch of rays on the device and fills the histograms of every plot there
-(:mod:`xrt_tpu_torch.histogram`: on the card every histogram is a launch
-of the hand-written kernel); the host loop accumulates them, since
+(:mod:`xrt_tpu_torch.histogram`: on the card one launch of the
+hand-written plot kernel a plot); the host loop accumulates them, since
 histograms are linear.  The user contract:
 ``run_process(beamLine, generator) -> {beamName: Beam}`` with an explicit
 ``torch.Generator`` for reproducibility.
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .beam import Beam
-from .histogram import colorize, hist1d, hist1d_rgb, hist2d, hist2d_rgb
+from .histogram import hist1d, hist2d, hist_plot_kernel, hist_plot_plain
 from .ops.dd import sqrt_rn
 from .physconsts import SIE0
 from .plotspec import HUE_DEAD, HUE_GOOD, HUE_OUT, HUE_OVER, XYCPlot
@@ -160,39 +160,27 @@ def _plot_arrays(plot: XYCPlot, beams: Dict[str, Beam]):
 
 def histogram_plot(plot: XYCPlot, beams: Dict[str, Beam]):
     """All histograms of one plot for one traced pass, as tensors on the
-    beams' device.  Limits must already be fixed in the plot axes."""
+    beams' device: on the card one launch of the plot kernel for the
+    eight histograms, colorize and the total; on the CPU their plain
+    version.  Limits must already be fixed in the plot axes."""
     x, y, cData, intensity, flux, mask, counters = _plot_arrays(plot, beams)
-    fmask = mask.to(x.dtype)
-    flux = flux * fmask
-    intensity = intensity * fmask
     xlim = tuple(plot.xaxis.limits)
     ylim = tuple(plot.yaxis.limits)
     clim = tuple(plot.caxis.limits)
     xb, yb, cb = plot.xaxis.bins, plot.yaxis.bins, plot.caxis.bins
-    aflux = torch.abs(flux)
-    rgb = colorize(cData, aflux, clim, plot.colorFactor,
-                   plot.colorSaturation)
-    fk = plot.fluxKind
     # for the field kinds ('E*') the 2D intensity histogram is the field's
     # real part, as the accumulated total2D keeps
     w2d = intensity.real if intensity.is_complex() else intensity
-    out = dict(
-        xh=hist1d(x, aflux, xb, xlim),
-        xhRGB=hist1d_rgb(x, rgb, xb, xlim),
-        yh=hist1d(y, aflux, yb, ylim),
-        yhRGB=hist1d_rgb(y, rgb, yb, ylim),
-        eh=hist1d(cData, aflux, cb, clim),
-        ehRGB=hist1d_rgb(cData, rgb, cb, clim),
-        xyh=hist2d(x, y, w2d, xb, yb, xlim, ylim),
-        xyhRGB=hist2d_rgb(x, y, rgb, xb, yb, xlim, ylim),
-        intensity=torch.sum(aflux),
-        counters=counters,
-    )
+    fn = hist_plot_plain if x.device.type == 'cpu' else hist_plot_kernel
+    out = fn(x, y, cData, flux, w2d, mask, (xb, yb, cb), (xlim, ylim, clim),
+             plot.colorFactor, plot.colorSaturation)
+    out['counters'] = counters
+    fk = plot.fluxKind
     # mutual-intensity accumulators for coherence analysis: outer products
     # of the histogrammed complex field
     if fk.startswith('E'):
         fklow = fk.lower()
-        field = intensity       # the complex per-ray field, masked
+        field = intensity * mask.to(x.dtype)  # the per-ray field, masked
         if fklow.endswith(('xx', 'zz', 'yy')):
             axv, bins, lim = (x, xb, xlim) if fklow.endswith('xx') \
                 else (y, yb, ylim)
