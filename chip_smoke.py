@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs twelve phases and exits
+process per source, in parallel), then runs fourteen phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -53,7 +53,9 @@ non-zero if any fails:
    sources against all destinations, and, from a second launch at the same
    shape with the cotangents of all other destinations set to zero, every
    source row and the scalars of those 8192 destinations (the rows of the
-   other destinations must then be exact zeros);
+   other destinations must then be exact zeros); the line ends with the
+   rows of B2 'fast' and B1 mono at a SoftiMAX tile pair's shape (phase
+   13), with their launches on the SoftiMAX main path;
 6. the trace main path: GeometricSource -> Si toroid -> screen at 1e7
    rays per pass in float32 through ``run_ray_tracing`` (one plot of
    128-bin axes, auto limits, 4 repeats, a CUDA generator), with the
@@ -107,6 +109,27 @@ non-zero if any fails:
     colour plot (weights Jss, Jpp and their sum: twice the flux, so twice
     the gradient), at 128 x 128 and at 1024 x 1024 bins; and at 2e5 rays
     float32 against float64 and a finite difference (rtol 0.1).
+
+13. the SoftiMAX main path (``tools/torch_bench_softimax.py``, xrt's
+    speed test 3): undulator -> FE slit -> M1 -> M2 -> blazed grating ->
+    M3 -> exit slit -> M4 -> M5 (parametric ellipses) -> three 64 x 64
+    focal images at 2e5 samples per wave, float32, tiled (M1 -> M2 and
+    M2 -> PG by 5 x 10 tile pairs, the contact pairs on B2): the build
+    time, each stage's mode, tile pairs per mode and time, the undulator
+    field's time, the chain time (median of 3 after a run whose launches
+    are counted: B2 once per contact pair, B1 for every other pair and
+    stage), pairs/s over 7 N^2 + 3 N 64^2, the focal images' totals and
+    peaks (finite and positive) and the peak memory; then the first
+    contact tile pair of M2 -> PG through B2, and the first recentred one
+    through B1, against their plain versions (< 2e-5);
+14. the SoftiMAX cross-checks: the undulator field at 2e5 samples in
+    float32 against float64 on the same samples (amplitude to 1e-3,
+    overlap > 0.999); the M1 -> M2 stage at 2e4 samples tiled against
+    untiled (max|dEs| / max|Es| <= 0.02); the chain fed at every hop with
+    xrt's receiver samples (``tests/golden/ref_softimax.npz``, read with
+    numpy; the phase fails if the file is missing), float32 against
+    float64, overlap above the reference package's own floors at every hop
+    (0.999 up to the grating, pg 0.7, m3 / es / m4 / m5 0.6, focus 0.55).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -207,6 +230,16 @@ TRACE_P, TRACE_Q, TRACE_PITCH = 10000.0, 2000.0, 4e-3
 
 E0 = 500.0
 P, Q, PITCH = 5000.0, 1000.0, 6e-3
+
+#: the SoftiMAX chain (tools/torch_bench_softimax.py): samples per wave and
+#: focal pixels of the main path, and the samples of the tiling check
+SX_NRAYS, SX_NSCR, SX_TILE_NRAYS = 200_000, 64, 20_000
+#: the float32 / float64 overlaps the deterministic SoftiMAX chain must
+#: clear at each hop (tests/test_softimax_chain.py's own floors)
+SX_FLOORS = {'slit': 0.999, 'm1': 0.999, 'm2': 0.999, 'wpg': 0.999,
+             'pg': 0.7, 'm3': 0.6, 'es': 0.6, 'm4': 0.6, 'm5': 0.6,
+             'focus': 0.55}
+SX_GOLDEN = 'tests/golden/ref_softimax.npz'
 
 
 class PhaseError(Exception):
@@ -533,12 +566,14 @@ def time_kernel(name, variant, stage, with_plain=True):
     kernel at one stage's shapes: the kernel alone by CUDA events (median
     of 3), the plain version once (or skipped: None for its three numbers);
     *extra* holds the time of its second kernel (the sum of the source
-    groups' partials), its scratch bytes, registers and spill bytes."""
+    groups' partials), its scratch bytes, registers and spill bytes.
+    *stage* is (source beam, receiving wave), or the kernel arguments of a
+    tile pair as a list."""
     import torch
     from xrt_tpu_torch import waves as W
     from xrt_tpu_torch.ops import kirchhoff as tk
-    oeLocal, wave = stage
-    args = W.kirchhoff_kernel_args(oeLocal, wave)
+    args = stage if isinstance(stage, list) else \
+        W.kirchhoff_kernel_args(*stage)
     xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, w = args
     Nd, Ns = xd[0].shape[0], xs[0].shape[0]
     scheme, v, D, S, P = tk._kernel_inputs(*args, variant)
@@ -1674,6 +1709,197 @@ def phase_trace_grad(timing):
     check(abs(g64 / fd - 1) < 0.1, f'trace gradient f64 {g64} FD {fd}')
 
 
+def softimax_tool():
+    """The SoftiMAX beamline module of tools/ (imported from the checkout
+    this script lies in)."""
+    import os
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tools'))
+    import torch_bench_softimax
+    return torch_bench_softimax
+
+
+def overlap(a, b):
+    import numpy as np
+    a = np.asarray(a, np.complex128)
+    b = np.asarray(b, np.complex128)
+    na, nb = np.vdot(a, a).real, np.vdot(b, b).real
+    return abs(np.vdot(a, b)) / math.sqrt(na * nb) if na > 0 and nb > 0 \
+        else 0.0
+
+
+def phase_softimax(timing):
+    """Phase 13: the SoftiMAX chain at 2e5 samples per wave, tiled, in
+    float32 on the card."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    bs = softimax_tool()
+    n, nscr = SX_NRAYS, SX_NSCR
+    t0 = time.perf_counter()
+    rc = bs.build_chain(nrays=n, n_scr=nscr, tiled=True,
+                        dtype=torch.float32, device='cuda')
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f'phase 13 SoftiMAX build: {n} samples/wave, {nscr}x{nscr} focal '
+          f'images, float32, tiled; {t_build:.2f} s', flush=True)
+    for name, mode in rc.modes.items():
+        tm = rc.tilemaps.get(name)
+        tiles = f', tiled 5 x 10: {W.tile_pairs_by_mode(tm)}' if tm else ''
+        print(f'phase 13 stage {name}: {mode}{tiles}', flush=True)
+    n_fast = sum(W.tile_pairs_by_mode(tm).get(('fast', 'vpu'), 0)
+                 for tm in rc.tilemaps.values())
+    check(W.tile_pairs_by_mode(rc.tilemaps.get('pg') or []).get(
+        ('fast', 'vpu'), 0) > 0, 'SoftiMAX: no tile pair of M2 -> PG runs B2')
+    # the main path: one run, its launches counted
+    inputs = {}
+    tk.LAUNCHES.clear()
+    imgs = rc(torch.Generator().manual_seed(3), inputs=inputs)
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    times, timings = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(3):
+        t0 = time.perf_counter()
+        imgs = rc(torch.Generator().manual_seed(3),
+                  timings=timings if rep == 2 else None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    pairs = 7 * n * n + 3 * n * nscr * nscr
+    for rec in timings:
+        ms = rec['start'].elapsed_time(rec['end'])
+        tiles = f", tile pairs {rec['tiles']}" if 'tiles' in rec else ''
+        print(f"phase 13 {rec['stage']}: {rec['mode']}{tiles}, {ms:.2f} ms "
+              f'(CUDA events, last timed run)', flush=True)
+    n_tiled = sum(len(tm) * len(tm[0]) for tm in rc.tilemaps.values())
+    n_untiled = len(rc.modes) - len(rc.tilemaps)
+    print(f'phase 13 SoftiMAX chain: median of 3 {med * 1e3:.1f} ms '
+          f'({", ".join(f"{t * 1e3:.1f}" for t in times)}); '
+          f'{pairs:.4e} pairs, {pairs / med:.3e} pairs/s; peak memory '
+          f'{peak / 2 ** 30:.3f} GiB; launches of one run {launches}',
+          flush=True)
+    check(launches.get('kirchhoff_ddphase:fast', 0) == n_fast,
+          f'SoftiMAX: B2 launches {launches} != {n_fast} contact tiles')
+    check(launches.get('kirchhoff_recentred:mono', 0) ==
+          n_untiled + n_tiled - n_fast,
+          f'SoftiMAX: B1 launches {launches}')
+    for i, dq in enumerate(bs.D_FOCUS):
+        tot, pk = float(imgs[i].sum()), float(imgs[i].max())
+        print(f'phase 13 focus {dq:+.0f} mm: total {tot:.6e}, peak '
+              f'{pk:.6e}', flush=True)
+        check(np.all(np.isfinite(imgs[i])) and tot > 0 and pk > 0,
+              f'SoftiMAX focal image {i} not finite and positive')
+    # the first contact tile of M2 -> PG through B2 and its plain version,
+    # and the first recentred tile through B1 and its plain version
+    args = W.kirchhoff_kernel_args(inputs['pg'], rc.waves['pg'])
+    firsts = {}
+    for ij, (pm, _), pair, _ in W.tile_pair_args(args, rc.tilemaps['pg']):
+        firsts.setdefault(pm, (ij, pair))
+    rows = []
+    for pm, name, variant in (('fast', 'kirchhoff_ddphase', 'fast'),
+                              ('recentred', 'kirchhoff_recentred', 'mono')):
+        ij, pair = firsts[pm]
+        call = lambda: tk.kirchhoff_integral_kernel(  # noqa: E731
+            *pair, phase_mode=pm, monochromatic=True, accumulate='vpu',
+            narrowband=False, check_envelope=False)
+        call()
+        torch.cuda.synchronize()
+        call_ms = statistics.median(cuda_ms(call)[0] for _ in range(3))
+        ms, plain_ms, ab, rel, Nd, Ns, ex = time_kernel(name, variant,
+                                                        list(pair))
+        key = f'{name}:{variant}'
+        bms, by = bound_ms(key, Nd, Ns)
+        print(f'phase 13 M2 -> PG tile pair {ij} ({pm}): {Nd} x {Ns} '
+              f'pairs, kernel {ms:.3f} ms, the whole call (per-point '
+              f'preparation and kernel) {call_ms:.3f} ms, plain '
+              f'{plain_ms:.2f} ms, bound {bms:.3f} ms ({by}), '
+              f'{bms / ms:.1%} of bound, max rel {rel:.2e} (limit 2e-5)',
+              flush=True)
+        check(rel < 2e-5, f'SoftiMAX {key} tile {ij}: {rel:.3e}')
+        rows.append(dict(name=f'{key}:softimax-tile', route='cuda',
+                         source=SOURCES[name], replaces=REPLACES[name],
+                         launches=int(launches.get(key, 0)),
+                         max_abs_err=ab, max_rel_err=rel, ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=None,
+                         shape=f'{Nd}x{Ns}'))
+    timing['softimax_rows'] = rows
+    shine = [r for r in timings if r['stage'] == 'shine']
+    print(f"phase 13 undulator shine_wave: "
+          f"{shine[0]['start'].elapsed_time(shine[0]['end']):.2f} ms "
+          f'(CUDA events), plain PyTorch', flush=True)
+
+
+def phase_softimax_cross():
+    """Phase 14: the SoftiMAX cross-checks on the card."""
+    import os
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import waves as W
+    bs = softimax_tool()
+    # 1. the undulator field, float32 against float64 on the same samples
+    el32 = bs.beamline(torch.float32, 'cuda')
+    w32 = W.prepare_wave_on_aperture(el32['slitFE'], el32['src'], SX_NRAYS,
+                                     generator=torch.Generator().manual_seed(
+                                         5), dtype=torch.float32,
+                                     device='cuda')
+    w64 = W.prepare_wave_on_aperture(el32['slitFE'], el32['src'], 0,
+                                     samples=(w32.x.double(), w32.z.double()),
+                                     dtype=torch.float64, device='cuda')
+    e32 = el32['src'].shine_wave(None, w32, bs.E0).Es.cpu().numpy()
+    e64 = el32['src'].shine_wave(None, w64, bs.E0).Es.cpu().numpy()
+    amp = np.abs(e32).mean() / np.abs(e64).mean()
+    ov = overlap(e64, e32)
+    print(f'phase 14 undulator shine_wave at {SX_NRAYS} samples, float32 vs '
+          f'float64: amplitude ratio {amp:.8f} (limit 1 +- 1e-3), overlap '
+          f'{ov:.8f} (limit 0.999)', flush=True)
+    check(abs(amp - 1) < 1e-3 and ov > 0.999,
+          f'undulator f32 vs f64: amplitude {amp}, overlap {ov}')
+    # 2. tiled against untiled on the M1 -> M2 stage, samples sorted by y
+    rc = bs.build_chain(nrays=SX_TILE_NRAYS, n_scr=16, tiled=True,
+                        dtype=torch.float32, device='cuda')
+    inputs = {}
+    rc(inputs=inputs)
+    cur, wm2 = inputs['m2'], rc.waves['m2']
+    tm = rc.tilemaps.get('m2') or W.choose_tile_modes(
+        (wm2.xDiffr, wm2.yDiffr, wm2.zDiffr), (cur.x, cur.y, cur.z), 5, 10)
+    pm, acc = rc.modes['m2']
+    un = W.diffract(cur, wm2, phase_mode=pm, accumulate=acc,
+                    monochromatic=True, narrowband=False).Es
+    ti = W.diffract(cur, wm2, monochromatic=True, tile_modes=tm,
+                    narrowband=False).Es
+    err = float((ti - un).abs().max() / un.abs().max())
+    print(f'phase 14 M1 -> M2 at {SX_TILE_NRAYS} samples, tiled 5 x 10 '
+          f'{W.tile_pairs_by_mode(tm)} vs untiled {(pm, acc)}: '
+          f'max|dEs|/max|Es| {err:.3e} (limit 0.02)', flush=True)
+    check(err <= 0.02, f'tiled vs untiled M1 -> M2: {err:.3e}')
+    # 3. the deterministic chain on xrt's receiver samples (cast to
+    #    float32 values), float32 against float64
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SX_GOLDEN)
+    check(os.path.isfile(path), f'{SX_GOLDEN} is not in the tree')
+    ref = dict(np.load(path))
+    out = {dt: bs.deterministic_chain(ref, dt, 'cuda', f32_samples=True)
+           for dt in (torch.float32, torch.float64)}
+    ovs = {nm: overlap(out[torch.float64][nm], out[torch.float32][nm])
+           for nm in SX_FLOORS}
+    print('phase 14 deterministic chain on the golden samples, float32 vs '
+          'float64 overlaps: ' + ', '.join(
+              f'{nm} {v:.6f} (>{SX_FLOORS[nm]})' for nm, v in ovs.items()),
+          flush=True)
+    for nm, v in ovs.items():
+        check(v > SX_FLOORS[nm], f'deterministic chain {nm}: overlap {v}')
+    J32 = out[torch.float32]['focus_J'].sum()
+    J64 = out[torch.float64]['focus_J'].sum()
+    print(f'phase 14 focal flux float32 {J32:.6e}, float64 {J64:.6e}, '
+          f'golden {float(ref["flux_focus"]):.6e}', flush=True)
+    check(np.isfinite(J32) and J32 > 0 and J64 > 0,
+          'deterministic chain: focal flux not finite and positive')
+
+
 def sliced_adjoint_errors(scheme, v, D, S, P, G, got, Ns):
     """The adjoint kernels' result *got* at a main-path shape against the
     plain blocked backward on the slices it can do in seconds.  Returns
@@ -1860,8 +2086,10 @@ def main():
         phase_grad_cross()
         phase_grad_b2(timing)
         phase_trace_grad(timing)
+        phase_softimax(timing)
+        phase_softimax_cross()
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
-            adjoint_rows(timing)
+            adjoint_rows(timing) + timing['softimax_rows']
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

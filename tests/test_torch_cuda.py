@@ -44,7 +44,11 @@ check).  On the card:
   direct launch, and neither reads a scalar to the host;
 * the histogram's adjoint (B4-bwd) against advanced indexing: exactly
   equal, also for 1 to 7 rays, views at a 4-byte (not 16-byte) offset and
-  float64, and ``backward()`` through ``hist2d`` launches it.
+  float64, and ``backward()`` through ``hist2d`` launches it;
+* the SoftiMAX slice: B2 on a contact tile pair of M2 -> PG against its
+  plain version (2e-5), two launches bit-identical; the undulator field in
+  float32 against float64 on the same samples (amplitude 1e-3, overlap
+  0.999).
 """
 import numpy as np
 import pytest
@@ -744,3 +748,66 @@ def test_hist2d_adjoint_kernel_edges(cuda, k):
                                             YLIM),
                        th.hist2d_bwd_plain(x, y, g1, xbins, ybins, XLIM,
                                            YLIM))
+
+
+def _softimax_contact_tile():
+    """The first 'fast' tile pair of the SoftiMAX M2 -> PG stage at 4000
+    samples per wave (tools/torch_bench_softimax.py, float32 on the card):
+    its kernel arguments."""
+    import os
+    import sys
+    from xrt_tpu_torch import waves as W
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import torch_bench_softimax as bs
+    rc = bs.build_chain(nrays=4000, n_scr=8, tiled=True,
+                        dtype=torch.float32, device='cuda')
+    inputs = {}
+    rc(inputs=inputs)
+    args = W.kirchhoff_kernel_args(inputs['pg'], rc.waves['pg'])
+    for _, (pm, _), pair, _ in W.tile_pair_args(args, rc.tilemaps['pg']):
+        if pm == 'fast':
+            return pair
+    raise AssertionError('no contact tile')
+
+
+def test_b2_on_a_softimax_contact_tile(cuda):
+    """B2 on contact geometry (a tile pair of M2 -> PG) against its plain
+    version, to 2e-5; two launches give the same bits."""
+    pair = _softimax_contact_tile()
+    tk.LAUNCHES.clear()
+    a = tk.kirchhoff_integral_kernel(*pair, phase_mode='fast',
+                                     monochromatic=True, accumulate='vpu',
+                                     check_envelope=False)
+    b = tk.kirchhoff_integral_kernel(*pair, phase_mode='fast',
+                                     monochromatic=True, accumulate='vpu',
+                                     check_envelope=False)
+    assert tk.LAUNCHES['kirchhoff_ddphase:fast'] == 2
+    ref = tk.kirchhoff_integral_dd(*pair, phase_mode='fast')
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert _rel(a, ref) < 2e-5
+
+
+def test_undulator_field_float32_against_float64(cuda):
+    """shine_wave on the card: float32 (double-float phase) against float64
+    on the same samples, the bounds of tests/test_softimax_chain.py."""
+    import os
+    import sys
+    from xrt_tpu_torch import waves as W
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools'))
+    import torch_bench_softimax as bs
+    el = bs.beamline(torch.float32, 'cuda')
+    w32 = W.prepare_wave_on_aperture(el['slitFE'], el['src'], 20000,
+                                     dtype=torch.float32, device='cuda')
+    w64 = W.prepare_wave_on_aperture(el['slitFE'], el['src'], 0,
+                                     samples=(w32.x.double(),
+                                              w32.z.double()),
+                                     dtype=torch.float64, device='cuda')
+    e32 = el['src'].shine_wave(None, w32, bs.E0).Es.cpu().numpy()
+    e64 = el['src'].shine_wave(None, w64, bs.E0).Es.cpu().numpy()
+    assert abs(np.abs(e32).mean() / np.abs(e64).mean() - 1) < 1e-3
+    ov = abs(np.vdot(e64, e32)) / np.sqrt(np.vdot(e64, e64).real *
+                                          np.vdot(e32, e32).real)
+    assert ov > 0.999

@@ -2,8 +2,9 @@
 
 * Importing ``xrt_tpu_torch`` (every module) adds no ``jax``, ``flax`` or
   ``xrt_tpu`` module to ``sys.modules``, checked in a fresh interpreter.
-* No import statement under ``xrt_tpu_torch/`` or in ``chip_smoke.py``
-  names ``jax``, ``flax`` or ``xrt_tpu`` (other than ``xrt_tpu_torch``),
+* No import statement under ``xrt_tpu_torch/``, in ``chip_smoke.py`` or in
+  ``tools/torch_bench_softimax.py`` names ``jax``, ``flax`` or ``xrt_tpu``
+  (other than ``xrt_tpu_torch``),
   and no text there names ``jax`` or ``flax`` at all.  ``xrt_tpu`` may be
   named in comments and docstrings only (the kernels cite the TPU kernels
   they replace): no string literal of the package names it, so no path
@@ -38,6 +39,7 @@ def _port_files():
             if f.endswith('.py'):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
+    yield os.path.join(ROOT, 'tools', 'torch_bench_softimax.py')
 
 
 def test_import_adds_no_jax_or_reference_module():
@@ -150,6 +152,18 @@ def test_no_string_of_the_package_builds_a_path_into_the_reference():
     assert os.path.commonpath([os.path.realpath(data.DATA_DIR),
                                os.path.realpath(pkg)]) == \
         os.path.realpath(pkg)
+
+
+def test_the_slice_exports_its_sources_and_optics():
+    from xrt_tpu_torch import oes, sources
+    assert {'BlazedGrating', 'EllipticalMirrorParam',
+            'EllipticalMirror'} <= set(oes.__all__)
+    assert 'Undulator' in sources.__all__
+    assert oes.EllipticalMirror is oes.EllipticalMirrorParam
+    # the SoftiMAX tool reads its golden samples from tests/golden only
+    with open(os.path.join(ROOT, 'tools', 'torch_bench_softimax.py')) as f:
+        text = f.read()
+    assert not re.search(r'xrt_tpu(?!_torch)', text)
 
 
 def test_data_tables_are_byte_identical_copies():

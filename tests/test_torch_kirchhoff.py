@@ -259,3 +259,26 @@ def test_kirchhoff_integral_xla_vs_reference_golden():
     np.testing.assert_allclose(aE.numpy(), ref['aE'], rtol=1e-8, atol=1e-3)
     np.testing.assert_allclose(bE.numpy(), ref['bE'], rtol=1e-8, atol=1e-3)
     np.testing.assert_allclose(cE.numpy(), ref['cE'], rtol=1e-8, atol=1e-3)
+
+
+def test_skipping_the_envelope_check_gives_the_same_bits(monkeypatch):
+    """``check_envelope=False`` (a chain whose modes were chosen at build
+    time) reads nothing back to the host and gives the bits of a checked
+    call on a geometry inside the envelope."""
+    a = make_inputs(9, 500, 300, poly=False)
+    pos = [a[k] for k in ('xd', 'yd', 'zd', 'xs', 'ys', 'zs')]
+    assert tk.recentred_series_e_max(*pos) < tk.SERIES_E2_MAX
+    checked = tk.kirchhoff_integral_kernel(*targs(a), monochromatic=True,
+                                           accumulate='mxu')
+
+    def no_host_read(*args):
+        raise AssertionError('the envelope check ran')
+    monkeypatch.setattr(tk, 'recentred_series_e_max', no_host_read)
+    skipped = tk.kirchhoff_integral_kernel(*targs(a), monochromatic=True,
+                                           accumulate='mxu',
+                                           check_envelope=False)
+    for x, y in zip(checked, skipped):
+        assert torch.equal(x, y)
+    with pytest.raises(AssertionError, match='envelope check ran'):
+        tk.kirchhoff_integral_kernel(*targs(a), monochromatic=True,
+                                     accumulate='mxu')

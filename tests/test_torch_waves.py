@@ -222,13 +222,11 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     (a, b, c), (src, slit, tor, scr) = port_waves(jax_side)
     s0 = src.shine(None, a)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tw.diffract(s0, b, tile_modes=[[('recentred', 'mxu')]])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
         tw.diffract(s0, b, mesh=object())
     chain = WaveChain(src, nrays=10).through_aperture(slit)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         chain.build(mesh=object(), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        chain.build(tiled=True, device='cpu')
+        ToroidMirror.create(gratingDensity=[1, 300.0])
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tor.reflect(s0, is2ndXtal=True)

@@ -46,6 +46,7 @@ class Beam:
     # parametric coordinates of the last impact point (parametric OEs)
     s: Optional[Tensor] = None
     phi: Optional[Tensor] = None
+    r: Optional[Tensor] = None
     # accumulated flux bookkeeping for Monte-Carlo sources (scalars)
     accepted: Optional[Tensor] = None
     acceptedE: Optional[Tensor] = None

@@ -1,11 +1,15 @@
-"""Optical elements: the OE base and the stock mirrors."""
+"""Optical elements: the OE base, the stock mirrors, the blazed grating and
+the parametric elliptical mirror."""
 from .base import OE, find_intersection, find_intersection_dz
+from .gratings import BlazedGrating
 from .mirrors import (BentFlatMirror, ConicalMirror, CylindricalMirror,
                       FlatMirror, SimpleVCM, SimpleVFM, SphericalMirror,
                       ToroidMirror, VCM, VFM, rmer_from_coddington,
                       rsag_from_coddington)
+from .parametric import EllipticalMirror, EllipticalMirrorParam
 
 __all__ = ['OE', 'find_intersection', 'find_intersection_dz', 'FlatMirror',
            'BentFlatMirror', 'SimpleVCM', 'VCM', 'SphericalMirror',
            'ToroidMirror', 'SimpleVFM', 'VFM', 'CylindricalMirror',
-           'ConicalMirror', 'rmer_from_coddington', 'rsag_from_coddington']
+           'ConicalMirror', 'rmer_from_coddington', 'rsag_from_coddington',
+           'BlazedGrating', 'EllipticalMirrorParam', 'EllipticalMirror']

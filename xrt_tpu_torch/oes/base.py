@@ -20,9 +20,13 @@ operations: they polish the root (float32 at t ~ 1e4 mm has ~6e-4 mm
 ulps, so the bracket alone cannot give float32 accuracy) and carry the
 implicit-function gradient dt/dparams = -dF/dparams / dF/dt.
 
-The crystal, grating and refractive physics, parametric surfaces,
+Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
+``param_to_xyz``, a normal in (s, phi)) are searched in their radial
+coordinate and classified, reflected and reported in (s, phi, r); an OE
+with ``analytic_intersect`` (the blazed grating) is intersected by it
+instead of the search.  The crystal, grating and refractive physics,
 element offsets and the second crystal of a DCM come with later slices
-(ROADMAP A5, A8) and raise ``NotImplementedError`` here.
+(ROADMAP A8) and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -290,6 +294,17 @@ class OE(config.Replaceable):
             raise ValueError(f'unknown OE shape {self.shape!r}')
         return torch.where(state == 1, locState, state).to(state.dtype)
 
+    def _radial_distance(self, invertNormal):
+        """dz(x, y, z) of the intersection search on a parametric surface:
+        the radial distance local_r(s, phi) - r of the point inside it."""
+        def dz_fn(xx, yy, zz):
+            s_, phi_, r_ = self.xyz_to_param(xx, yy, zz)
+            surf = self.local_r(s_, phi_)
+            surf = torch.where(torch.isnan(surf), torch.zeros_like(surf),
+                               surf)
+            return (surf - r_) * invertNormal
+        return dz_fn
+
     # ---- bracketing -----------------------------------------------------
     def _bracket(self, x, y, z, a, b, c):
         """(tMin, tMax) of the intersection search for each ray: where it
@@ -330,7 +345,10 @@ class OE(config.Replaceable):
                 yaw=self.extraYaw)
         lb = rotate_beam(lb, rotationSequence='-' + self.rotationSequence,
                          pitch=pitch, roll=roll, yaw=yaw)
-        normal = self.local_n(lb.x, lb.y)
+        if self.isParametric:
+            normal = self.local_n(*self.xyz_to_param(lb.x, lb.y, lb.z)[:2])
+        else:
+            normal = self.local_n(lb.x, lb.y)
         ones = torch.ones_like(lb.x)
         rollAngle = self.roll + self.positionRoll + \
             torch.atan2(normal[-3] * ones, normal[-1] * ones)
@@ -346,14 +364,18 @@ class OE(config.Replaceable):
     # ---- reflection -----------------------------------------------------
     def reflect(self, beam: Beam, generator=None, needLocal=True,
                 noIntersectionSearch=False, is2ndXtal=False,
-                fromVacuum=True):
+                fromVacuum=True, surfacePoints=None):
         """Reflect *beam* (global frame) off this OE; returns (beamGlobal,
         beamLocal).  With ``noIntersectionSearch=True`` the rays are taken
-        to be on the surface already (the wave hops)."""
-        if is2ndXtal or self.isParametric:
+        to be on the surface already (the wave hops); *surfacePoints*, the
+        local (x, y, z) of those points, then replaces the positions that
+        the global frame gives back, so that the surface (its normal, a
+        grating's facet) is evaluated where the samples are: in float32 the
+        round trip through global coordinates moves them by ulp(|centre|),
+        ~2e-3 mm at 26 m, a grating period's scale."""
+        if is2ndXtal:
             raise NotImplementedError(
-                'the second crystal of a DCM and parametric surfaces are '
-                'not ported yet (ROADMAP A8)')
+                'the second crystal of a DCM is not ported yet (ROADMAP A8)')
         good_in = beam.state > 0
         lb = global_to_virgin_local(beam, self.center)
         pitch, roll, yaw, dx, dy, dz = self._placement(is2ndXtal)
@@ -362,7 +384,8 @@ class OE(config.Replaceable):
                 'element offsets dx, dy, dz are not ported yet (ROADMAP A8)')
         lb, out = self._reflect_local(
             lb, good_in, pitch, roll, yaw, fromVacuum=fromVacuum,
-            noIntersectionSearch=noIntersectionSearch)
+            noIntersectionSearch=noIntersectionSearch,
+            surfacePoints=surfacePoints)
         glo = virgin_local_to_global(lb, self.center)
         merged = _merge_by_mask(beam, glo, good_in)
         if needLocal:
@@ -370,7 +393,7 @@ class OE(config.Replaceable):
         return merged
 
     def _reflect_local(self, lb, good, pitch, roll, yaw, fromVacuum=True,
-                       noIntersectionSearch=False):
+                       noIntersectionSearch=False, surfacePoints=None):
         """The virgin-local part of reflect.  Returns (virgin-local beam,
         true-local beam)."""
         lb = rotate_beam(lb, rotationSequence=self.rotationSequence,
@@ -379,25 +402,57 @@ class OE(config.Replaceable):
             lb = rotate_beam(lb, rotationSequence=self.extraRotationSequence,
                              pitch=-self.extraPitch, roll=-self.extraRoll,
                              yaw=-self.extraYaw)
+        param = self.isParametric
         if noIntersectionSearch:
             t = torch.zeros_like(lb.x)
-            state = self.rays_good(lb.x, lb.y, lb.state)
+            lost = torch.zeros_like(good)
+            if surfacePoints is not None:
+                lb = lb.replace(**{k: torch.where(good, v, getattr(lb, k))
+                                   for k, v in zip('xyz', surfacePoints)})
         else:
             tMin, tMax = self._bracket(lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
-            t, xx, yy, zz, lost = find_intersection(
-                self.local_z, tMin, tMax, lb.x, lb.y, lb.z, lb.a, lb.b,
-                lb.c, invertNormal=1 if fromVacuum else -1, active=good)
+            ray = (lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
+            inv = 1 if fromVacuum else -1
+            if hasattr(self, 'analytic_intersect'):
+                t, xx, yy, zz, lost = self.analytic_intersect(tMin, tMax,
+                                                              *ray)
+            elif param:
+                t, xx, yy, zz, lost = find_intersection_dz(
+                    self._radial_distance(inv), tMin, tMax, *ray,
+                    active=good)
+            else:
+                t, xx, yy, zz, lost = find_intersection(
+                    self.local_z, tMin, tMax, *ray, invertNormal=inv,
+                    active=good)
             lb = lb.replace(x=torch.where(good, xx, lb.x),
                             y=torch.where(good, yy, lb.y),
                             z=torch.where(good, zz, lb.z))
+        if param:
+            # classify at the surface point of the hit, then carry the
+            # parametric coordinates (s, phi, r) in x, y, z through the
+            # physics: the normal is a function of (s, phi)
+            sP, phiP, rP = self.xyz_to_param(lb.x, lb.y, lb.z)
+            tX, tY, _ = self.param_to_xyz(sP, phiP, rP)
+            state = self.rays_good(tX, tY, lb.state)
+            lb = lb.replace(x=torch.where(good, sP, lb.x),
+                            y=torch.where(good, phiP, lb.y),
+                            z=torch.where(good, rP, lb.z))
+        else:
             state = self.rays_good(lb.x, lb.y, lb.state)
-            state = torch.where(good & lost, config.STATE_DEAD, state)
+        state = torch.where(good & lost, config.STATE_DEAD, state)
         state = torch.where(good, state, lb.state)
         lb = lb.replace(state=state)
         goodN = state == 1
         lb = lb.replace(path=torch.where(goodN, lb.path + t, lb.path))
         lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
                                        self.material)
+        if param:
+            # back to cartesian, keeping the parametric impact coordinates
+            xC, yC, zC = self.param_to_xyz(lb.x, lb.y, lb.z)
+            lb = lb.replace(s=lb.x, phi=lb.y, r=lb.z,
+                            x=torch.where(good, xC, lb.x),
+                            y=torch.where(good, yC, lb.y),
+                            z=torch.where(good, zC, lb.z))
         # back to virgin local; only the virgin-local copy rotates the
         # polarization back by the local roll, the true-local beam keeps
         # the surface s/p frame

@@ -968,7 +968,7 @@ def _complex5(out):
 def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                               weights, phase_mode='recentred',
                               monochromatic=False, accumulate='mxu',
-                              narrowband='auto'):
+                              narrowband='auto', check_envelope=True):
     """The Kirchhoff double sum in float32, differentiable in all twelve
     inputs: the CUDA kernels (forward and adjoint) for CUDA tensors, their
     plain PyTorch versions for CPU tensors.
@@ -984,7 +984,10 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     budgeted for ('mxu', 'mxu2', 'mxu-fast', 'mxu32' or 'vpu').  The CUDA
     kernel runs the exact per-pair f32 contraction for every value; the
     envelope of the 'mxu*' 1/A direction series is still checked, and a
-    geometry outside it falls back to 'vpu' with a warning.
+    geometry outside it falls back to 'vpu' with a warning.  The check
+    copies the positions to the host; a caller that chose the mode on the
+    host already (a chain's build) passes ``check_envelope=False``, which
+    reads nothing back and gives the same bits.
 
     The per-point preparation is ordinary differentiable torch; the pair
     sums are one ``torch.autograd.Function`` whose backward recomputes the
@@ -997,7 +1000,7 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
         if narrowband == 'auto':
             narrowband = False if monochromatic else \
                 narrowband_err_cycles(k, xd, yd, zd, xs, ys, zs) < 1e-3
-        if accumulate.startswith('mxu'):
+        if accumulate.startswith('mxu') and check_envelope:
             e_max = recentred_series_e_max(xd, yd, zd, xs, ys, zs)
             if accumulate == 'mxu2' and e_max > SERIES_E2_MAX:
                 accumulate = 'mxu'

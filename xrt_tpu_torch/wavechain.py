@@ -28,8 +28,12 @@ On CUDA tensors the backward pass runs the hand-written adjoint kernels.
 ``run()`` executes eagerly (PyTorch has no counterpart of the reference's
 single ``jit``).  Under ``jit`` the reference resolves the kernel's
 ``narrowband='auto'`` to False, so the chain passes ``narrowband=False``
-explicitly to keep the same numerics.  Blockwise tiling (``tiled=True``)
-and multi-device runs (``mesh=``) are not ported yet.
+explicitly to keep the same numerics; the modes were chosen at build time,
+so it also skips the kernel's host envelope check (``check_envelope``).
+``build(tiled=True)`` samples the OE receivers sorted along y and gives
+every stage outside the recentred 'mxu*' envelopes a tile map
+(:func:`~xrt_tpu_torch.waves.choose_tile_modes`, ``tile_shape`` tiles).
+Multi-device runs (``mesh=``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,10 +47,6 @@ import torch
 from . import config
 from . import waves as _w
 from .physconsts import CHBAR
-
-_TILED_TODO = ('WaveChain.build(tiled=True) needs diffract(tile_modes=...), '
-               'which is not ported yet: ROADMAP A3, with the SoftiMAX '
-               'slice')
 
 
 class WaveChain:
@@ -76,11 +76,12 @@ class WaveChain:
         return self
 
     # -- build -----------------------------------------------------------
-    def build(self, generator=None, tiled=False, verbose=False, mesh=None,
-              error_budget='auto', dtype=None, device=None):
+    def build(self, generator=None, tiled=False, tile_shape=(5, 10),
+              verbose=False, mesh=None, error_budget='auto', dtype=None,
+              device=None):
         """Prepare the fixed receiving geometry, choose per-stage kernel
-        modes, and return ``run(generator=None, timings=None) ->
-        (final_wave, log_scale)``.
+        modes (and with *tiled* the tile maps), and return
+        ``run(generator=None, timings=None) -> (final_wave, log_scale)``.
 
         *generator*: the ``torch.Generator`` of the receiver samples (seed
         0 if None); ``run``'s own generator feeds the source's draws.
@@ -92,16 +93,15 @@ class WaveChain:
         default.
 
         ``run(timings=[])`` appends one dict per Kirchhoff stage:
-        ``hop``, ``mode`` and CUDA ``start``/``end`` events (or host
-        seconds as ``seconds`` on the CPU), read after a synchronize.
+        ``hop``, ``mode``, for a tiled stage ``tiles`` (its tile pairs per
+        mode) and CUDA ``start``/``end`` events (or host seconds as
+        ``seconds`` on the CPU), read after a synchronize.
         ``run(waves=...)`` takes this run's receiving waves in place of the
         prepared ``run.waves`` (the same samples: shifted coordinates,
         elements with tensor parameters as ``fromOE`` / ``toOE``); the
         modes chosen at build time stay."""
         if mesh is not None:
             raise NotImplementedError(_w._MESH_TODO)
-        if tiled:
-            raise NotImplementedError(_TILED_TODO)
         if not self._hops:
             raise ValueError('empty chain')
         dt = config.resolve_dtype(dtype)
@@ -112,6 +112,7 @@ class WaveChain:
             error_budget = 3.0 / math.sqrt(self.nrays)
         waves = []
         modes: List[Optional[Tuple[str, str]]] = []
+        tilemaps: List[Optional[list]] = []
         prev_el = self.source
         prev_geom = None
         # the recentred delta-series error scales with k: the mode choice
@@ -127,21 +128,31 @@ class WaveChain:
                     device=dev)
             elif kind == 'oe':
                 wv = _w.prepare_wave_on_oe(el, prev_el, self.nrays,
-                                           generator=generator, dtype=dt,
-                                           device=dev)
+                                           generator=generator,
+                                           sort='y' if tiled else None,
+                                           dtype=dt, device=dev)
             else:
                 wv = _w.prepare_wave_on_screen(el, prev_el, *extra,
                                                dtype=dt, device=dev)
             if i == 0:
                 modes.append(None)        # filled by shine, not diffract
+                tilemaps.append(None)
             else:
                 dst = (wv.xDiffr, wv.yDiffr, wv.zDiffr)
                 mode = _w.choose_kirchhoff_mode(dst, prev_geom, k=kv,
                                                 error_budget=error_budget)
+                tm = None
+                if tiled and not (mode[0] == 'recentred' and
+                                  mode[1].startswith('mxu')):
+                    tm = _w.choose_tile_modes(dst, prev_geom, *tile_shape,
+                                              k=kv,
+                                              error_budget=error_budget)
                 if verbose:
                     nm = getattr(el, 'name', '') or type(el).__name__
-                    print(f'# hop {i} -> {nm}: {mode}')
+                    print(f'# hop {i} -> {nm}: {mode}'
+                          + (f' tiled {tile_shape}' if tm else ''))
                 modes.append(mode)
+                tilemaps.append(tm)
             prev_geom = (wv.x, wv.y, wv.z)
             waves.append(wv)
             prev_el = el
@@ -168,7 +179,8 @@ class WaveChain:
                 logs = logs + ls
                 return b
 
-            cur = _w._shine_or_diffract(None, wvs[0], generator)
+            cur = _w._shine_or_diffract(None, wvs[0], generator,
+                                        fixedEnergy=fixedE)
             if hops[0][0] == 'oe':
                 _, cur = _w.reflect_wave(wvs[0].toOE, cur, generator)
             cur = scaled(cur)
@@ -176,10 +188,14 @@ class WaveChain:
                 kind, _, extra = hops[i]
                 el = wvs[i].toOE
                 pm, acc = modes[i]
-                mark = _Mark(timings, i, (pm, acc), cur.x.device)
+                rec = dict(hop=i, mode=(pm, acc))
+                if tilemaps[i] is not None:
+                    rec['tiles'] = _w.tile_pairs_by_mode(tilemaps[i])
+                mark = StageTimer(timings, rec, cur.x.device)
                 b = _w.diffract(cur, wvs[i], phase_mode=pm,
                                 monochromatic=mono, accumulate=acc,
-                                narrowband=False)
+                                tile_modes=tilemaps[i], narrowband=False,
+                                check_envelope=False)
                 mark.stop()
                 if kind == 'oe':
                     _, cur = _w.reflect_wave(el, b, generator)
@@ -193,7 +209,7 @@ class WaveChain:
 
         run.waves = waves0
         run.modes = modes
-        run.tilemaps = [None] * len(hops)
+        run.tilemaps = tilemaps
         return run
 
     # -- output helpers --------------------------------------------------
@@ -205,14 +221,17 @@ class WaveChain:
         return J * math.exp(-2.0 * float(log_scale))
 
 
-class _Mark:
-    """Brackets one Kirchhoff stage for ``run(timings=...)``."""
+class StageTimer:
+    """Brackets one step of a run: ``stop()`` appends the record *rec* to
+    *timings* with CUDA ``start``/``end`` events (read them after a
+    synchronize), or host ``seconds`` on the CPU; nothing when *timings* is
+    None."""
 
-    def __init__(self, timings, hop, mode, device):
+    def __init__(self, timings, rec, device):
         self.timings = timings
         if timings is None:
             return
-        self.rec = dict(hop=hop, mode=mode)
+        self.rec = rec
         if device.type == 'cuda':
             self.rec['start'] = torch.cuda.Event(enable_timing=True)
             self.rec['end'] = torch.cuda.Event(enable_timing=True)

@@ -25,9 +25,11 @@ finite-difference Jacobian of the exact transforms
 (:func:`_placement_jacobian`) times the angle offset, added to the
 receiving coordinates.
 
-Not in this module yet: ``diffract(tile_modes=...)`` (blockwise tiling)
-and ``diffract(mesh=...)`` (multi-device); both raise
-``NotImplementedError`` naming their ROADMAP item.
+Blockwise tiling (``diffract(tile_modes=...)``, modes from
+:func:`choose_tile_modes`) runs each (destination tile, source tile) pair
+of a float32 stage through the kernel mode chosen for it.  Not in this
+module yet: ``diffract(mesh=...)`` (multi-device), which raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -49,9 +51,6 @@ from .transforms import cos, rotate_xyz, rotate_y, sin
 Tensor = torch.Tensor
 SRC_CHUNK = 256   # source samples per step of the float64 plain path
 
-_TILE_MODES_TODO = ('diffract(tile_modes=...) (blockwise tiling of short '
-                    'stages) is not ported yet: ROADMAP A3, with the '
-                    'SoftiMAX slice')
 _MESH_TODO = ('multi-device diffract / WaveChain (mesh=...) is not ported '
               'yet: ROADMAP A10')
 
@@ -388,7 +387,11 @@ def _prev_center(prevOE, dt, dev):
         cy = 0.5 * (prevOE.limPhysY[0] + prevOE.limPhysY[1])
         cxa = torch.tensor([cx], dtype=dt, device=dev)
         cya = torch.tensor([cy], dtype=dt, device=dev)
-        cza = prevOE.local_z(cxa, cya)
+        if prevOE.isParametric:
+            s0, phi0, _ = prevOE.xyz_to_param(cxa, cya, torch.zeros_like(cxa))
+            cza = prevOE.param_to_xyz(s0, phi0, prevOE.local_r(s0, phi0))[2]
+        else:
+            cza = prevOE.local_z(cxa, cya)
         lbc = new_beam(1, dtype=dt, device=dev).replace(x=cxa, y=cya, z=cza)
         lbc = prevOE.local_to_global(lbc)
         return (lbc.x[0], lbc.y[0], lbc.z[0])
@@ -447,7 +450,21 @@ def prepare_wave_on_oe(oe, prevOE, nrays, generator=None, sort=None,
     nsamples = x.shape[0]
     area0 = (oe.limPhysX[1] - oe.limPhysX[0]) * \
         (oe.limPhysY[1] - oe.limPhysY[0])
-    z = z_given if z_given is not None else oe.local_z(x, y)
+    s = phi = None
+    if z_given is not None:
+        z = z_given
+        if oe.isParametric:
+            s, phi, _ = oe.xyz_to_param(x, y, z)
+    elif oe.isParametric:
+        # the z = 0 projection lands ~1e-4 mm off a tilted parametric
+        # surface, enough to scramble grazing-incidence phases; two more
+        # re-projections from the surface z converge to ~nm
+        z = torch.zeros_like(x)
+        for _ in range(3):
+            s, phi, _ = oe.xyz_to_param(x, y, z)
+            z = oe.param_to_xyz(s, phi, oe.local_r(s, phi))[2]
+    else:
+        z = oe.local_z(x, y)
 
     # surface-normal projection factor: |cos| between the incoming central
     # direction and the global surface normal at the OE origin
@@ -468,7 +485,7 @@ def prepare_wave_on_oe(oe, prevOE, nrays, generator=None, sort=None,
     good = (st == 1) | (st == 2)
     area = area0 * torch.mean(good.to(dt))
     ngood = torch.clamp(torch.sum(good), min=1)
-    wave = _blank_wave(nsamples, dt, dev, x=x, y=y, z=z)
+    wave = _blank_wave(nsamples, dt, dev, x=x, y=y, z=z, s=s, phi=phi)
     wave = wave.replace(Jss=torch.ones_like(x), area=area,
                         areaNormal=area * areaNormalFact,
                         dS=torch.ones((nsamples,), dtype=dt, device=dev) *
@@ -563,8 +580,11 @@ def _surface_terms(oeLocal, wave):
     samples of a Kirchhoff stage."""
     good = oeLocal.state == 1
     w = good.to(wave.xDiffr.dtype)
-    if _is_oe(wave.fromOE):
-        n = wave.fromOE.local_n(oeLocal.x, oeLocal.y)[-3:]
+    oe = wave.fromOE
+    if _is_oe(oe) and oe.isParametric and oeLocal.s is not None:
+        n = oe.local_n(oeLocal.s, oeLocal.phi)[-3:]
+    elif _is_oe(oe):
+        n = oe.local_n(oeLocal.x, oeLocal.y)[-3:]
     else:
         n = [torch.zeros_like(oeLocal.x), torch.ones_like(oeLocal.x),
              torch.zeros_like(oeLocal.x)]
@@ -598,22 +618,25 @@ def kirchhoff_kernel_args(oeLocal, wave):
 
 def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
              monochromatic=False, accumulate='mxu', tile_modes=None,
-             mesh=None, narrowband='auto') -> Wave:
+             mesh=None, narrowband='auto', check_envelope=True) -> Wave:
     """Diffract the surface field *oeLocal* onto the receiving *wave*
     samples; returns the updated wave (accumulating over repeated calls
     through the Acc fields).
 
     float32 waves go through :func:`~xrt_tpu_torch.ops.kirchhoff.
     kirchhoff_integral_kernel` (the CUDA kernels on the card) with
-    *phase_mode* 'recentred' (default), 'fast' or 'exact'; *accumulate*
-    and *narrowband* are passed on to it.  float64 waves use the plain
-    :func:`kirchhoff_integral_xla`.  *oeLocal.area* should be set (else a
-    bounding-box estimate is used).
+    *phase_mode* 'recentred' (default), 'fast' or 'exact'; *accumulate*,
+    *narrowband* and *check_envelope* are passed on to it.  float64 waves
+    use the plain :func:`kirchhoff_integral_xla`.  *oeLocal.area* should
+    be set (else a bounding-box estimate is used).
 
-    *tile_modes* and *mesh* are not ported yet and raise
+    *tile_modes* (from :func:`choose_tile_modes`; the samples of both
+    clouds sorted along the beam, ``sort='y'``): blockwise evaluation of a
+    float32 stage, each (destination tile, source tile) pair with its own
+    (phase_mode, accumulate), overriding the stage's; see
+    :func:`_tiled_integral`.  A float64 wave ignores it (its plain path is
+    exact at any geometry).  *mesh* is not ported yet and raises
     ``NotImplementedError``."""
-    if tile_modes is not None:
-        raise NotImplementedError(_TILE_MODES_TODO)
     if mesh is not None:
         raise NotImplementedError(_MESH_TODO)
     oe = wave.fromOE
@@ -632,10 +655,18 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
 
     if wave.xDiffr.dtype == torch.float32:
         from .ops.kirchhoff import kirchhoff_integral_kernel
-        Es, Ep, aE, bE, cE = kirchhoff_integral_kernel(
-            *kirchhoff_kernel_args(oeLocal, wave), phase_mode=phase_mode,
-            monochromatic=monochromatic, accumulate=accumulate,
-            narrowband=narrowband)
+        args = kirchhoff_kernel_args(oeLocal, wave)
+        if tile_modes is not None:
+            # 'auto' resolves to False, as under the reference's jit: its
+            # error bound would be one more host read per tile pair
+            Es, Ep, aE, bE, cE = _tiled_integral(
+                args, tile_modes, monochromatic,
+                False if narrowband == 'auto' else narrowband)
+        else:
+            Es, Ep, aE, bE, cE = kirchhoff_integral_kernel(
+                *args, phase_mode=phase_mode, monochromatic=monochromatic,
+                accumulate=accumulate, narrowband=narrowband,
+                check_envelope=check_envelope)
     else:
         k = oeLocal.E / CHBAR * 1e7  # 1/mm
         Es, Ep, aE, bE, cE = kirchhoff_integral_xla(
@@ -713,7 +744,11 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
         # global-frame beam that reflect() consumes next
         glo = wave_to_global(out)
         ones = torch.ones_like(out.xDiffr)
-        nrm = toOE.local_n(wave.x, wave.y)
+        if toOE.isParametric:
+            nrm = toOE.local_n(*toOE.xyz_to_param(wave.x, wave.y,
+                                                  wave.z)[:2])
+        else:
+            nrm = toOE.local_n(wave.x, wave.y)
         n1 = nrm[-3] * ones
         n2 = nrm[-2] * ones
         n3 = nrm[-1] * ones
@@ -826,9 +861,112 @@ def choose_kirchhoff_mode(dst_xyz, src_xyz, k=None, error_budget=None):
 
 
 def _tile_bounds(N, ntiles):
-    """(tile_size, starts): uniform ceil-division tiling of range(N)."""
+    """(tile_size, starts): uniform ceil-division tiling of range(N).  The
+    last tile may extend past N: :func:`_tiled_integral` edge-pads the
+    arrays to ntiles * tile_size, :func:`choose_tile_modes` clips it."""
     T = -(-N // ntiles)
     return T, [i * T for i in range(ntiles)]
+
+
+def choose_tile_modes(dst_xyz, src_xyz, n_dst_tiles, n_src_tiles, k=None,
+                      error_budget=None):
+    """Per-tile-pair kernel modes for ``diffract(tile_modes=...)``: a
+    (n_dst_tiles, n_src_tiles) nested list of (phase_mode, accumulate) from
+    :func:`choose_kirchhoff_mode` on each pair of contiguous sample slices
+    (host float64).  The samples must be sorted along the beam
+    (``sort='y'``), so that slices are spatial tiles: a short stage whose
+    whole geometry breaks the recentred envelopes then keeps them on most
+    tile pairs, and only the pairs near contact run the per-pair 'fast'
+    phase."""
+    d = np.stack([_host64(v) for v in dst_xyz])
+    s = np.stack([_host64(v) for v in src_xyz])
+    Nd, Ns = d.shape[1], s.shape[1]
+    Td, dstarts = _tile_bounds(Nd, n_dst_tiles)
+    Ts, sstarts = _tile_bounds(Ns, n_src_tiles)
+    modes = []
+    for d0 in dstarts:
+        dt_ = d[:, d0:min(d0 + Td, Nd)]
+        row = []
+        for s0 in sstarts:
+            st_ = s[:, s0:min(s0 + Ts, Ns)]
+            if dt_.shape[1] == 0 or st_.shape[1] == 0:
+                # an empty clipped tile contributes nothing
+                row.append(('recentred', 'mxu'))
+            else:
+                row.append(choose_kirchhoff_mode(tuple(dt_), tuple(st_), k,
+                                                 error_budget=error_budget))
+        modes.append(row)
+    return modes
+
+
+def tile_pair_args(args, tile_modes):
+    """The tile pairs of a float32 stage, in the order they run: yields
+    ((di, si), (phase_mode, accumulate), pair_args, dst_slice), where
+    *pair_args* are the :func:`kirchhoff_kernel_args` of the pair.
+
+    *args* are :func:`kirchhoff_kernel_args` of the whole stage.  The
+    clouds are cut into ``len(tile_modes)`` x ``len(tile_modes[0])``
+    uniform tiles (ceiling division); positions, k and the normals are
+    edge-padded and the fields and weights zero-padded to whole tiles, so
+    the padded samples add nothing but enter each tile's recentring means as
+    the reference's do (zero positions would drag them toward the origin).
+    The pairs are grouped by mode, the groups in sorted order."""
+    xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, w = args
+    ntd, nts = len(tile_modes), len(tile_modes[0])
+    Nd, Ns = xd[0].shape[0], xs[0].shape[0]
+    Td, _ = _tile_bounds(Nd, ntd)
+    Ts, _ = _tile_bounds(Ns, nts)
+    pad_d, pad_s = ntd * Td - Nd, nts * Ts - Ns
+    dst = [tuple(pad1d_edge(v, pad_d) for v in hl) for hl in (xd, yd, zd)]
+    src = [tuple(pad1d_edge(v, pad_s) for v in hl) for hl in (xs, ys, zs)]
+    kp = tuple(pad1d_edge(v, pad_s) for v in k)
+    n_p = [pad1d_edge(torch.broadcast_to(torch.as_tensor(
+        ni, dtype=xs[0].dtype, device=xs[0].device), (Ns,)), pad_s)
+        for ni in n]
+    nlp = pad1d_edge(nl, pad_s)
+    Esp, Epp, wp = (pad1d_zero(v, pad_s) for v in (Es, Ep, w))
+    groups = {}
+    for di in range(ntd):
+        for si in range(nts):
+            groups.setdefault(tuple(tile_modes[di][si]), []).append((di, si))
+    for mode, pairs in sorted(groups.items()):
+        for di, si in pairs:
+            ds = slice(di * Td, (di + 1) * Td)
+            ss = slice(si * Ts, (si + 1) * Ts)
+            yield (di, si), mode, (
+                *[(h[ds], l[ds]) for h, l in dst],
+                *[(h[ss], l[ss]) for h, l in src], Esp[ss], Epp[ss],
+                (kp[0][ss], kp[1][ss]), [ni[ss] for ni in n_p], nlp[ss],
+                wp[ss]), ds
+
+
+def _tiled_integral(args, tile_modes, monochromatic, narrowband):
+    """The five accumulators of a float32 stage evaluated by tile pairs
+    (:func:`tile_pair_args`): each pair one call of
+    :func:`~xrt_tpu_torch.ops.kirchhoff.kirchhoff_integral_kernel` on
+    slices (B1 or B2 on the card), added into its destination tile.  The
+    modes were chosen on the host at build time, so no pair reads anything
+    back: the envelope check is skipped."""
+    from .ops.kirchhoff import kirchhoff_integral_kernel
+    ntd = len(tile_modes)
+    Nd = args[0][0].shape[0]
+    acc = [[None] * 5 for _ in range(ntd)]
+    for (di, _), (pm, am), pair, _ in tile_pair_args(args, tile_modes):
+        out = kirchhoff_integral_kernel(
+            *pair, phase_mode=pm, monochromatic=monochromatic,
+            accumulate=am, narrowband=narrowband, check_envelope=False)
+        acc[di] = [o if a is None else a + o for a, o in zip(acc[di], out)]
+    return tuple(torch.cat([acc[di][i] for di in range(ntd)])[:Nd]
+                 for i in range(5))
+
+
+def tile_pairs_by_mode(tile_modes):
+    """{(phase_mode, accumulate): number of tile pairs} of a tile map."""
+    counts = {}
+    for row in tile_modes:
+        for m in row:
+            counts[tuple(m)] = counts.get(tuple(m), 0) + 1
+    return counts
 
 
 def rescale_field(beam: Beam, target_rms=1.0):
@@ -852,10 +990,17 @@ def rescale_field(beam: Beam, target_rms=1.0):
     return out, torch.log(s)
 
 
-def _shine_or_diffract(wave, waveOnSelf, generator=None, **dkw):
-    """Fill *waveOnSelf* from *wave*: an analytic source shines its field
-    directly; anything else Kirchhoff-diffracts the surface field."""
+def _shine_or_diffract(wave, waveOnSelf, generator=None, fixedEnergy=None,
+                       **dkw):
+    """Fill *waveOnSelf* from *wave*: a synchrotron source shines its
+    filament field at *fixedEnergy* (else the energy of *wave*), an
+    analytic source its field; anything else Kirchhoff-diffracts the
+    surface field."""
     prevOE = waveOnSelf.fromOE
+    if hasattr(prevOE, 'shine_wave'):
+        E = fixedEnergy if fixedEnergy is not None else \
+            float(wave.E[0]) if wave is not None else None
+        return prevOE.shine_wave(generator, waveOnSelf, fixedEnergy=E)
     if hasattr(prevOE, 'shine') and not hasattr(prevOE, 'reflect'):
         return prevOE.shine(generator, waveOnSelf)
     return diffract(wave, waveOnSelf, **dkw)
@@ -863,10 +1008,14 @@ def _shine_or_diffract(wave, waveOnSelf, generator=None, **dkw):
 
 def reflect_wave(oe, b, generator=None, **kwargs):
     """Reflect a diffracted wave at its receiving OE surface, keeping the
-    receiver's exact local sample coordinates (a round trip through f32
-    global coordinates would quantize them at ulp(|center|)).  Returns
+    receiver's exact local sample coordinates, and s/phi on a parametric
+    surface (a round trip through f32 global coordinates would quantize
+    them at ulp(|center|)).  Returns
     (beamGlobal, beamLocal) like ``oe.reflect``."""
     glo, loc = oe.reflect(wave_to_global(b), generator,
-                          noIntersectionSearch=True, **kwargs)
+                          noIntersectionSearch=True,
+                          surfacePoints=(b.x, b.y, b.z), **kwargs)
     loc = loc.replace(x=b.x, y=b.y, z=b.z)
+    if b.s is not None:
+        loc = loc.replace(s=b.s, phi=b.phi)
     return glo, loc
