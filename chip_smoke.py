@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs fourteen phases and exits
+process per source, in parallel), then runs seventeen phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -131,6 +131,41 @@ non-zero if any fails:
     float64, overlap above the reference package's own floors at every hop
     (0.999 up to the grating, pg 0.7, m3 / es / m4 / m5 0.6, focus 0.55).
 
+15. xrt's speed test 1 (``tools/torch_bench_analyzer.py``), nothing cut:
+    a diced Johansson Si(444) analyzer traced from three geometric
+    sources, 96 steps x 1e5 rays each, float32, each step filling xrt's
+    three histograms through ``hist2d_kernel`` (400 x 400 and two
+    128 x 128; 864 launches): the time, rays/s, the time per source and
+    the accumulated flux, with xrt's published i7 times as context; one
+    step of each source split by CUDA events (source, reflect and its
+    bracket + search alone with the Illinois iterations, expose, the
+    histograms and their share of the step); the three histograms of a
+    step against ``hist2d_plain`` with float64 sums (< 1e-5, the same
+    non-empty bins);
+16. the DCM trace: GeometricSource -> Si(111) DCM (30 m, fixed exit
+    20 mm, the golden's Bragg angle) -> screen, +-8 eV, 1e7 rays a pass,
+    float32, 4 passes through ``run_ray_tracing`` with one energy-coloured
+    plot (one ``hist_plot`` a pass): pass time (median of 3 runs after a
+    warm-up), rays/s, the split of a pass; the flux per ray, weighted
+    mean and spread of the energy over the last run's 4e7 rays against
+    ``tests/golden/ref_trace_dcm.npz`` at its test's limits (2%, 0.05 eV,
+    3%; read with numpy, the phase fails if the file is missing);
+    ``hist_plot`` against ``hist_plot_plain`` on one pass (< 1e-5); and
+    float32 against float64 on the same 2e5 rays (flux and spread 2e-3,
+    mean 0.01 eV);
+17. BASELINE configuration 4 as ``examples/02_undulator_dcm_kb.py`` builds
+    it with ``BeamLine.place``: undulator (gNodes 64; 4e6 candidates
+    through the far-field integral a pass) -> Si(111) DCM -> elliptical
+    KB pair -> focus, 1e6 rays a pass, float32, 2 passes through
+    ``run_ray_tracing``: the pass time and the undulator ``shine``'s part
+    (CUDA events), the focal sizes (std of the rays above 1e-3 of the
+    peak) under 20 um in both planes, and how far the resampling's
+    float32 cumulative sum over the 4e6 candidates ends from 1.
+
+The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
+speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
+pass (phase 16's).
+
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
 behind ``ops.kirchhoff.GRAD_DST_BLOCK`` / ``GRAD_SRC_CHUNK``).
@@ -240,6 +275,17 @@ SX_FLOORS = {'slit': 0.999, 'm1': 0.999, 'm2': 0.999, 'wpg': 0.999,
              'pg': 0.7, 'm3': 0.6, 'es': 0.6, 'm4': 0.6, 'm5': 0.6,
              'focus': 0.55}
 SX_GOLDEN = 'tests/golden/ref_softimax.npz'
+
+#: xrt's speed test 1 (tools/torch_bench_analyzer.py): rays a step and
+#: steps a source, nothing cut
+AN_NRAYS, AN_REPEATS = 100_000, 96
+#: the DCM trace at the geometry of the golden (tests/test_trace_parity.py)
+DCM_E0, DCM_P = 9000.0, 30000.0
+DCM_GOLDEN = 'tests/golden/ref_trace_dcm.npz'
+DCM_CROSS_NRAYS = 200_000
+#: BASELINE configuration 4: rays a pass (4 candidates a ray through the
+#: undulator integral) and passes
+C4_NRAYS, C4_REPEATS = 1_000_000, 2
 
 
 class PhaseError(Exception):
@@ -1709,14 +1755,14 @@ def phase_trace_grad(timing):
     check(abs(g64 / fd - 1) < 0.1, f'trace gradient f64 {g64} FD {fd}')
 
 
-def softimax_tool():
-    """The SoftiMAX beamline module of tools/ (imported from the checkout
-    this script lies in)."""
+def port_tool(name):
+    """A module of tools/ (imported from the checkout this script lies
+    in)."""
+    import importlib
     import os
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), 'tools'))
-    import torch_bench_softimax
-    return torch_bench_softimax
+    return importlib.import_module(name)
 
 
 def overlap(a, b):
@@ -1735,7 +1781,7 @@ def phase_softimax(timing):
     import torch
     from xrt_tpu_torch import waves as W
     from xrt_tpu_torch.ops import kirchhoff as tk
-    bs = softimax_tool()
+    bs = port_tool('torch_bench_softimax')
     n, nscr = SX_NRAYS, SX_NSCR
     t0 = time.perf_counter()
     rc = bs.build_chain(nrays=n, n_scr=nscr, tiled=True,
@@ -1839,7 +1885,7 @@ def phase_softimax_cross():
     import numpy as np
     import torch
     from xrt_tpu_torch import waves as W
-    bs = softimax_tool()
+    bs = port_tool('torch_bench_softimax')
     # 1. the undulator field, float32 against float64 on the same samples
     el32 = bs.beamline(torch.float32, 'cuda')
     w32 = W.prepare_wave_on_aperture(el32['slitFE'], el32['src'], SX_NRAYS,
@@ -2050,6 +2096,514 @@ def adjoint_rows(timing):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the crystal slice: speed test 1, the DCM trace, BASELINE configuration 4
+# ---------------------------------------------------------------------------
+
+def step_split(fns):
+    """Device ms of each of *fns* called in turn (CUDA events) and their
+    results."""
+    import torch
+    ev = events(len(fns) + 1)
+    outs = []
+    ev[0].record()
+    for i, fn in enumerate(fns):
+        outs.append(fn(*outs[-1:]) if i else fn())
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(fns))], outs
+
+
+def search_alone(oe, beam):
+    """Device ms of the bracket and the Illinois search of *oe* on *beam*
+    (its frame as reflect takes it), and the number of Illinois
+    iterations."""
+    import torch
+    from xrt_tpu_torch.oes import base as oebase
+    from xrt_tpu_torch.transforms import global_to_virgin_local, rotate_beam
+    pitch, roll, yaw = oe._placement()[0:3]
+    lb = rotate_beam(global_to_virgin_local(beam, oe.center),
+                     rotationSequence=oe.rotationSequence, pitch=-pitch,
+                     roll=-roll, yaw=-yaw)
+    rays = (lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
+    evals = []      # both bracket ends, the iterations, two Newton steps
+
+    def counted_z(xx, yy):
+        evals.append(1)
+        return oe.local_z(xx, yy)
+    ev = events(2)
+    torch.cuda.synchronize()
+    ev[0].record()
+    oebase.find_intersection(counted_z, *oe._bracket(*rays), *rays,
+                             active=lb.state > 0)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), len(evals) - 4
+
+
+def profiled_device_ms(fn):
+    """The device time of the kernels *fn* launches, by torch.profiler (0
+    when it sees none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += getattr(e, 'self_device_time_total',
+                             getattr(e, 'self_cuda_time_total', 0.0))
+    return total / 1e3
+
+
+def phase_analyzer(timing):
+    """Phase 15: xrt's speed test 1 (tools/torch_bench_analyzer.py) with
+    nothing cut: 3 sources x 96 steps x 1e5 rays, float32."""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    tool = port_tool('torch_bench_analyzer')
+    nrays, reps = AN_NRAYS, AN_REPEATS
+    res = tool.run(nrays, reps, torch.float32, seed=15)
+    launches = res['launches']
+    print(f"phase 15 speed test 1: {res['rays']:.3g} rays (3 sources x "
+          f"{reps} x {nrays}), {res['seconds']:.3f} s = "
+          f"{res['rays_per_s']:.4e} rays/s; per source "
+          f"{', '.join(f'{t:.3f} s' for t in res['per_source'])}; "
+          f"accumulated flux {res['flux']:.6e}; histogram launches "
+          f"{launches}; xrt on an i7-7700K (context only): "
+          f"{tool.XRT_I7_1THREAD} s on 1 thread, {tool.XRT_I7_4PROC} s on "
+          f"4 processes", flush=True)
+    check(sum(launches.values()) == 3 * 3 * reps and all(
+        k.startswith('hist2d:k1:') for k in launches),
+        f'speed test 1: histogram launches {launches}')
+    check(math.isfinite(res['flux']) and res['flux'] > 0,
+          f"speed test 1: accumulated flux {res['flux']}")
+    # one step of each source split by CUDA events; the search alone
+    sources, analyzer, detector, _ = tool.build(nrays, torch.float32,
+                                                'cuda')
+    gen = torch.Generator('cuda').manual_seed(16)
+    splits = []
+    for src in sources:
+        ms, (beam, (loc, det), hs) = step_split([
+            lambda: src.shine(gen),
+            lambda b: tool.trace(analyzer, detector, b, gen),
+            lambda ld: tool.histograms(*ld)])
+        ms_r, _ = step_split([lambda: analyzer.reflect(beam, gen),
+                              lambda g: detector.expose(g[0])])
+        s_ms, iters = search_alone(analyzer, beam)
+        splits.append((ms[0], ms_r[0], ms_r[1], ms[2], s_ms, iters))
+    for i, (src_ms, refl, expo, hist, s_ms, it) in enumerate(splits):
+        step = src_ms + refl + expo + hist
+        print(f'phase 15 source {i} one step (CUDA events): source '
+              f'{src_ms:.2f} ms, reflect {refl:.2f} ms (bracket + search '
+              f'alone {s_ms:.2f} ms in {it} Illinois iterations), expose '
+              f'{expo:.2f} ms, three histograms {hist:.3f} ms '
+              f'({100 * hist / step:.2f}% of the step)', flush=True)
+    # the device's busy share of a step: the kernel time torch.profiler
+    # sees over one more step of source 0, against that step's wall time
+    # without the profiler
+    src = sources[0]
+
+    def one_step():
+        tool.histograms(*tool.trace(analyzer, detector, src.shine(gen),
+                                    gen))
+    busy = profiled_device_ms(one_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    print(f'phase 15 one step of source 0: wall {wall:.2f} ms, device busy '
+          + (f'{busy:.2f} ms by torch.profiler ({100 * busy / wall:.1f}%; '
+             f'idle {100 * (1 - busy / wall):.1f}%)' if busy else
+             'not measured (the profiler saw no device time)'), flush=True)
+    # the histogram kernel against its plain version on one step's rays
+    kargs = []
+    for (name, xf, yf, bins, xl, yl), b in zip(tool.HISTS,
+                                                (loc, loc, det)):
+        w = torch.where(b.state == 1, b.Jss + b.Jpp,
+                        torch.zeros_like(b.Jss))[:, None].contiguous()
+        args = (getattr(b, xf).contiguous(), getattr(b, yf).contiguous(),
+                w, bins, bins, xl, yl)
+        got = th.hist2d_kernel(*args)
+        ref = th.hist2d_plain(*args, sum_dtype=torch.float64)
+        rel, ab, same = hist_errors(got, ref)
+        print(f'phase 15 hist2d_kernel {bins} x {bins} ({name}): {nrays} '
+              f'rays, kernel vs plain float64 sums max rel {rel:.2e}, '
+              f'non-empty bins identical {same}', flush=True)
+        check(same and rel < 1e-5,
+              f'speed test 1 histogram {bins}: {rel:.3e}, bins {same}')
+        kargs.append(args)
+    timing['analyzer'] = dict(launches=launches, args=kargs,
+                              step_ms=[sum(s[:4]) for s in splits],
+                              hist_ms=[s[3] for s in splits])
+
+
+def dcm_trace_line(nrays, dtype):
+    """GeometricSource -> Si(111) DCM -> screen at the geometry of
+    tests/golden/ref_trace_dcm.npz: 30 m, fixed exit 20 mm, +-8 eV."""
+    import numpy as np
+    import os
+    from xrt_tpu_torch.materials import CrystalSi
+    from xrt_tpu_torch.oes import DCM
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                DCM_GOLDEN))
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.1, dz=0.05, dxprime=1e-5, dzprime=1e-5,
+        distE='flat', energies=(DCM_E0 - 8, DCM_E0 + 8),
+        polarization='horizontal', dtype=dtype, device='cuda')
+    dcm = DCM.create(center=(0, DCM_P, 0),
+                     material=CrystalSi.create(hkl=(1, 1, 1), dtype=dtype,
+                                               device='cuda'),
+                     bragg=float(gold['thetaB']), fixedOffset=20.0,
+                     limPhysX=(-50, 50), limPhysY=(-500, 500))
+    scr = Screen.create(center=(0, DCM_P + 1000.0, 20.0))
+    return src, dcm, scr, gold
+
+
+def dcm_sums(g):
+    """(rays, sum I, sum I E, sum I E^2) of the transmitted rays of a DCM's
+    exit beam, float64 sums on the device (no host read)."""
+    import torch
+    I = torch.where(g.state == 1, g.Jss + g.Jpp,
+                    torch.zeros_like(g.Jss)).double()
+    E = g.E.double()
+    return torch.stack([torch.full_like(I[0], g.E.shape[0]), I.sum(),
+                        (I * E).sum(), (I * E * E).sum()])
+
+
+def dcm_moments(sums):
+    """(flux per ray, weighted E mean, E spread) from ``dcm_sums`` of one
+    or more passes."""
+    import torch
+    n, flux, sE, sE2 = torch.stack(list(sums)).sum(0).tolist()
+    Em = sE / flux
+    return flux / n, Em, math.sqrt(max(sE2 / flux - Em * Em, 0.0))
+
+
+def dcm_plot(bins=128):
+    from xrt_tpu_torch.plotspec import XYCAxis, XYCPlot
+    return XYCPlot(beam='screen', xaxis=XYCAxis('x', 'mm', bins=bins),
+                   yaxis=XYCAxis('z', 'mm', bins=bins),
+                   caxis=XYCAxis('energy', 'eV', bins=bins,
+                                 limits=(DCM_E0 - 10, DCM_E0 + 10)))
+
+
+def phase_dcm(timing):
+    """Phase 16: the DCM trace at 1e7 rays a pass through
+    run_ray_tracing, against the golden."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    n, reps = TRACE_NRAYS, TRACE_REPEATS
+    src, dcm, scr, gold = dcm_trace_line(n, torch.float32)
+    entries, sums = [], []
+
+    def run_process(beamLine, rng):
+        torch.cuda.synchronize()
+        entries.append(time.perf_counter())
+        glo = dcm.double_reflect(src.shine(rng), rng)[0]
+        sums.append(dcm_sums(glo))
+        return {'screen': scr.expose(glo)}
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = torch.Generator('cuda').manual_seed(21)
+    th.LAUNCHES.clear()
+    pass_ms, cal_ms = [], []
+    for rep in range(4):        # a warm-up and 3 timed runs
+        plot = dcm_plot()
+        entries.clear()
+        sums.clear()
+        runner.run_ray_tracing(plot, repeats=reps, run_process=run_process,
+                               rng=rng)
+        torch.cuda.synchronize()
+        t = entries + [time.perf_counter()]
+        if rep:
+            cal_ms.append(1e3 * (t[1] - t[0]))
+            pass_ms.append(statistics.median(
+                1e3 * (b - a) for a, b in zip(t[1:-1], t[2:])))
+    launches = dict(th.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(pass_ms)
+    flux, Em, Es = dcm_moments(sums[1:])    # the passes of the last run
+    gf, gE, gs = (float(gold[k]) for k in ('flux_per_ray', 'E_mean',
+                                           'E_std'))
+    print(f'phase 16 DCM trace: {n} rays/pass, float32, {reps} repeats + '
+          f'calibration; calibration pass {statistics.median(cal_ms):.1f} '
+          f'ms; pass median of 3 runs {med:.1f} ms '
+          f'({", ".join(f"{v:.1f}" for v in pass_ms)}); '
+          f'{n / (med * 1e-3):.3e} rays/s; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB; launches of the 4 runs {launches}',
+          flush=True)
+    print(f'phase 16 DCM against ref_trace_dcm.npz ({reps} x {n} rays): '
+          f'flux per ray {flux:.6f} (golden {gf:.6f}, '
+          f'{abs(flux / gf - 1):.2e}; limit 2e-2), E mean {Em:.4f} eV '
+          f'({gE:.4f}, {abs(Em - gE):.4f}; limit 0.05), E std {Es:.4f} '
+          f'eV ({gs:.4f}, {abs(Es / gs - 1):.2e}; limit 3e-2); plot '
+          f'intensity {plot.intensity:.6e}, nRaysGood {plot.nRaysGood}',
+          flush=True)
+    check(abs(flux / gf - 1) < 0.02, f'DCM flux per ray {flux} vs {gf}')
+    check(abs(Em - gE) < 0.05, f'DCM E mean {Em} vs {gE}')
+    check(abs(Es / gs - 1) < 0.03, f'DCM E std {Es} vs {gs}')
+    check(launches == {f'hist_plot:{th.plot_route((128,) * 3)}': 4 * reps},
+          f'DCM trace: not one hist_plot launch per pass: {launches}')
+    # one pass split by CUDA events
+    ms, (beam, glo, img, hists) = step_split([
+        lambda: src.shine(rng), lambda b: dcm.double_reflect(b, rng)[0],
+        lambda g: scr.expose(g),
+        lambda i: runner.histogram_plot(plot, {'screen': i})])
+    s_ms, iters = search_alone(dcm.replace(pitch=dcm.pitch + dcm.braggAngle),
+                               beam)
+    print(f'phase 16 split of one pass (CUDA events): source {ms[0]:.1f} ms, '
+          f'double_reflect {ms[1]:.1f} ms (the first crystal\'s bracket + '
+          f'search alone {s_ms:.1f} ms in {iters} Illinois iterations), '
+          f'expose {ms[2]:.1f} ms, histograms {ms[3]:.2f} ms', flush=True)
+    # hist_plot against its plain version on this pass
+    x, y, cData, inten, fl, mask, _ = runner._plot_arrays(
+        plot, {'screen': img})
+    args = (x, y, cData, fl, inten, mask, (128, 128, 128),
+            tuple(tuple(a.limits) for a in (plot.xaxis, plot.yaxis,
+                                             plot.caxis)),
+            plot.colorFactor, plot.colorSaturation)
+    rel, same = plot_errors(th.hist_plot_kernel(*args),
+                            th.hist_plot_plain(*args,
+                                               sum_dtype=torch.float64))
+    print(f'phase 16 hist_plot on a DCM pass: eight histograms vs plain '
+          f'float64 sums max rel {rel:.2e}, bins identical {same}',
+          flush=True)
+    check(same and rel < 1e-5, f'DCM hist_plot: {rel:.3e}, bins {same}')
+    timing['dcm'] = dict(launches=launches, plot_args=args)
+
+    # float32 against float64 on the same 2e5 rays (float64 draws)
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        s_, d_, _, _ = dcm_trace_line(DCM_CROSS_NRAYS, dt)
+        g = d_.double_reflect(s_.shine(torch.Generator().manual_seed(5)))[0]
+        res[dt] = dcm_moments([dcm_sums(g)])
+    (f32, E32, s32), (f64, E64, s64) = res[torch.float32], \
+        res[torch.float64]
+    print(f'phase 16 DCM float32 vs float64, {DCM_CROSS_NRAYS} rays: flux '
+          f'per ray {f32:.6f} / {f64:.6f} ({abs(f32 / f64 - 1):.2e}), E '
+          f'mean {E32:.4f} / {E64:.4f} eV ({abs(E32 - E64):.2e}), E std '
+          f'{s32:.4f} / {s64:.4f} ({abs(s32 / s64 - 1):.2e})', flush=True)
+    check(abs(f32 / f64 - 1) < 2e-3 and abs(E32 - E64) < 0.01 and
+          abs(s32 / s64 - 1) < 2e-3, 'DCM float32 vs float64')
+
+
+def config4_line(nrays, dtype):
+    """BASELINE configuration 4 as examples/02_undulator_dcm_kb.py builds
+    it with BeamLine.place (the undulator at gNodes 64)."""
+    from xrt_tpu_torch.beamline import BeamLine
+    from xrt_tpu_torch.materials import CrystalSi, Material
+    from xrt_tpu_torch.oes import DCM, EllipticalMirrorParam
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import Undulator
+    dk = dict(dtype=dtype, device='cuda')
+    E0, pitch = DCM_E0, 3.5e-3
+    bl = BeamLine(alignE=E0)
+    bl.add('source', Undulator.create(
+        nrays=nrays, eE=3.0, eI=0.5, period=18.0, n=111, targetE=(E0, 7),
+        eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0, betaZ=2.0,
+        eMin=E0 - 40, eMax=E0 + 40, xPrimeMax=0.02, zPrimeMax=0.02,
+        gNodes=64, **dk))
+    bl.place('dcm', DCM, distance=30000.0,
+             material=CrystalSi.create(hkl=(1, 1, 1), **dk), alignE=E0,
+             fixedOffset=20.0, limPhysX=(-50, 50), limPhysY=(-500, 500))
+    rh = Material.create('Rh', rho=12.41, **dk)
+    bl.place('vfm', EllipticalMirrorParam, distance=3000.0, pitch=pitch,
+             p=33000.0, q=1400.0, isCylindrical=True, material=rh,
+             limPhysX=(-10, 10), limPhysY=(-150, 150), deflection='up')
+    bl.place('hfm', EllipticalMirrorParam, distance=400.0, pitch=pitch,
+             p=33400.0, q=1000.0, positionRoll=-math.pi / 2,
+             isCylindrical=True, material=rh, limPhysX=(-10, 10),
+             limPhysY=(-150, 150), deflection='left')
+    bl.add('focus', Screen.create(center=tuple(bl.axis_point +
+                                              bl.axis_dir * 1000.0)))
+    return bl
+
+
+def phase_config4(timing):
+    """Phase 17: BASELINE configuration 4 (undulator -> DCM -> KB ->
+    focus) at 1e6 rays a pass through run_ray_tracing."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.plotspec import XYCAxis, XYCPlot
+    n, reps = C4_NRAYS, C4_REPEATS
+    bl = config4_line(n, torch.float32)
+    und = bl['source']
+    entries, shine_ev, sizes = [], [], []
+
+    def masked_std(v, m):
+        v, m = v.double(), m.double()
+        cnt = m.sum()
+        mean = (v * m).sum() / cnt
+        return torch.sqrt(((v - mean) ** 2 * m).sum() / (cnt - 1))
+
+    def run_process(beamLine, rng):
+        torch.cuda.synchronize()
+        entries.append(time.perf_counter())
+        ev = events(2)
+        ev[0].record()
+        beam = und.shine(rng)
+        ev[1].record()
+        shine_ev.append(ev)
+        mono = bl['dcm'].double_reflect(beam, rng)[0]
+        b2 = bl['hfm'].reflect(bl['vfm'].reflect(mono, rng)[0], rng)[0]
+        img = bl['focus'].expose(b2)
+        I = torch.where(img.state == 1, img.Jss + img.Jpp,
+                        torch.zeros_like(img.Jss))
+        good = I > 1e-3 * I.max()
+        sizes.append(torch.stack([good.sum().double(),
+                                  masked_std(img.x, good),
+                                  masked_std(img.z, good)]))
+        return {'focus': img}
+
+    def plot():
+        return XYCPlot(beam='focus',
+                       xaxis=XYCAxis('x', 'um', limits=(-20, 20),
+                                     factor=1e3),
+                       yaxis=XYCAxis('z', 'um', limits=(-20, 20),
+                                     factor=1e3),
+                       caxis=XYCAxis('energy', 'eV',
+                                     limits=(DCM_E0 - 3, DCM_E0 + 3)))
+    rng = torch.Generator('cuda').manual_seed(17)
+    runner.run_ray_tracing(plot(), repeats=1, run_process=run_process,
+                           rng=rng)         # warm-up
+    torch.cuda.synchronize()
+    entries.clear()
+    shine_ev.clear()
+    sizes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    th.LAUNCHES.clear()
+    p = plot()
+    runner.run_ray_tracing(p, repeats=reps, run_process=run_process,
+                           rng=rng)
+    torch.cuda.synchronize()
+    t = entries + [time.perf_counter()]
+    pass_ms = [1e3 * (b - a) for a, b in zip(t[:-1], t[1:])]
+    shine_ms = [e[0].elapsed_time(e[1]) for e in shine_ev]
+    launches = dict(th.LAUNCHES)
+    sz = torch.stack(sizes).tolist()
+    print(f'phase 17 configuration 4: {n} rays/pass ({n * und.oversample} '
+          f'undulator candidates, gNodes 64), float32, {reps} passes; '
+          f'pass {", ".join(f"{v:.1f}" for v in pass_ms)} ms, of which the '
+          f'undulator shine {", ".join(f"{v:.1f}" for v in shine_ms)} ms; '
+          f'{n / (statistics.median(pass_ms) * 1e-3):.3e} rays/s; peak '
+          f'device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}'
+          f' GiB; launches {launches}', flush=True)
+    for i, (ng, sx, sz_) in enumerate(sz):
+        print(f'phase 17 pass {i} focus: {int(ng)} rays above 1e-3 of the '
+              f'peak, size (std) x {1e3 * sx:.3f} um, z {1e3 * sz_:.3f} um '
+              f'(limit 20 um)', flush=True)
+        check(ng > 100 and sx < 0.02 and sz_ < 0.02,
+              f'configuration 4 focus: {ng} rays, {sx} x {sz_} mm')
+    print(f'phase 17 plot: intensity {p.intensity:.6e}, flux {p.flux:.6e} '
+          f'ph/s, FWHM x {p.dx:.3f} um, z {p.dy:.3f} um, nRaysGood '
+          f'{p.nRaysGood}', flush=True)
+    check(math.isfinite(p.intensity) and p.intensity > 0,
+          'configuration 4: no intensity')
+    check(launches == {f'hist_plot:{th.plot_route((p.xaxis.bins,) * 3)}':
+                       reps}, f'configuration 4 launches {launches}')
+    # the resampling's cumulative sum over the candidates, float32
+    g = torch.Generator('cuda').manual_seed(18)
+    M = n * und.oversample
+    u = [torch.rand(M, generator=g, device='cuda') for _ in range(3)]
+    rE = u[0] * (und.eMax - und.eMin) + und.eMin
+    rT = u[1] * (und.Theta_max - und.Theta_min) + und.Theta_min
+    rP = u[2] * (und.Psi_max - und.Psi_min) + und.Psi_min
+    I = und._I_map_blocks(g, rE, rT, rP)[0]
+    pc = torch.cumsum(I / I.sum(), dim=0)
+    pc64 = torch.cumsum((I / I.sum()).double(), dim=0)
+    print(f'phase 17 resampling: cumulative sum over {M} candidates in '
+          f'float32 ends at 1 {float(pc[-1]) - 1:+.3e} (float64 sum of the '
+          f'same terms {float(pc64[-1]) - 1:+.3e}); largest gap to the '
+          f'float64 sum {float((pc.double() - pc64).abs().max()):.3e}',
+          flush=True)
+    timing['config4'] = dict(pass_ms=pass_ms, shine_ms=shine_ms)
+
+
+def crystal_hist_rows(timing):
+    """The histogram kernel's rows on the crystal slice's paths:
+    ``hist2d_kernel`` at speed test 1's shapes (phase 15's launches) and
+    ``hist_plot`` on a DCM pass (phase 16's launches)."""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    an = timing['analyzer']
+    rows = []
+    for name, idx in (('hist2d:speedtest:400', 0),
+                      ('hist2d:speedtest:128', 1)):
+        args = an['args'][idx]
+        bins = args[3]
+        route = th.hist_route(bins, bins, 1)
+        kernel = lambda: th.hist2d_kernel(*args)
+        kernel()
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(kernel, 20)[0] for _ in range(3))
+        got = kernel()
+        plain_ms, _ = cuda_ms(lambda: th.hist2d_plain(*args))
+        ref = th.hist2d_plain(*args, sum_dtype=torch.float64)
+        rel, ab, _ = hist_errors(got, ref)
+        fx, inx = th._bin_index(args[0], args[5], bins)
+        fy, iny = th._bin_index(args[1], args[6], bins)
+        inside = inx & iny
+        flat = torch.where(inside, fy * bins + fx,
+                           torch.zeros_like(fx)).long()
+        w = torch.where(inside[:, None], args[2], torch.zeros_like(args[2]))
+        library = lambda: torch.zeros((bins * bins, 1), device='cuda'
+                                      ).index_add_(0, flat, w)
+        library()
+        lib_ms = statistics.median(cuda_ms(library, 20)[0] for _ in range(3))
+        n = args[0].shape[0]
+        bms = 1e3 * (4.0 * n * 3 + 4.0 * bins * bins) / PEAK_BYTES
+        launches = int(an['launches'].get(f'hist2d:k1:{route}', 0))
+        share = 100 * statistics.mean(h / s for h, s in zip(
+            an['hist_ms'], an['step_ms']))
+        print(f'phase 5 {name}: {n} rays into {bins} x {bins} ({route}), '
+              f'kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ '
+              f'{lib_ms:.4f} ms, bound {bms:.4f} ms (bytes), launches '
+              f'{launches}; the three histograms are {share:.2f}% of a '
+              f'speed-test step', flush=True)
+        rows.append(dict(name=name, route='cuda', source=SOURCES['hist2d'],
+                         replaces=REPLACES['hist2d'], launches=launches,
+                         max_abs_err=ab, max_rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
+                         library_ms=lib_ms))
+        check(launches > 0, f'{name} was not launched on its path')
+    args = timing['dcm']['plot_args']
+    route = th.plot_route((128,) * 3)
+    kernel = lambda: th.hist_plot_kernel(*args)
+    kernel()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(kernel, 5)[0] for _ in range(3))
+    got = kernel()
+    plain_ms, _ = cuda_ms(lambda: th.hist_plot_plain(*args))
+    ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+    rel, _ = plot_errors(got, ref)
+    ab = max(float((got[k].double() - ref[k]).abs().max())
+             for k in th.PLOT_HISTS)
+    n = args[0].shape[0]
+    bms = 1e3 * (21.0 * n + 4.0 * (4 * (3 * 128 + 128 * 128) + 1)) / \
+        PEAK_BYTES
+    launches = int(timing['dcm']['launches'].get(f'hist_plot:{route}', 0))
+    print(f'phase 5 hist_plot:dcm: {n} rays of a DCM pass into eight '
+          f'histograms ({route}), kernel {ms:.4f} ms, plain {plain_ms:.2f} '
+          f'ms, bound {bms:.4f} ms (bytes), launches {launches}',
+          flush=True)
+    rows.append(dict(name='hist_plot:dcm', route='cuda',
+                     source=SOURCES['hist_plot'],
+                     replaces=REPLACES['hist_plot'], launches=launches,
+                     max_abs_err=ab, max_rel_err=rel, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
+                     library_ms=None))
+    check(launches > 0, 'hist_plot:dcm was not launched on its path')
+    return rows
+
+
 def main():
     try:
         import torch
@@ -2088,8 +2642,12 @@ def main():
         phase_trace_grad(timing)
         phase_softimax(timing)
         phase_softimax_cross()
+        phase_analyzer(timing)
+        phase_dcm(timing)
+        phase_config4(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
-            adjoint_rows(timing) + timing['softimax_rows']
+            crystal_hist_rows(timing) + adjoint_rows(timing) + \
+            timing['softimax_rows']
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -3,7 +3,8 @@
 * Importing ``xrt_tpu_torch`` (every module) adds no ``jax``, ``flax`` or
   ``xrt_tpu`` module to ``sys.modules``, checked in a fresh interpreter.
 * No import statement under ``xrt_tpu_torch/``, in ``chip_smoke.py`` or in
-  ``tools/torch_bench_softimax.py`` names ``jax``, ``flax`` or ``xrt_tpu``
+  the port's tools (``tools/torch_bench_softimax.py``,
+  ``tools/torch_bench_analyzer.py``) names ``jax``, ``flax`` or ``xrt_tpu``
   (other than ``xrt_tpu_torch``),
   and no text there names ``jax`` or ``flax`` at all.  ``xrt_tpu`` may be
   named in comments and docstrings only (the kernels cite the TPU kernels
@@ -25,6 +26,7 @@ import xrt_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'xrt_tpu')
+PORT_TOOLS = ('torch_bench_softimax.py', 'torch_bench_analyzer.py')
 
 
 def _forbidden(mod):
@@ -39,7 +41,8 @@ def _port_files():
             if f.endswith('.py'):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
-    yield os.path.join(ROOT, 'tools', 'torch_bench_softimax.py')
+    for tool in PORT_TOOLS:
+        yield os.path.join(ROOT, 'tools', tool)
 
 
 def test_import_adds_no_jax_or_reference_module():
@@ -160,10 +163,19 @@ def test_the_slice_exports_its_sources_and_optics():
             'EllipticalMirror'} <= set(oes.__all__)
     assert 'Undulator' in sources.__all__
     assert oes.EllipticalMirror is oes.EllipticalMirrorParam
-    # the SoftiMAX tool reads its golden samples from tests/golden only
-    with open(os.path.join(ROOT, 'tools', 'torch_bench_softimax.py')) as f:
-        text = f.read()
-    assert not re.search(r'xrt_tpu(?!_torch)', text)
+    # the crystal slice: crystals, monochromators, analyzers, BeamLine
+    from xrt_tpu_torch import beamline, materials
+    assert {'DCM', 'DCMwithSagittalFocusing', 'DicedJohanssonToroid',
+            'JohannCylinder', 'GeneralBraggToroid'} <= set(oes.__all__)
+    assert {'CrystalSi', 'CrystalDiamond', 'CrystalFromCell'} <= \
+        set(materials.__all__)
+    assert hasattr(beamline.BeamLine, 'place')
+    # the port's tools name no path into the reference package (the
+    # SoftiMAX tool reads its golden samples from tests/golden only)
+    for tool in PORT_TOOLS:
+        with open(os.path.join(ROOT, 'tools', tool)) as f:
+            text = f.read()
+        assert not re.search(r'xrt_tpu(?!_torch)', text), tool
 
 
 def test_data_tables_are_byte_identical_copies():

@@ -243,8 +243,13 @@ def test_unported_undulator_options_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP A8'):
         Undulator.create(**dict(GOLDEN_UND, gNodes=None))
     und = Undulator.create(**GOLDEN_UND)
-    for call in (und.shine, und.power_vs_K, und.tuning_curves):
+    for call in (und.power_vs_K, und.tuning_curves):
         with pytest.raises(NotImplementedError, match='ROADMAP A'):
             call()
+    # the ray-mode shine is ported: it runs on the card unless the source
+    # was made for the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA'):
+            und.shine()
     with pytest.raises(NotImplementedError, match='ROADMAP A9'):
         und.intensities_on_mesh()

@@ -228,5 +228,11 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
         chain.build(mesh=object(), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ToroidMirror.create(gratingDensity=[1, 300.0])
+    # the second crystal of a DCM (is2ndXtal) is ported; a figure error and
+    # the physics of a grating's material are not
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tor.reflect(s0, is2ndXtal=True)
+        ToroidMirror.create(figure_error=object())
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tor.replace(material=Material.create(
+            'Au', rho=19.3, kind='plate', dtype=torch.float64,
+            device='cpu')).reflect(s0)

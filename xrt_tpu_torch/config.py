@@ -69,6 +69,12 @@ def number(v):
     return v if isinstance(v, torch.Tensor) else float(v)
 
 
+def scalar(v, dtype, device) -> torch.Tensor:
+    """The number *v* as a 0-dim tensor, made by a fill on *device*: a copy
+    from the host (``torch.as_tensor``) waits for the device's stream."""
+    return torch.full((), float(v), dtype=dtype, device=device)
+
+
 def host_float(v) -> float:
     """The detached Python float of a parameter, for the host geometry."""
     return float(v.detach()) if isinstance(v, torch.Tensor) else float(v)
@@ -87,6 +93,20 @@ class Replaceable:
                     f'{type(self).__name__} has no parameter {name!r}')
             setattr(new, name, value)
         return new
+
+
+def parse_energy(value):
+    """'8000 eV' / '8 keV' / '1 MeV' -> eV as a float, else None: an
+    angle-like parameter may carry an alignment energy instead
+    (bragg='8000 eV')."""
+    if not isinstance(value, str):
+        return None
+    import re
+    m = re.match(r'^([-+0-9.eE]+)\s*(ev|kev|mev)$', value.strip().lower())
+    if m is None:
+        return None
+    return float(m.group(1)) * {'ev': 1.0, 'kev': 1e3,
+                                'mev': 1e6}[m.group(2)]
 
 
 def auto_units_angle(angle, defaultFactor=1.0):

@@ -1,5 +1,6 @@
-"""Atomic data tables: f1/f2 vs E (Henke / Chantler / Brennan-Cowan) and
-atomic masses.
+"""Atomic data tables: scattering factors f0 (the Waasmaier-Kirfel
+parameterization of XOP's ``f0_xop.dat``), f1/f2 vs E (Henke / Chantler /
+Brennan-Cowan) and atomic masses.
 
 The tables ship with this package, in its ``data/`` directory
 (``Henke.npz``, ``Chantler.npz``, ``BrCo.npz``, ``AtomicData.dat`` and
@@ -23,6 +24,22 @@ ELEMENTS_LIST = (
     'Nd', 'Pm', 'Sm', 'Eu', 'Gd', 'Tb', 'Dy', 'Ho', 'Er', 'Tm', 'Yb', 'Lu',
     'Hf', 'Ta', 'W', 'Re', 'Os', 'Ir', 'Pt', 'Au', 'Hg', 'Tl', 'Pb', 'Bi',
     'Po', 'At', 'Rn', 'Fr', 'Ra', 'Ac', 'Th', 'Pa', 'U')
+
+
+@functools.lru_cache(maxsize=None)
+def _f0_table():
+    """{symbol: [a1..a5, c, b1..b5]} from ``f0_xop.dat``."""
+    f0data = {}
+    symbol = None
+    with open(os.path.join(DATA_DIR, 'f0_xop.dat')) as f:
+        it = iter(f)
+        for line in it:
+            if line.startswith('#S'):
+                symbol = line.split()[-1].strip()
+            elif line.startswith('#UP') and symbol is not None:
+                f0data[symbol] = [float(v) for v in next(it).split()]
+                symbol = None
+    return f0data
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,6 +74,12 @@ def element_name(elem) -> str:
 
 def atomic_mass(elem) -> float:
     return _atomic_mass_table()[element_z(elem)]
+
+
+def f0_coefficients(elem) -> np.ndarray:
+    """[a1..a5, c, b1..b5] of the element's Waasmaier-Kirfel f0
+    parameterization."""
+    return np.asarray(_f0_table()[element_name(elem)])
 
 
 def f1f2_arrays(elem, table='Chantler total'):

@@ -3,9 +3,11 @@ amplitudes.
 
 Port of ``Material`` from the reference package's
 ``materials/material.py`` for the mirror kinds ('mirror', 'thin mirror',
-'grating'), whose Fresnel reflectivity the wave chain's mirrors need.
-The transmitting kinds, tabulated refractive-index files and
-grating-efficiency tables come with later slices (ROADMAP A8).
+'grating'), whose Fresnel reflectivity the mirrors need, and as the base
+of the crystals (``materials/crystal.py``: kind 'crystal', which needs the
+refractive index and the absorption coefficient).  The transmitting kinds,
+tabulated refractive-index files and grating-efficiency tables come with
+later slices (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -76,6 +78,10 @@ class Material:
             xf = xf + (elem.Z + elem.get_f1f2(E)) * xi
         return 1 - 1e-24 * AVOGADRO * R0 / PI2 * (CH / E) ** 2 * \
             self.rho * xf / self.mass  # 1e-24 = A^3/cm^3
+
+    def get_absorption_coefficient(self, E):
+        """Linear absorption coefficient mu = 2 Im(n) k, 1/cm."""
+        return torch.abs(self.get_refractive_index(E).imag) * E / CHBAR * 2e8
 
     def get_amplitude(self, E, beamInDotNormal, fromVacuum=True):
         """Fresnel amplitude reflectivity for s and p: (rs, rp,

@@ -1,6 +1,11 @@
-"""Optical elements: the OE base, the stock mirrors, the blazed grating and
-the parametric elliptical mirror."""
+"""Optical elements: the OE base, the stock mirrors, the blazed grating,
+the parametric elliptical mirror, the double-crystal monochromators and the
+bent-crystal analyzers."""
 from .base import OE, find_intersection, find_intersection_dz
+from .bragg import (DicedJohannToroid, DicedJohanssonToroid, DicedOE,
+                    GeneralBraggToroid, JohannCylinder, JohannToroid,
+                    JohanssonCylinder, JohanssonToroid)
+from .dcm import DCM, DCMOnTripodWithOneXStage, DCMwithSagittalFocusing
 from .gratings import BlazedGrating
 from .mirrors import (BentFlatMirror, ConicalMirror, CylindricalMirror,
                       FlatMirror, SimpleVCM, SimpleVFM, SphericalMirror,
@@ -12,4 +17,8 @@ __all__ = ['OE', 'find_intersection', 'find_intersection_dz', 'FlatMirror',
            'BentFlatMirror', 'SimpleVCM', 'VCM', 'SphericalMirror',
            'ToroidMirror', 'SimpleVFM', 'VFM', 'CylindricalMirror',
            'ConicalMirror', 'rmer_from_coddington', 'rsag_from_coddington',
-           'BlazedGrating', 'EllipticalMirrorParam', 'EllipticalMirror']
+           'BlazedGrating', 'EllipticalMirrorParam', 'EllipticalMirror',
+           'DCM', 'DCMwithSagittalFocusing', 'DCMOnTripodWithOneXStage',
+           'JohannCylinder', 'JohanssonCylinder', 'JohannToroid',
+           'JohanssonToroid', 'GeneralBraggToroid', 'DicedOE',
+           'DicedJohannToroid', 'DicedJohanssonToroid']

@@ -1,14 +1,18 @@
 """Optical element base: placement, ray-surface intersection, frames,
 classification and the reflection physics at the surface.
 
-Port of the reference package's ``oes/base.py`` for the mirror kinds:
-``OE.create``, the local/global frames, ``local_z``/``local_n``,
-``rays_good``, the bracketed intersection search
+Port of the reference package's ``oes/base.py``: ``OE.create`` (with a
+crystal's asymmetry angle ``alpha`` and ``bragg`` given as an angle, an
+alignment energy or 'auto'), the local/global frames, ``local_z``/
+``local_n``, ``rays_good``, the bracketed intersection search
 (``find_intersection``, ``find_intersection_dz``, ``OE._bracket``),
 ``reflect`` (with the search, or with ``noIntersectionSearch=True`` for
-the wave hops, which reflect at the exact receiving samples) and
-``_interact``.  Rays are never filtered: the ``state`` mask selects which
-rays change.
+the wave hops, which reflect at the exact receiving samples), the element
+offsets and the second crystal of a DCM (``is2ndXtal``), and ``_interact``
+for the mirror kinds and for crystals: Bragg and Laue, symmetric or
+asymmetric through the crystal's grating vector (``_grating_deflection``),
+mosaic (``_mosaic_normal``), with the two-beam amplitudes.  Rays are never
+filtered: the ``state`` mask selects which rays change.
 
 The search is a vectorized Illinois (modified regula falsi) iteration on
 all rays in lockstep with a convergence mask, then two Newton steps.  The
@@ -24,21 +28,26 @@ Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
 coordinate and classified, reflected and reported in (s, phi, r); an OE
 with ``analytic_intersect`` (the blazed grating) is intersected by it
-instead of the search.  The crystal, grating and refractive physics,
-element offsets and the second crystal of a DCM come with later slices
-(ROADMAP A8) and raise ``NotImplementedError`` here.
+instead of the search.  The grating, refractive, multilayer and powder
+physics, figure errors, volumetric diffraction and bent-crystal
+(Takagi-Taupin) amplitudes come with ROADMAP A8 and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from .. import config
 from ..beam import Beam, rotate_coherency_matrix
-from ..physconsts import CHBAR
-from ..transforms import (global_to_virgin_local, rotate_beam, rotate_y,
+from ..ops.dd import sqrt_rn
+from ..physconsts import CH, CHBAR
+from ..sources.geometric import _draw
+from ..transforms import (cos, global_to_virgin_local, rotate_beam, rotate_x,
+                          rotate_y, sin,
                           virgin_local_to_global)
 
 
@@ -160,6 +169,44 @@ def _fvec(v):
     return None if v is None else tuple(float(c) for c in v)
 
 
+def _rng(generator, like):
+    """*generator*, or a generator seeded with 0 on *like*'s device."""
+    if generator is None:
+        return torch.Generator(like.device).manual_seed(0)
+    return generator
+
+
+def _mosaic_normal(generator, mat, oeNormal, E, draws=None):
+    """Crystallite normals of a mosaic crystal: the nominal Bragg-plane
+    normal tilted by a normal draw of sigma ``mat.mosaicity`` about a
+    uniformly drawn azimuth.  *draws*, (standard normals, uniforms in
+    [0, 1)), replaces the draws from *generator*."""
+    if draws is None:
+        g = _rng(generator, E)
+        draws = (_draw(torch.randn, g, E.shape[0], E.dtype, E.device),
+                 _draw(torch.rand, g, E.shape[0], E.dtype, E.device))
+    dtheta = mat.mosaicity * draws[0]
+    phi = 2 * math.pi * draws[1]
+    nx, ny, nz = oeNormal
+    # an orthonormal basis (u, v) perpendicular to n
+    side = torch.abs(nz) < 0.9
+    zero = torch.zeros_like(nx)
+    ux = torch.where(side, -ny, zero)
+    uy = torch.where(side, nx, nz)
+    uz = torch.where(side, zero, -ny)
+    un = sqrt_rn(ux ** 2 + uy ** 2 + uz ** 2)
+    un = torch.where(un == 0, torch.ones_like(un), un)
+    ux, uy, uz = ux / un, uy / un, uz / un
+    vx = ny * uz - nz * uy
+    vy = nz * ux - nx * uz
+    vz = nx * uy - ny * ux
+    st, ct = torch.sin(dtheta), torch.cos(dtheta)
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    return (nx * ct + (ux * cp + vx * sp) * st,
+            ny * ct + (uy * cp + vy * sp) * st,
+            nz * ct + (uz * cp + vz * sp) * st)
+
+
 class OE(config.Replaceable):
     """A general optical element.  Subclasses define the surface through
     ``local_z``/``local_n``.  Limits are Python floats.  The centre, the
@@ -167,15 +214,18 @@ class OE(config.Replaceable):
     tensors that were passed in (to ``create``, the constructor or
     ``replace``): a gradient then flows to them through ``reflect``.  The
     host geometry of the wave samplers reads their detached values.
-    Material tables are tensors on the material's device."""
+    Material tables are tensors on the material's device.  *alpha* is a
+    crystal's asymmetry angle: the Bragg planes are turned by it about x,
+    and ``local_n`` gives the Bragg-plane normal and the surface normal as
+    six components."""
 
     isParametric = False
 
     def __init__(self, name='', center=(0, 0, 0), pitch=0.0, roll=0.0,
                  yaw=0.0, positionRoll=0.0, bragg_=None, extraPitch=None,
                  extraRoll=None, extraYaw=None, limPhysX=None,
-                 limPhysY=None, limOptX=None, limOptY=None, material=None,
-                 shape='rect', rotationSequence='RzRyRx',
+                 limPhysY=None, limOptX=None, limOptY=None, alpha=None,
+                 material=None, shape='rect', rotationSequence='RzRyRx',
                  extraRotationSequence='RzRyRx', order=1, curSurface=0,
                  overEdge='ymax', auto_material_kind='mirror'):
         self.name = name
@@ -187,6 +237,7 @@ class OE(config.Replaceable):
             extraPitch, extraRoll, extraYaw
         self.limPhysX, self.limPhysY = limPhysX, limPhysY
         self.limOptX, self.limOptY = limOptX, limOptY
+        self.alpha = alpha
         self.material = material
         self.shape = shape
         self.rotationSequence = rotationSequence
@@ -205,18 +256,35 @@ class OE(config.Replaceable):
                rotationSequence='RzRyRx', extraRotationSequence='RzRyRx',
                order=1, curSurface=0, overEdge='ymax',
                gratingDensity=None, **kwargs):
-        if figure_error is not None or gratingDensity is not None or \
-                alpha is not None:
+        """The reference's constructor arguments.  *bragg* adds to the
+        pitch: an angle, or an alignment energy ('8000 eV') whose Bragg
+        angle (less the refraction correction) the material gives, in the
+        material's dtype; 'auto' leaves it out."""
+        if figure_error is not None or gratingDensity is not None:
             raise NotImplementedError(
-                'figure errors, grating densities and crystal asymmetry '
-                'are not ported yet (ROADMAP A5, A8)')
+                'figure errors and grating densities are not ported yet '
+                '(ROADMAP A8)')
         if isinstance(bragg, str):
-            raise NotImplementedError('bragg given as an energy or '
-                                      "'auto' needs crystals (ROADMAP A8)")
+            E_al = config.parse_energy(bragg)
+            if E_al is not None:
+                if material is None:
+                    raise ValueError(
+                        f'bragg={bragg!r} needs a material to resolve '
+                        'the Bragg angle')
+                bragg = float(material.get_Bragg_angle(E_al) -
+                              material.get_dtheta(E_al))
+            elif 'auto' in bragg.lower():
+                bragg = None
 
         def ang(v):
             v = config.auto_units_angle(v)
             return None if v is None else config.number(v)
+        if order is not None and not isinstance(order, (int, float, str)):
+            # several diffraction orders: rays are shared among them at
+            # random
+            order = tuple(float(o) for o in np.ravel(order))
+            if len(order) == 1:
+                order = order[0]
         hasExtra = any(isinstance(v, torch.Tensor) or v
                        for v in (extraPitch, extraRoll, extraYaw))
         return cls(name=name, center=center, pitch=ang(pitch),
@@ -227,7 +295,7 @@ class OE(config.Replaceable):
                    extraYaw=ang(extraYaw) if hasExtra else None,
                    limPhysX=_fvec(limPhysX), limPhysY=_fvec(limPhysY),
                    limOptX=_fvec(limOptX), limOptY=_fvec(limOptY),
-                   material=material, shape=shape,
+                   alpha=ang(alpha), material=material, shape=shape,
                    rotationSequence=rotationSequence,
                    extraRotationSequence=extraRotationSequence, order=order,
                    curSurface=curSurface, overEdge=overEdge, **kwargs)
@@ -238,9 +306,14 @@ class OE(config.Replaceable):
         return torch.zeros_like(x)
 
     def local_n(self, x, y):
-        """Surface normal [nx, ny, nz]; (0, 0, 1) by default."""
+        """Surface normal [nx, ny, nz]; (0, 0, 1) by default.  With an
+        asymmetry angle *alpha*: [Bragg-plane normal, surface normal]."""
         zero = torch.zeros_like(x)
-        return [zero, zero, torch.ones_like(x)]
+        one = torch.ones_like(x)
+        if self.alpha is not None:
+            bA, cA = rotate_x(zero, one, cos(self.alpha), -sin(self.alpha))
+            return [zero, bA, cA, zero, zero, one]
+        return [zero, zero, one]
 
     def _placement(self, is2ndXtal=False):
         pitch = self.pitch
@@ -306,9 +379,15 @@ class OE(config.Replaceable):
         return dz_fn
 
     # ---- bracketing -----------------------------------------------------
-    def _bracket(self, x, y, z, a, b, c):
+    def _bracket(self, x, y, z, a, b, c, limPhysX=None, limPhysY=None):
         """(tMin, tMax) of the intersection search for each ray: where it
-        enters and leaves the element's box along its dominant direction."""
+        enters and leaves the element's box (by default its physical
+        limits) along its dominant direction."""
+        if limPhysX is None:
+            limPhysX = self.limPhysX
+        if limPhysY is None:
+            limPhysY = self.limPhysY
+
         def set_t(xyz, abc, lim, defSize):
             limMin = -defSize if lim is None else max(lim[0], -defSize)
             limMax = defSize if lim is None else min(lim[1], defSize)
@@ -320,8 +399,8 @@ class OE(config.Replaceable):
             return (torch.where(pos, tLo, tHi) - config.DT_MARGIN,
                     torch.where(pos, tHi, tLo) + config.DT_MARGIN)
 
-        tx1, tx2 = set_t(x, a, self.limPhysX, config.MAX_HALF_SIZE_OF_OE)
-        ty1, ty2 = set_t(y, b, self.limPhysY, config.MAX_HALF_SIZE_OF_OE)
+        tx1, tx2 = set_t(x, a, limPhysX, config.MAX_HALF_SIZE_OF_OE)
+        ty1, ty2 = set_t(y, b, limPhysY, config.MAX_HALF_SIZE_OF_OE)
         tz1, tz2 = set_t(z, c, None, config.MAX_DEPTH_OF_OE)
         absa, absb, absc = torch.abs(a), torch.abs(b), torch.abs(c)
         useX = (absa >= absb) & (absa >= absc)
@@ -336,15 +415,35 @@ class OE(config.Replaceable):
     # ---- frames ---------------------------------------------------------
     def local_to_global(self, lb: Beam, is2ndXtal=False) -> Beam:
         """True-local beam -> global frame, rotating the polarization back
-        by the local roll."""
-        pitch, roll, yaw = self._placement()[0:3]
+        by the local roll.  A DCM's crystals (*is2ndXtal* for the second)
+        are placed by its Bragg angle, rolls and offsets."""
+        dx = dy = dz = None
+        dcm = hasattr(self, 'braggAngle')
+        if is2ndXtal and dcm:
+            pitch = -self.pitch - self.braggAngle + self.cryst2pitch + \
+                self.cryst2finePitch
+            roll = self.roll + self.cryst2roll + self.positionRoll
+            yaw = -self.yaw
+            dx, dy, dz = -self.dxCryst, self.cryst2longTransl, \
+                -self.cryst2perpTransl
+        elif dcm:
+            pitch = self.pitch + self.braggAngle
+            roll = self.roll + self.positionRoll + self.cryst1roll
+            yaw = self.yaw
+            dx = self.dxCryst
+        else:
+            pitch, roll, yaw = self._placement()[0:3]
+        lb = _shift(lb, dx, dy, dz, 1)
         if self.extraPitch is not None:
+            sign = -1.0 if is2ndXtal else 1.0
             lb = rotate_beam(
                 lb, rotationSequence='-' + self.extraRotationSequence,
-                pitch=self.extraPitch, roll=self.extraRoll,
-                yaw=self.extraYaw)
+                pitch=sign * self.extraPitch, roll=self.extraRoll,
+                yaw=sign * self.extraYaw)
         lb = rotate_beam(lb, rotationSequence='-' + self.rotationSequence,
                          pitch=pitch, roll=roll, yaw=yaw)
+        if is2ndXtal and dcm:
+            lb = rotate_beam(lb, roll=math.pi)
         if self.isParametric:
             normal = self.local_n(*self.xyz_to_param(lb.x, lb.y, lb.z)[:2])
         else:
@@ -366,42 +465,59 @@ class OE(config.Replaceable):
                 noIntersectionSearch=False, is2ndXtal=False,
                 fromVacuum=True, surfacePoints=None):
         """Reflect *beam* (global frame) off this OE; returns (beamGlobal,
-        beamLocal).  With ``noIntersectionSearch=True`` the rays are taken
+        beamLocal).  *generator* draws what a material needs at random (a
+        mosaic crystal's crystallites, a grating's orders; seed 0 if None).
+        With ``noIntersectionSearch=True`` the rays are taken
         to be on the surface already (the wave hops); *surfacePoints*, the
         local (x, y, z) of those points, then replaces the positions that
         the global frame gives back, so that the surface (its normal, a
         grating's facet) is evaluated where the samples are: in float32 the
         round trip through global coordinates moves them by ulp(|centre|),
         ~2e-3 mm at 26 m, a grating period's scale."""
-        if is2ndXtal:
-            raise NotImplementedError(
-                'the second crystal of a DCM is not ported yet (ROADMAP A8)')
         good_in = beam.state > 0
         lb = global_to_virgin_local(beam, self.center)
         pitch, roll, yaw, dx, dy, dz = self._placement(is2ndXtal)
-        if any(v is not None for v in (dx, dy, dz)):
-            raise NotImplementedError(
-                'element offsets dx, dy, dz are not ported yet (ROADMAP A8)')
         lb, out = self._reflect_local(
-            lb, good_in, pitch, roll, yaw, fromVacuum=fromVacuum,
-            noIntersectionSearch=noIntersectionSearch,
-            surfacePoints=surfacePoints)
+            lb, good_in, pitch, roll, yaw, dx, dy, dz, fromVacuum=fromVacuum,
+            is2ndXtal=is2ndXtal, noIntersectionSearch=noIntersectionSearch,
+            surfacePoints=surfacePoints, generator=generator)
         glo = virgin_local_to_global(lb, self.center)
         merged = _merge_by_mask(beam, glo, good_in)
         if needLocal:
             return merged, out
         return merged
 
-    def _reflect_local(self, lb, good, pitch, roll, yaw, fromVacuum=True,
-                       noIntersectionSearch=False, surfacePoints=None):
-        """The virgin-local part of reflect.  Returns (virgin-local beam,
-        true-local beam)."""
+    def _reflect_local(self, lb, good, pitch, roll, yaw, dx=None, dy=None,
+                       dz=None, fromVacuum=True, is2ndXtal=False,
+                       noIntersectionSearch=False, surfacePoints=None,
+                       local_z=None, local_n=None, material=None,
+                       limits=None, generator=None):
+        """The virgin-local part of reflect.  *dx, dy, dz* are the
+        element's offsets in its own frame; the second crystal of a DCM
+        (*is2ndXtal*) is turned by pi in roll before and after and takes
+        the extra angles mirrored.  *local_z*, *local_n*, *material* and
+        *limits* (limPhysX, limPhysY, limOptX, limOptY) replace the
+        element's own.  Returns (virgin-local beam, true-local beam)."""
+        if material is None:
+            material = self.material
+        if local_z is None:
+            local_z = self.local_z
+        if local_n is None:
+            local_n = self.local_n
+        if limits is None:
+            limits = (self.limPhysX, self.limPhysY, self.limOptX,
+                      self.limOptY)
+        extraSign = -1.0 if is2ndXtal else 1.0
+        if is2ndXtal:
+            lb = rotate_beam(lb, roll=math.pi)
         lb = rotate_beam(lb, rotationSequence=self.rotationSequence,
                          pitch=-pitch, roll=-roll, yaw=-yaw)
         if self.extraPitch is not None:
             lb = rotate_beam(lb, rotationSequence=self.extraRotationSequence,
-                             pitch=-self.extraPitch, roll=-self.extraRoll,
-                             yaw=-self.extraYaw)
+                             pitch=-extraSign * self.extraPitch,
+                             roll=-self.extraRoll,
+                             yaw=-extraSign * self.extraYaw)
+        lb = _shift(lb, dx, dy, dz, -1)
         param = self.isParametric
         if noIntersectionSearch:
             t = torch.zeros_like(lb.x)
@@ -410,7 +526,8 @@ class OE(config.Replaceable):
                 lb = lb.replace(**{k: torch.where(good, v, getattr(lb, k))
                                    for k, v in zip('xyz', surfacePoints)})
         else:
-            tMin, tMax = self._bracket(lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
+            tMin, tMax = self._bracket(lb.x, lb.y, lb.z, lb.a, lb.b, lb.c,
+                                       limits[0], limits[1])
             ray = (lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
             inv = 1 if fromVacuum else -1
             if hasattr(self, 'analytic_intersect'):
@@ -422,7 +539,7 @@ class OE(config.Replaceable):
                     active=good)
             else:
                 t, xx, yy, zz, lost = find_intersection(
-                    self.local_z, tMin, tMax, *ray, invertNormal=inv,
+                    local_z, tMin, tMax, *ray, invertNormal=inv,
                     active=good)
             lb = lb.replace(x=torch.where(good, xx, lb.x),
                             y=torch.where(good, yy, lb.y),
@@ -433,19 +550,19 @@ class OE(config.Replaceable):
             # physics: the normal is a function of (s, phi)
             sP, phiP, rP = self.xyz_to_param(lb.x, lb.y, lb.z)
             tX, tY, _ = self.param_to_xyz(sP, phiP, rP)
-            state = self.rays_good(tX, tY, lb.state)
+            state = self.rays_good(tX, tY, lb.state, limits=limits)
             lb = lb.replace(x=torch.where(good, sP, lb.x),
                             y=torch.where(good, phiP, lb.y),
                             z=torch.where(good, rP, lb.z))
         else:
-            state = self.rays_good(lb.x, lb.y, lb.state)
+            state = self.rays_good(lb.x, lb.y, lb.state, limits=limits)
         state = torch.where(good & lost, config.STATE_DEAD, state)
         state = torch.where(good, state, lb.state)
         lb = lb.replace(state=state)
         goodN = state == 1
         lb = lb.replace(path=torch.where(goodN, lb.path + t, lb.path))
         lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
-                                       self.material)
+                                       material, local_n, generator)
         if param:
             # back to cartesian, keeping the parametric impact coordinates
             xC, yC, zC = self.param_to_xyz(lb.x, lb.y, lb.z)
@@ -466,32 +583,76 @@ class OE(config.Replaceable):
                                 torch.sin(rollAngle))
             upd['Es'] = torch.where(goodN, EsB, lb.Es)
             upd['Ep'] = torch.where(goodN, EpB, lb.Ep)
-        vlb = lb.replace(**upd)
+        vlb = _shift(lb.replace(**upd), dx, dy, dz, 1)
         if self.extraPitch is not None:
             vlb = rotate_beam(
                 vlb, rotationSequence='-' + self.extraRotationSequence,
-                pitch=self.extraPitch, roll=self.extraRoll,
-                yaw=self.extraYaw)
+                pitch=extraSign * self.extraPitch, roll=self.extraRoll,
+                yaw=extraSign * self.extraYaw)
         vlb = rotate_beam(vlb, rotationSequence='-' + self.rotationSequence,
                           pitch=pitch, roll=roll, yaw=yaw)
+        if is2ndXtal:
+            vlb = rotate_beam(vlb, roll=math.pi)
         return vlb, lb
 
-    def _interact(self, lb, goodN, roll, fromVacuum, tMax, material):
+    # ---- the physics at the surface ------------------------------------
+    def _grating_deflection(self, generator, a, b, c, E, g, oeNormal,
+                            beamInDotNormal, order=1, sig=None):
+        """Directions after diffraction by the grating vector *g* (1/mm)
+        into *order* (a number, a tuple of orders shared among the rays at
+        random, or a per-ray tensor); returns (a, b, c, order)."""
+        gx, gy, gz = g[0], g[1], g[2]
+        beamInDotG = a * gx + b * gy + c * gz
+        G2 = gx ** 2 + gy ** 2 + gz ** 2
+        if isinstance(order, (int, float)):
+            locOrder = torch.full_like(a, order)
+        elif isinstance(order, (tuple, list)):
+            g_ = _rng(generator, a)
+            idx = torch.randint(0, len(order), a.shape, generator=g_,
+                                device=g_.device).to(a.device)
+            locOrder = torch.as_tensor(order, dtype=a.dtype,
+                                       device=a.device)[idx]
+        else:
+            locOrder = order
+        orderLambda = locOrder * CH / E * 1e-7
+        u = beamInDotNormal ** 2 - 2 * beamInDotG * orderLambda - \
+            G2 * orderLambda ** 2
+        gs = torch.sign(beamInDotNormal) if sig is None else sig
+        dn = beamInDotNormal + gs * sqrt_rn(torch.abs(u))
+        nsx, nsy, nsz = oeNormal[-3], oeNormal[-2], oeNormal[-1]
+        a_out = a - nsx * dn + gx * orderLambda
+        b_out = b - nsy * dn + gy * orderLambda
+        c_out = c - nsz * dn + gz * orderLambda
+        norm = sqrt_rn(a_out ** 2 + b_out ** 2 + c_out ** 2)
+        return a_out / norm, b_out / norm, c_out / norm, locOrder
+
+    def _interact(self, lb, goodN, roll, fromVacuum, tMax, material,
+                  local_n=None, generator=None):
         """Direction update, reflectivity and polarization bookkeeping for
-        rays with state == 1 (mirror kinds)."""
+        rays with state == 1: the mirror kinds, and Bragg and Laue crystals
+        (flat or mosaic, symmetric or asymmetric)."""
+        if local_n is None:
+            local_n = self.local_n
         matSur = material[self.curSurface] \
             if isinstance(material, (list, tuple)) else material
         kind = 'mirror' if matSur is None else \
             matSur.resolved_kind(self.auto_material_kind)
-        if kind not in ('mirror', 'thin mirror'):
+        if kind not in ('mirror', 'thin mirror', 'crystal'):
             raise NotImplementedError(
                 f'OE physics of kind {kind!r} is not ported yet '
-                '(ROADMAP A5, A8)')
-        normal = list(self.local_n(lb.x, lb.y))
+                '(ROADMAP A8)')
+        crystal = kind == 'crystal'
+        if crystal and (matSur.useTT or matSur.volumetricDiffraction):
+            raise NotImplementedError(
+                'bent-crystal (Takagi-Taupin) amplitudes and volumetric '
+                'diffraction are not ported yet (ROADMAP A8)')
+        normal = list(local_n(lb.x, lb.y))
         ones = torch.ones_like(lb.x)
         nbx, nby, nbz = (normal[0] * ones, normal[1] * ones,
                          normal[2] * ones)
-        nsx, nsz = normal[-3] * ones, normal[-1] * ones
+        nsx, nsy, nsz = (normal[-3] * ones, normal[-2] * ones,
+                         normal[-1] * ones)
+        isAsymmetric = len(normal) == 6
 
         beamInDotNormal = torch.clamp(
             _dot3(lb.a, lb.b, lb.c, nbx, nby, nbz), -1.0, 1.0)
@@ -499,9 +660,38 @@ class OE(config.Replaceable):
         prev = lb.theta if lb.theta is not None else \
             torch.zeros_like(theta_new)
         lb = lb.replace(theta=torch.where(goodN, theta_new, prev))
-        a_out = lb.a - nbx * 2 * beamInDotNormal
-        b_out = lb.b - nby * 2 * beamInDotNormal
-        c_out = lb.c - nbz * 2 * beamInDotNormal
+        beamInDotSurfaceNormal = _dot3(lb.a, lb.b, lb.c, nsx, nsy, nsz) \
+            if isAsymmetric else beamInDotNormal
+        mosaic = crystal and matSur.mosaicity is not None
+
+        if not crystal:
+            a_out = lb.a - nbx * 2 * beamInDotNormal
+            b_out = lb.b - nby * 2 * beamInDotNormal
+            c_out = lb.c - nbz * 2 * beamInDotNormal
+        elif matSur.geom.endswith('transmitted'):
+            a_out, b_out, c_out = lb.a, lb.b, lb.c
+        elif mosaic:
+            mx, my, mz = _mosaic_normal(generator, matSur,
+                                        (nbx, nby, nbz), lb.E)
+            mdot = _dot3(lb.a, lb.b, lb.c, mx, my, mz)
+            a_out = lb.a - mx * 2 * mdot
+            b_out = lb.b - my * 2 * mdot
+            c_out = lb.c - mz * 2 * mdot
+        else:
+            # reflection through the crystal's "grating" vector, the
+            # Bragg-plane normal's part along the surface; its sign follows
+            # the mean incidence of all rays, the dead ones included, and
+            # is taken on the device
+            nDotNs = nbx * nsx + nby * nsy + nbz * nsz
+            sgbdn = torch.where(torch.mean(beamInDotNormal) < 0, 1.0, -1.0)
+            wHd = 1.0 / (matSur.d * 1e-7)
+            gx = (nbx - nDotNs * nsx) * wHd * sgbdn
+            gy = (nby - nDotNs * nsy) * wHd * sgbdn
+            gz = (nbz - nDotNs * nsz) * wHd * sgbdn
+            sg = 1 if matSur.geom.startswith('Laue') else -1
+            a_out, b_out, c_out, _ = self._grating_deflection(
+                generator, lb.a, lb.b, lb.c, lb.E, (gx, gy, gz), normal,
+                beamInDotSurfaceNormal, 1, sg)
 
         rollAngle = roll + torch.atan2(nsx, nsz)
         Jss_l, Jpp_l, Jsp_l = rotate_coherency_matrix(
@@ -512,6 +702,14 @@ class OE(config.Replaceable):
                                   -torch.sin(rollAngle))
         if matSur is None:
             ras = rap = torch.ones_like(lb.x)
+        elif mosaic:
+            ras, rap = matSur.get_amplitude_mosaic(
+                lb.E, beamInDotSurfaceNormal,
+                _dot3(a_out, b_out, c_out, nsx, nsy, nsz), beamInDotNormal)
+        elif crystal:
+            ras, rap = matSur.get_amplitude(
+                lb.E, beamInDotSurfaceNormal,
+                _dot3(a_out, b_out, c_out, nsx, nsy, nsz), beamInDotNormal)
         else:
             ras, rap = matSur.get_amplitude(lb.E, beamInDotNormal,
                                             fromVacuum)[0:2]
@@ -534,3 +732,10 @@ class OE(config.Replaceable):
             updates['Es'] = torch.where(goodN, Es_l * ras * mPh, lb.Es)
             updates['Ep'] = torch.where(goodN, Ep_l * rap * mPh, lb.Ep)
         return lb.replace(**updates), rollAngle
+
+
+def _shift(lb, dx, dy, dz, sign):
+    """*lb* moved by sign * (dx, dy, dz); None components stay."""
+    upd = {k: getattr(lb, k) + sign * v
+           for k, v in zip('xyz', (dx, dy, dz)) if v is not None}
+    return lb.replace(**upd) if upd else lb

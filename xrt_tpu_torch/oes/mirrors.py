@@ -2,8 +2,8 @@
 sagittally cylindrical and conical, with the Coddington helpers.
 
 Port of the reference package's ``oes/mirrors.py``.  Radii and angles are
-Python floats, or the tensors that were passed in.  ``DualVFM`` and the
-tripod support come with ROADMAP A8.
+Python floats, or the tensors that were passed in.  ``DualVFM`` comes
+with ROADMAP A8, the tripod support with A11.
 """
 from __future__ import annotations
 

@@ -5,18 +5,20 @@ chain: ``Undulator.create`` (auto-K from ``targetE``, the e-beam sizes, the
 acceptance reduction), the Clenshaw-Curtis node grid padded to a multiple of
 :data:`NODE_CHUNK`, the far-field integral over one period (the periodic sum
 through the sin(pi Np w)/sin(pi w) factor), ``build_I_map`` with the energy
-spread, and ``shine_wave``: the coherent field of one macro-electron at the
-samples of a prepared wave, with its spherical propagation phase.
+spread, ``shine_wave``: the coherent field of one macro-electron at the
+samples of a prepared wave, with its spherical propagation phase, and the
+ray-mode ``shine`` (importance resampling of ``_SynchrotronBase``, ray
+origins from the Tanaka-Kitamura source sizes, unit amplitudes).
 
 The integral is a loop over chunks of :data:`NODE_CHUNK` nodes with per-ray
 complex accumulators, so the temporaries stay O(rays x chunk).  It is plain
 PyTorch: the reference evaluates it in its array library, not in a kernel
-of its own.  Above ``2 * ray_block`` samples ``shine_wave`` also walks the
-rays in blocks of ``ray_block``.
+of its own.  Above ``2 * RAY_BLOCK`` rays ``shine`` and ``shine_wave``
+walk the rays in blocks of ``RAY_BLOCK``.
 
 The tapered and near-field integrals, the quadrature convergence search
-(``gNodes=None``), ``power_vs_K``, ``tuning_curves`` and the ray-mode
-``shine`` come with ROADMAP A8 and raise ``NotImplementedError``.
+(``gNodes=None``), ``power_vs_K`` and ``tuning_curves`` come with ROADMAP
+A8 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from .. import config
 from ..ops import dd
 from ..ops.dd import sqrt_rn
 from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, M0, PI,
-                          PI2, SIE0)
+                          PI2, SIE0, SQ2, SQPI)
+from ..transforms import virgin_local_to_global
 from .synchrotron import _SynchrotronBase
 
 #: quadrature nodes per step of the integral
@@ -76,6 +79,14 @@ def clenshaw_curtis(n):
     return points, weights
 
 
+def tanaka_kitamura_Qa2(x, eps=1e-6):
+    """The squared Q_a of Tanaka & Kitamura (2009), Eq. 17."""
+    y = SQ2 * torch.clamp(x, min=eps)
+    y2 = y ** 2
+    val = y2 / (torch.exp(-y2) + SQPI * y * torch.erf(y) - 1)
+    return torch.where(x > eps, val, torch.ones_like(x))
+
+
 def _normals(generator, n):
     """*n* standard normal draws from *generator*, float64 on the CPU."""
     if generator is None:
@@ -108,10 +119,11 @@ class Undulator(_SynchrotronBase):
                xPrimeMax=0.5, zPrimeMax=0.5, xPrimeMaxAutoReduce=True,
                zPrimeMaxAutoReduce=True, distE='eV', pitch=0.0, yaw=0.0,
                gNodes=None, gIntervals=None, gp=1e-6, oversample=4,
-               targetHarmonic=None):
+               targetHarmonic=None, dtype=None, device=None):
         """The reference's constructor arguments (angles of the acceptance
         in mrad, e-beam emittances in nm rad, sizes in um); all host
-        float64."""
+        float64.  *dtype* and *device* are those of the beams ``shine``
+        makes."""
         if taper is not None:
             raise NotImplementedError(_TAPER_TODO)
         if R0 is not None:
@@ -155,7 +167,8 @@ class Undulator(_SynchrotronBase):
                   distE=distE, nrays=nrays, oversample=oversample,
                   pitch=pitch, yaw=yaw, Kx=Kx, Ky=Ky, L0=period, n=n,
                   phase=math.radians(phaseDeg), quadm=int(gNodes),
-                  gIntervals=int(gIntervals) if gIntervals else 2)
+                  gIntervals=int(gIntervals) if gIntervals else 2,
+                  dtype=dtype, device=device)
         return src.with_grid(src.quadm, src.gIntervals)
 
     @property
@@ -256,16 +269,16 @@ class Undulator(_SynchrotronBase):
         return wu * revgamma * Bs, wu * revgamma * Bp
 
     def build_I_map(self, generator, w, ddtheta, ddpsi, harmonic=None,
-                    dgamma=None):
+                    dgamma=None, gamma=None):
         """(flux, amp_s, amp_p) at photon energies *w* (eV) and angles
         (*ddtheta*, *ddpsi*) (rad), tensors of one shape.  With an energy
-        spread the Lorentz factor is gamma + *dgamma*, or drawn from
-        *generator* when *dgamma* is None."""
+        spread the Lorentz factor is *gamma* (per ray) where given, else
+        gamma + *dgamma*, or drawn from *generator* when both are None."""
         dt, dev = w.dtype, w.device
         gamma0 = self.gamma
-        if self.eEspread > 0 and dgamma is not None:
+        if gamma is None and self.eEspread > 0 and dgamma is not None:
             gamma = gamma0 + dgamma * torch.ones_like(w)
-        else:
+        elif gamma is None:
             gamma = self._sample_gamma(generator, gamma0, w.shape, dt, dev)
         gamma2 = gamma ** 2
         Kx, Ky = self.Kx, self.Ky
@@ -294,12 +307,89 @@ class Undulator(_SynchrotronBase):
                 sqA * ab * Is * 0.5 * dstep,
                 sqA * ab * Ip * 0.5 * dstep)
 
+    def _I_map_blocks(self, generator, w, ddtheta, ddpsi, ray_block=None,
+                      gamma=None, dgamma=None):
+        """``build_I_map`` over the rays, in blocks of *ray_block*
+        (``RAY_BLOCK``) above two blocks: the same integral with bounded
+        temporaries.  *gamma* is per ray, *dgamma* one shift."""
+        n = w.shape[0]
+        rb = RAY_BLOCK if ray_block is None else int(ray_block)
+        if n <= 2 * rb:
+            return self.build_I_map(generator, w, ddtheta, ddpsi,
+                                    dgamma=dgamma, gamma=gamma)
+        outs = [self.build_I_map(
+            generator, w[j:j + rb], ddtheta[j:j + rb], ddpsi[j:j + rb],
+            dgamma=dgamma, gamma=None if gamma is None else gamma[j:j + rb])
+            for j in range(0, n, rb)]
+        return tuple(torch.cat(col) for col in zip(*outs))
+
     def get_sigma_r02(self, E):
         """sigma_r0^2 (Tanaka & Kitamura, after their Eq. 23)."""
         return 2 * CHeVcm / E * 10 * self.L0 * self.Np / PI2 ** 2
 
     def get_sigmaP_r02(self, E):
         return CHeVcm / E * 10 / (2 * self.L0 * self.Np)
+
+    def _harmonic(self, E, onlyOddHarmonics):
+        harmonic = torch.div(E, self.E1, rounding_mode='floor')
+        if onlyOddHarmonics:
+            harmonic = harmonic + harmonic % 2 - 1
+        return harmonic
+
+    def get_sigma_r2(self, E, onlyOddHarmonics=True, with0eSpread=False):
+        """sigma_r^2 with the energy spread (Tanaka & Kitamura)."""
+        sigma_r02 = self.get_sigma_r02(E)
+        if self.eEspread == 0 or with0eSpread:
+            return sigma_r02
+        eEspread_norm = PI2 * self._harmonic(E, onlyOddHarmonics) * \
+            self.Np * self.eEspread
+        return sigma_r02 * tanaka_kitamura_Qa2(eEspread_norm / 4.) ** (2 / 3.)
+
+    def get_sigmaP_r2(self, E, onlyOddHarmonics=True, with0eSpread=False):
+        """sigma'_r^2 with the energy spread (Tanaka & Kitamura)."""
+        sigmaP_r02 = self.get_sigmaP_r02(E)
+        if self.eEspread == 0 or with0eSpread:
+            return sigmaP_r02
+        eEspread_norm = PI2 * self._harmonic(E, onlyOddHarmonics) * \
+            self.Np * self.eEspread
+        return sigmaP_r02 * tanaka_kitamura_Qa2(eEspread_norm)
+
+    def get_SIGMA(self, E, onlyOddHarmonics=True, with0eSpread=False):
+        """The source sizes (x, z), e-beam and photon, mm."""
+        sigma_r2 = self.get_sigma_r2(E, onlyOddHarmonics, with0eSpread)
+        return (sqrt_rn(self.dx ** 2 + sigma_r2),
+                sqrt_rn(self.dz ** 2 + sigma_r2))
+
+    def get_SIGMAP(self, E, onlyOddHarmonics=True, with0eSpread=False):
+        """The source divergences (x, z), e-beam and photon, rad."""
+        sigmaP_r2 = self.get_sigmaP_r2(E, onlyOddHarmonics, with0eSpread)
+        return (sqrt_rn(self.dxprime ** 2 + sigmaP_r2),
+                sqrt_rn(self.dzprime ** 2 + sigmaP_r2))
+
+    def _sample_positions(self, E, Theta0, nx, nz):
+        """x, z ~ N(0, SIGMA(E)) from the standard normals *nx*, *nz*;
+        y = 0."""
+        sx, sz = self.get_SIGMA(E, onlyOddHarmonics=False)
+        return sx * nx, torch.zeros_like(E), sz * nz
+
+    def shine(self, generator=None, toGlobal=True, withAmplitudes=True,
+              fixedEnergy=False, draws=None):
+        """Ray-mode shine (see ``_SynchrotronBase.shine``) with the
+        amplitudes normalized to unit modulus, Es = mJs / |mJs|."""
+        beam = super().shine(generator, toGlobal=False,
+                             withAmplitudes=withAmplitudes,
+                             fixedEnergy=fixedEnergy, draws=draws)
+        if beam.Es is not None:
+            absS, absP = torch.abs(beam.Es), torch.abs(beam.Ep)
+            zero = torch.zeros_like(beam.Es)
+            beam = beam.replace(
+                Es=torch.where(absS > 0, beam.Es / torch.clamp(
+                    absS, min=1e-300), zero),
+                Ep=torch.where(absP > 0, beam.Ep / torch.clamp(
+                    absP, min=1e-300), zero))
+        if toGlobal:
+            beam = virgin_local_to_global(beam, self.center)
+        return beam
 
     def shine_wave(self, generator, wave, fixedEnergy, ray_block=None):
         """The coherent field of one macro-electron (filament) at the
@@ -313,7 +403,6 @@ class Undulator(_SynchrotronBase):
         wave with E, Es, Ep, the coherency matrix and directions set."""
         dt, dev = wave.xDiffr.dtype, wave.xDiffr.device
         n = wave.xDiffr.shape[0]
-        ray_block = RAY_BLOCK if ray_block is None else int(ray_block)
         g = _normals(generator, 5)
         rX = self.dx * float(g[0])
         rZ = self.dz * float(g[1])
@@ -328,20 +417,8 @@ class Undulator(_SynchrotronBase):
         rTheta = x / rDiffr + dtheta
         rPsi = z / rDiffr + dpsi
         rE = torch.full((n,), float(fixedEnergy), dtype=dt, device=dev)
-        if n > 2 * ray_block:
-            # the same integral in blocks of rays: bounded temporaries
-            npad = (-n) % ray_block
-            parts = []
-            for v in (rE, rTheta, rPsi):
-                if npad:
-                    v = torch.cat([v, v[-1:].expand(npad)])
-                parts.append(v.reshape(-1, ray_block))
-            outs = [self.build_I_map(generator, *blk, dgamma=dgamma)
-                    for blk in zip(*parts)]
-            Intensity, mJs, mJp = (torch.cat(col)[:n] for col in zip(*outs))
-        else:
-            Intensity, mJs, mJp = self.build_I_map(
-                generator, rE, rTheta, rPsi, dgamma=dgamma)
+        Intensity, mJs, mJp = self._I_map_blocks(
+            generator, rE, rTheta, rPsi, ray_block, dgamma=dgamma)
         # the wave's aperture area projected onto the beam direction when
         # sampling an OE surface
         wave_area = wave.area if wave.areaNormal is None else wave.areaNormal
