@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs seventeen phases and exits
+process per source, in parallel), then runs twenty phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -162,9 +162,49 @@ non-zero if any fails:
     peak) under 20 um in both planes, and how far the resampling's
     float32 cumulative sum over the 4e6 candidates ends from 1.
 
+18. BASELINE configuration 5's coherent modes, float32, at full width:
+    256 undulator filaments of 1e5 slit samples (the first through
+    ``slit.propagate_wave`` from the source, the others ``shine_wave`` on
+    its samples; their time and kernel launches a filament by
+    torch.profiler), ``solve_modes`` to 8 modes (weights summing to 1,
+    w0 > 0.25, w0 > 1.2 w1), and each mode slit -> Au zone plate (2e5
+    samples, ``diffract``, the zone mask) -> 256 x 256 focal grid over
+    +-0.2 rN (``Screen.expose_wave``), 3.3e10 pairs a mode: the times of
+    each hop (CUDA events), pairs/s, peak memory, exactly 16 B1 launches,
+    each held against the plain version on its last 2048 destinations
+    (< 2e-5); the zone mask's open fraction (0.2-0.8, float32 against
+    float64 on the same samples to 1e-3), the focal concentration (the
+    centre > 5 x the outer mean), the slit stack's degree of transverse
+    coherence equal to the sum of the squared weights (1e-4); the
+    coherence analysis of the focal stack (DoTC, PCA modes, coherent
+    fractions along x and z, the degree-of-coherence map); and the whole
+    path at 32 filaments, 2e4 / 2e4 samples and a 64 x 64 focus, float32
+    against float64 (the 8 largest weights to 1e-3, the focal intensity
+    to max|dI| / max I < 5e-3);
+19. BASELINE configuration 2: bending magnet -> Rh toroid + slit ->
+    screen at 1e7 rays a pass (2e7 bending-magnet candidates), float32, 4
+    passes through ``run_ray_tracing`` (one ``hist_plot`` a pass, held
+    against its plain version): pass time, rays/s, the footprint of each
+    pass (std x < 0.3 mm, z < 0.1 mm), the split of a pass (the shine and
+    its candidates through ``build_I_map``, the toroid's search, the slit,
+    expose, histograms); float32 against float64 on the same 2e5 rays
+    (flux per ray and weighted moments to 1e-3); the bending magnet's and
+    the wiggler's ``build_I_map`` on ``tests/golden/ref_sources.npz``'s
+    693 points (read with numpy; the file must be in the tree): float64 at
+    the golden's tolerances (rtol 3e-8), float32 against float64 to 1e-5
+    with no NaN; a 1e6-ray wiggler shine, timed;
+20. the field maps: the undulator's ``intensities_on_mesh`` on its auto
+    meshes (65 x 33 x 33) with 36 energy-spread samples (2.5e6 points
+    through the 64-node integral), Stokes and vortex, its
+    ``multi_electron_stack`` and the bending magnet's Stokes map, timed;
+    s0 float32 against float64 to 1e-5 for both sources.
+
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
-pass (phase 16's).
+pass (phase 16's); B1's at configuration 5's two hop shapes, 2e5 x 1e5
+and 65536 x 2e5 (phase 18's launches, each against the plain version at
+the full shape), and ``hist_plot`` on a configuration-2 pass (phase
+19's).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -175,6 +215,7 @@ it; the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
+import collections
 import contextlib
 import json
 import math
@@ -286,6 +327,25 @@ DCM_CROSS_NRAYS = 200_000
 #: BASELINE configuration 4: rays a pass (4 candidates a ray through the
 #: undulator integral) and passes
 C4_NRAYS, C4_REPEATS = 1_000_000, 2
+#: BASELINE configuration 5 (tests/test_baseline_configs.py:156-198): the
+#: energy, focal length and zones of the zone plate; filaments, samples at
+#: the slit and on the zone plate, focal pixels a side and modes; the
+#: float32 / float64 cross-check's sizes; the last destinations of each B1
+#: launch held against the plain version
+C5_E0, C5_F, C5_N = 9000.0, 2000.0, 60
+C5_ELECTRONS, C5_NSLIT, C5_NFZP, C5_NFOCUS, C5_MODES = \
+    256, 100_000, 200_000, 256, 8
+C5_CROSS = dict(electrons=32, nslit=20_000, nfzp=20_000, nfocus=64)
+C5_CHECK_DST = 2048
+#: the hops of configuration 5: monochromatic, the exact f32 sums
+C5_HOP = dict(monochromatic=True, accumulate='vpu', narrowband=False)
+#: BASELINE configuration 2 (tests/test_baseline_configs.py:54-81): rays a
+#: pass, passes, the cross-check's rays, and the geometry
+C2_NRAYS, C2_REPEATS, C2_CROSS_NRAYS = 10_000_000, 4, 200_000
+C2_P, C2_Q, C2_PITCH = 15000.0, 5000.0, 5e-3
+SOURCES_GOLDEN = 'tests/golden/ref_sources.npz'
+#: the field maps' s0, float32 against float64: max|d| / max
+MAP_F32_LIMIT = 1e-5
 
 
 class PhaseError(Exception):
@@ -2604,6 +2664,625 @@ def crystal_hist_rows(timing):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the coherence slice: BASELINE configurations 5 and 2, the field maps
+# ---------------------------------------------------------------------------
+
+def config5_line(dtype):
+    """BASELINE configuration 5 (tests/test_baseline_configs.py:156-198):
+    the undulator (gNodes 64), the 80 um slit at 25 m, the Au zone plate
+    (f = 2 m at 9 keV, 60 zones) at 27 m and the focal screen."""
+    from xrt_tpu_torch.apertures import RectangularAperture
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import NormalFZP
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import Undulator
+    dk = dict(dtype=dtype, device='cuda')
+    E0 = C5_E0
+    und = Undulator.create(
+        nrays=100, eE=3.0, eI=0.5, period=18.0, n=111, targetE=(E0, 7),
+        eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0, betaZ=2.0,
+        xPrimeMax=0.02, zPrimeMax=0.02, gNodes=64, eMin=E0 - 1,
+        eMax=E0 + 1, **dk)
+    slit = RectangularAperture.create(center=(0, 25000.0, 0),
+                                      opening=(-0.04, 0.04, -0.04, 0.04))
+    fzp = NormalFZP.create(
+        f=C5_F, E=E0, N=C5_N, center=(0, 27000.0, 0), pitch=math.pi / 2,
+        material=Material.create('Au', rho=19.3, kind='FZP', **dk),
+        order=1)
+    scr = Screen.create(center=(0, 27000.0 + C5_F, 0))
+    return und, slit, fzp, scr
+
+
+def c5_run(dtype, electrons, nslit, nfzp, nfocus):
+    """Configuration 5's coherent modes through the user's entry points:
+    the filaments (the first through ``slit.propagate_wave`` from the
+    undulator, which samples the slit; the others ``shine_wave`` on those
+    samples), ``solve_modes``, and each mode slit -> zone plate
+    (``prepare_wave_on_oe``, ``diffract``, the zone mask) -> focal grid
+    (``Screen.expose_wave``).  Returns a dict of the results and the
+    times (host clock around synchronized work; per hop CUDA events)."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import coherence as tc, modes as tmodes, waves as W
+    sync = torch.cuda.synchronize
+    und, slit, fzp, scr = config5_line(dtype)
+    E0 = C5_E0
+    g = torch.Generator().manual_seed(50)
+    sync()
+    t0 = time.perf_counter()
+    w0 = slit.propagate_wave(None, nrays=nslit, prevOE=und, fixedEnergy=E0,
+                             generator=g, dtype=dtype, device='cuda')
+    sq = torch.sqrt(w0.area / nslit)
+    norm = electrons ** 0.5
+    fields = [(w0.Es * sq / norm, w0.Ep * sq / norm)]
+    for _ in range(electrons - 1):
+        w = und.shine_wave(g, w0, E0)
+        fields.append((w.Es * sq / norm, w.Ep * sq / norm))
+    sync()
+    t1 = time.perf_counter()
+    modes, wAll, flux = tmodes.solve_modes(fields, C5_MODES)
+    sync()
+    t2 = time.perf_counter()
+    # the stack solve_modes decomposes (phaseEsEp = 0): its DoTC is the sum
+    # of the squared weights
+    dotc_slit = float(tc.calc_degree_of_transverse_coherence_PCA(
+        torch.stack([f[0] + f[1] for f in fields])))
+    del fields
+    wave_fzp = W.prepare_wave_on_oe(fzp, slit, nfzp,
+                                    generator=torch.Generator().manual_seed(
+                                        51), dtype=dtype, device='cuda')
+    zmask = fzp.rays_good(wave_fzp.x, wave_fzp.y,
+                          torch.ones_like(wave_fzp.state))
+    rN = fzp.limPhysX[1]
+    dim = np.linspace(-0.2 * rN, 0.2 * rN, nfocus)
+    focal, evs, stages = [], [], None
+    sync()
+    t3 = time.perf_counter()
+    for mEs, mEp in modes:
+        src = w0.replace(Es=mEs, Ep=mEp, Jss=(mEs * torch.conj(mEs)).real,
+                         Jpp=(mEp * torch.conj(mEp)).real,
+                         Jsp=mEs * torch.conj(mEp),
+                         state=torch.ones_like(w0.state))
+        ev = events(3)
+        ev[0].record()
+        b = W.diffract(src, wave_fzp, **C5_HOP)
+        ev[1].record()
+        masked = b.replace(state=zmask)
+        f = scr.expose_wave(masked, dim, dim, **C5_HOP)
+        ev[2].record()
+        # (nz, nx) -> (nx, nz): x the first axis of the stack's fields
+        focal.append(torch.stack([f.Es, f.Ep]).reshape(
+            2, nfocus, nfocus).transpose(1, 2))
+        evs.append(ev)
+        if stages is None:
+            stages = [(src, wave_fzp), (masked, W.prepare_wave_on_screen(
+                scr, fzp, dim, dim, dtype=dtype, device='cuda'))]
+    sync()
+    t4 = time.perf_counter()
+    stack = torch.stack(focal)          # (modes, 2, nx, nz)
+    I = (torch.abs(stack) ** 2).sum(dim=(0, 1))
+    return dict(wAll=wAll, flux=flux, dotc_slit=dotc_slit, zmask=zmask,
+                wave_fzp=wave_fzp, U=stack[:, 0], I=I, dim=dim, rN=rN,
+                fzp=fzp, slit=slit, und=und, w0=w0, stages=stages,
+                evs=evs, t=(t0, t1, t2, t3, t4))
+
+
+@contextlib.contextmanager
+def recorded_b1(store, ndst):
+    """Record every launch of kernel B1 inside the block: the last *ndst*
+    destinations' inputs and sums, the (unpadded) sources and the
+    scalars, for a check against the plain version afterwards."""
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    launch, pad = tk._launch_recentred, tk._pad_sources
+    ns = []
+
+    def pad_rec(S):
+        ns.append(S.shape[1])
+        return pad(S)
+
+    def launch_rec(D, S, P, variant):
+        out = launch(D, S, P, variant)
+        store.append((D[:, -ndst:].clone(), S[:, :ns[-1]], P, variant,
+                      out[:, -ndst:].clone(), D.shape[1]))
+        return out
+    tk._launch_recentred, tk._pad_sources = launch_rec, pad_rec
+    try:
+        yield
+    finally:
+        tk._launch_recentred, tk._pad_sources = launch, pad
+
+
+def profiled_kernel_count(fn):
+    """The number of device kernels *fn* launches, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def c5_focal_concentration(res):
+    """(centre peak, outer mean) of the focal intensity: the largest
+    pixel within 0.02 rN of the axis and the mean beyond 0.1 rN."""
+    import numpy as np
+    import torch
+    d = torch.as_tensor(res['dim'], dtype=res['I'].dtype,
+                        device=res['I'].device)
+    r = torch.sqrt(d[:, None] ** 2 + d[None, :] ** 2)
+    I = res['I']
+    return (float(I[r < 0.02 * res['rN']].max()),
+            float(I[r > 0.1 * res['rN']].mean()))
+
+
+def phase_coherent_modes(timing):
+    """Phase 18: BASELINE configuration 5's coherent modes at full width,
+    float32, and the coherence analysis of the focal stack."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import coherence as tc, waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    ne, nslit, nfzp, nfoc = C5_ELECTRONS, C5_NSLIT, C5_NFZP, C5_NFOCUS
+    c5_run(torch.float32, 4, 2000, 2000, 16)       # warm-up
+    # launches of one filament (the undulator's integral, plain PyTorch)
+    und, slit, _, _ = config5_line(torch.float32)
+    w_ = slit.propagate_wave(None, nrays=nslit, prevOE=und,
+                             fixedEnergy=C5_E0,
+                             generator=torch.Generator().manual_seed(1))
+    nk = profiled_kernel_count(lambda: und.shine_wave(
+        torch.Generator().manual_seed(2), w_, C5_E0))
+    del w_
+    rec = []
+    torch.cuda.reset_peak_memory_stats()
+    tk.LAUNCHES.clear()
+    with recorded_b1(rec, C5_CHECK_DST):
+        res = c5_run(torch.float32, ne, nslit, nfzp, nfoc)
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    t0, t1, t2, t3, t4 = res['t']
+    hop = [(e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
+           for e in res['evs']]
+    pairs = C5_MODES * (nfzp * nslit + nfoc * nfoc * nfzp)
+    w = res['wAll'].double().cpu().numpy()[::-1]
+    print(f'phase 18 configuration 5: {ne} filaments x {nslit} slit '
+          f'samples (float32): {(t1 - t0) * 1e3:.1f} ms, '
+          f'{(t1 - t0) * 1e3 / ne:.2f} ms and {nk} kernel launches a '
+          f'filament (torch.profiler), solve_modes {(t2 - t1) * 1e3:.1f} '
+          f'ms; {C5_MODES} modes slit -> zone plate ({nfzp} samples) -> '
+          f'{nfoc}x{nfoc} focus: {(t4 - t3) * 1e3:.1f} ms, '
+          f'{pairs:.4e} pairs, {pairs / (t4 - t3):.3e} pairs/s; whole '
+          f'{(t4 - t0) * 1e3:.1f} ms; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+    for i, (a, b) in enumerate(hop):
+        print(f'phase 18 mode {i}: weight {w[i]:.6f}, slit -> zone plate '
+              f'{a:.2f} ms, zone plate -> focus {b:.2f} ms (CUDA events)',
+              flush=True)
+    check(launches == {'kirchhoff_recentred:mono': 2 * C5_MODES},
+          f'configuration 5: B1 launches {launches}')
+    check(abs(w.sum() - 1) < 1e-4 and w[0] > 0.25 and w[0] > 1.2 * w[1],
+          f'configuration 5 mode weights {w[:4]}, sum {w.sum()}')
+    # the zone mask: open fraction, float32 against float64 on the same
+    # samples
+    fzp64 = config5_line(torch.float64)[2]
+    wf64 = W.prepare_wave_on_oe(fzp64, res['slit'], nfzp,
+                                generator=torch.Generator().manual_seed(51),
+                                dtype=torch.float64, device='cuda')
+    open32 = float((res['zmask'] == 1).double().mean())
+    open64 = float((fzp64.rays_good(wf64.x, wf64.y, torch.ones_like(
+        wf64.state)) == 1).double().mean())
+    centre, outer = c5_focal_concentration(res)
+    dotc_w = float((res['wAll'].double() ** 2).sum())
+    print(f'phase 18 zone mask: open fraction {open32:.6f} (float64 on the '
+          f'same samples {open64:.6f}, {abs(open32 - open64):.2e}; limit '
+          f'1e-3); focal centre {centre:.6e} vs outer mean {outer:.6e} '
+          f'({centre / outer:.1f}x, limit 5x); DoTC of the slit stack '
+          f'{res["dotc_slit"]:.8f} vs sum of squared weights {dotc_w:.8f}',
+          flush=True)
+    check(0.2 < open32 < 0.8 and abs(open32 - open64) < 1e-3,
+          f'zone mask open fraction {open32} / {open64}')
+    check(centre > 5 * outer, f'focal concentration {centre} / {outer}')
+    check(abs(res['dotc_slit'] - dotc_w) < 1e-4,
+          f'slit DoTC {res["dotc_slit"]} vs sum w^2 {dotc_w}')
+    # the coherence analysis of the focal stack of the propagated modes
+    U = res['U']
+    axis = torch.as_tensor(res['dim'], dtype=torch.float32, device='cuda')
+    torch.cuda.synchronize()
+    ta = time.perf_counter()
+    dotc = float(tc.calc_degree_of_transverse_coherence_PCA(U))
+    wf, _ = tc.calc_eigen_modes_PCA(U, eigenN=C5_MODES)
+    cfx = tc.calc_1D_coherent_fraction(U, 'x', axis)
+    cfz = tc.calc_1D_coherent_fraction(U, 'z', axis)
+    doc, ref = tc.degree_of_coherence_map(U.reshape(C5_MODES, -1))
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    wf = wf.double().cpu().numpy()[::-1]
+    print(f'phase 18 focal coherence ({(tb - ta) * 1e3:.1f} ms): DoTC '
+          f'{dotc:.6f}; focal mode weights {np.round(wf / wf.sum(), 6)}; '
+          f'coherent fraction x {float(cfx[6]):.6f} (limDoC {cfx[5]}), z '
+          f'{float(cfz[6]):.6f} (limDoC {cfz[5]}); DoC map at the peak '
+          f'pixel {ref}: mean {float(doc.mean()):.6f}', flush=True)
+    check(0 < dotc <= 1 + 1e-5 and all(0 < float(c[6]) <= 1 + 1e-5
+                                       for c in (cfx, cfz)) and
+          abs(float(doc[ref]) - 1) < 1e-4, 'focal coherence analysis')
+    # every B1 launch of the run against the plain version on the last
+    # destinations
+    worst = 0.0
+    for D, S, P, v, out, _ in rec:
+        ref_rows = tk._plain_rows('recentred', v, D, S, P)
+        rel, _ = rel_err(tk._complex5(out), tk._complex5(ref_rows))
+        worst = max(worst, rel)
+    print(f'phase 18 the {len(rec)} B1 launches against the plain version '
+          f'on their last {C5_CHECK_DST} destinations: max rel {worst:.2e} '
+          f'(limit 2e-5)', flush=True)
+    check(len(rec) == 2 * C5_MODES and worst < 2e-5,
+          f'configuration 5 B1 against plain: {worst:.3e}')
+    shapes = collections.Counter((r[5], r[1].shape[1]) for r in rec)
+    timing['config5'] = dict(launches=launches, stages=res['stages'],
+                             shape_launches=shapes)
+    del res, rec, U
+
+    # float32 against float64: the whole path at a cut size
+    cross = {dt: c5_run(dt, **C5_CROSS) for dt in (torch.float32,
+                                                    torch.float64)}
+    r32, r64 = cross[torch.float32], cross[torch.float64]
+    w32 = r32['wAll'].double().cpu().numpy()[::-1][:C5_MODES]
+    w64 = r64['wAll'].double().cpu().numpy()[::-1][:C5_MODES]
+    ew = float(np.max(np.abs(w32 / w64 - 1)))
+    I32, I64 = r32['I'].double(), r64['I']
+    eI = float((I32 - I64).abs().max() / I64.max())
+    print(f'phase 18 float32 vs float64 ({C5_CROSS}): the {C5_MODES} '
+          f'largest weights to {ew:.2e} relative (limit 1e-3), focal '
+          f'max|dI|/max I {eI:.2e} (limit 5e-3)', flush=True)
+    check(ew < 1e-3 and eI < 5e-3, f'configuration 5 f32 vs f64: {ew}, '
+          f'{eI}')
+
+
+def config2_line(nrays, dtype):
+    """BASELINE configuration 2 (tests/test_baseline_configs.py:54-81):
+    bending magnet -> Rh toroid (15 m) -> slit -> screen (20 m)."""
+    from xrt_tpu_torch.apertures import RectangularAperture
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import ToroidMirror
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import BendingMagnet
+    dk = dict(dtype=dtype, device='cuda')
+    p, q, pitch = C2_P, C2_Q, C2_PITCH
+    bm = BendingMagnet.create(
+        nrays=nrays, eE=3.0, eI=0.5, B0=1.7, eEpsilonX=0.0, eEpsilonZ=0.0,
+        eMin=C5_E0 - 50, eMax=C5_E0 + 50, xPrimeMax=0.2e-3,
+        zPrimeMax=0.1e-3, **dk)
+    tor = ToroidMirror.create(
+        center=(0, p, 0), pitch=pitch, R=2 * p * q / (p + q) /
+        math.sin(pitch), r=2 * p * q / (p + q) * math.sin(pitch),
+        material=Material.create('Rh', rho=12.41, **dk),
+        limPhysX=(-15, 15), limPhysY=(-400, 400))
+    slit = RectangularAperture.create(
+        center=(0, p + 1000.0, 2 * pitch * 1000.0),
+        opening=(-5.0, 5.0, -5.0, 5.0))
+    scr = Screen.create(center=(0, p + q, 2 * pitch * q))
+    return bm, tor, slit, scr
+
+
+def c2_pass(line, rng):
+    """One pass of configuration 2: the screen image and the sums (good
+    rays, sum x, x^2, z, z^2; flux, sum I x, I x^2, I z, I z^2), float64
+    on the device."""
+    import torch
+    bm, tor, slit, scr = line
+    glo = tor.reflect(bm.shine(rng), rng)[0]
+    glo = slit.propagate(glo, needNewGlobal=True)[0]
+    img = scr.expose(glo)
+    good = (img.state == 1).double()
+    I = torch.where(img.state == 1, img.Jss + img.Jpp,
+                    torch.zeros_like(img.Jss)).double()
+    x, z = img.x.double(), img.z.double()
+    sums = torch.stack([w_ * v for w_ in (good, I)
+                        for v in (torch.ones_like(x), x, x * x, z, z * z)]
+                       ).sum(dim=1)
+    return img, sums
+
+
+def c2_moments(sums):
+    """(good rays, mean x, std x, mean z, std z) unweighted and the same
+    weighted by the intensity (flux in place of the rays), from the sums
+    of c2_pass over passes."""
+    import torch
+    s = torch.stack(list(sums)).sum(0).tolist()
+    out = []
+    for n, sx, sxx, sz, szz in (s[:5], s[5:]):
+        mx, mz = sx / n, sz / n
+        out.append((n, mx, math.sqrt(max(sxx / n - mx * mx, 0.0)), mz,
+                    math.sqrt(max(szz / n - mz * mz, 0.0))))
+    return out
+
+
+def c2_plot(bins=128):
+    from xrt_tpu_torch.plotspec import XYCAxis, XYCPlot
+    return XYCPlot(beam='screen', xaxis=XYCAxis('x', 'mm', bins=bins),
+                   yaxis=XYCAxis('z', 'mm', bins=bins),
+                   caxis=XYCAxis('energy', 'eV', bins=bins,
+                                 limits=(C5_E0 - 50, C5_E0 + 50)))
+
+
+def phase_config2(timing):
+    """Phase 19: BASELINE configuration 2 at 1e7 rays a pass through
+    run_ray_tracing; the bending magnet's and the wiggler's maps on the
+    golden's points; a wiggler shine."""
+    import os
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.sources import BendingMagnet, Wiggler
+    n, reps = C2_NRAYS, C2_REPEATS
+    line = config2_line(n, torch.float32)
+    bm, tor, slit, scr = line
+    entries, sums = [], []
+
+    def run_process(beamLine, rng):
+        torch.cuda.synchronize()
+        entries.append(time.perf_counter())
+        img, s = c2_pass(line, rng)
+        sums.append(s)
+        return {'screen': img}
+
+    rng = torch.Generator('cuda').manual_seed(31)
+    runner.run_ray_tracing(c2_plot(), repeats=1, run_process=run_process,
+                           rng=rng)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entries.clear()
+    sums.clear()
+    th.LAUNCHES.clear()
+    plot = c2_plot()
+    runner.run_ray_tracing(plot, repeats=reps, run_process=run_process,
+                           rng=rng)
+    torch.cuda.synchronize()
+    launches = dict(th.LAUNCHES)
+    t = entries + [time.perf_counter()]
+    pass_ms = [1e3 * (b - a) for a, b in zip(t[:-1], t[1:])]
+    med = statistics.median(pass_ms[1:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f'phase 19 configuration 2: {n} rays/pass ({n * bm.oversample} '
+          f'bending-magnet candidates), float32, {reps} passes + '
+          f'calibration: {", ".join(f"{v:.1f}" for v in pass_ms)} ms, '
+          f'median {med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; peak '
+          f'device memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+          flush=True)
+    check(launches == {f'hist_plot:{th.plot_route((128,) * 3)}': reps},
+          f'configuration 2: not one hist_plot launch a pass: {launches}')
+    for i, s in enumerate(sums):
+        (ng, _, sx, _, sz), _ = c2_moments([s])
+        print(f'phase 19 pass {i}: {int(ng)} rays through, footprint std x '
+              f'{sx * 1e3:.4f} um, z {sz * 1e3:.3f} um (limits 300, 100 '
+              f'um)', flush=True)
+        check(ng > 0.1 * n and sx < 0.3 and sz < 0.1,
+              f'configuration 2 footprint {ng}, {sx}, {sz}')
+    # one pass split by CUDA events; the shine's candidates through
+    # build_I_map alone; the search alone
+    ms, (beam, glo, glo2, img, hists) = step_split([
+        lambda: bm.shine(rng), lambda b: tor.reflect(b, rng)[0],
+        lambda g: slit.propagate(g, needNewGlobal=True)[0],
+        lambda g: scr.expose(g),
+        lambda i: runner.histogram_plot(plot, {'screen': i})])
+    M = n * bm.oversample
+    g = torch.Generator('cuda').manual_seed(32)
+    u = [torch.rand(M, generator=g, device='cuda') for _ in range(3)]
+    cand = (u[0] * (bm.eMax - bm.eMin) + bm.eMin,
+            u[1] * (bm.Theta_max - bm.Theta_min) + bm.Theta_min,
+            u[2] * (bm.Psi_max - bm.Psi_min) + bm.Psi_min)
+    imap_ms, _ = cuda_ms(lambda: bm._I_map_blocks(g, *cand))
+    del u, cand
+    s_ms, iters = search_alone(tor, beam)
+    print(f'phase 19 split of one pass (CUDA events): shine {ms[0]:.1f} ms '
+          f'(its {M} candidates through build_I_map alone {imap_ms:.1f} '
+          f'ms; the rest, draws, resampling and positions, '
+          f'{ms[0] - imap_ms:.1f} ms), reflect {ms[1]:.1f} ms (bracket + '
+          f'search alone {s_ms:.1f} ms in {iters} Illinois iterations), '
+          f'slit {ms[2]:.1f} ms, expose {ms[3]:.1f} ms, histograms '
+          f'{ms[4]:.2f} ms', flush=True)
+    x, y, cData, inten, fl, mask, _ = runner._plot_arrays(
+        plot, {'screen': img})
+    args = (x, y, cData, fl, inten, mask, (128, 128, 128),
+            tuple(tuple(a.limits) for a in (plot.xaxis, plot.yaxis,
+                                             plot.caxis)),
+            plot.colorFactor, plot.colorSaturation)
+    rel, same = plot_errors(th.hist_plot_kernel(*args),
+                            th.hist_plot_plain(*args,
+                                               sum_dtype=torch.float64))
+    print(f'phase 19 hist_plot on a configuration-2 pass: eight '
+          f'histograms vs plain float64 sums max rel {rel:.2e}, bins '
+          f'identical {same}', flush=True)
+    check(same and rel < 1e-5, f'configuration 2 hist_plot: {rel:.3e}')
+    timing['config2'] = dict(launches=launches, plot_args=args)
+    del beam, glo, glo2, img, hists
+
+    # float32 against float64 on the same 2e5 rays (float64 draws)
+    res = {}
+    for dt in (torch.float32, torch.float64):
+        _, s = c2_pass(config2_line(C2_CROSS_NRAYS, dt),
+                       torch.Generator().manual_seed(5))
+        res[dt] = c2_moments([s])[1]
+    (f32, mx32, sx32, mz32, sz32) = res[torch.float32]
+    (f64, mx64, sx64, mz64, sz64) = res[torch.float64]
+    errs = (abs(f32 / f64 - 1), abs(mx32 - mx64) / sx64,
+            abs(sx32 / sx64 - 1), abs(mz32 - mz64) / sz64,
+            abs(sz32 / sz64 - 1))
+    print(f'phase 19 configuration 2 float32 vs float64, {C2_CROSS_NRAYS} '
+          f'rays: flux per ray {f32 / C2_CROSS_NRAYS:.6f} / '
+          f'{f64 / C2_CROSS_NRAYS:.6f} ({errs[0]:.2e}), weighted means and '
+          f'sizes x {errs[1]:.2e} / {errs[2]:.2e}, z {errs[3]:.2e} / '
+          f'{errs[4]:.2e} (of the size; limit 1e-3)', flush=True)
+    check(max(errs) < 1e-3, f'configuration 2 f32 vs f64 {errs}')
+
+    # the bending magnet's and the wiggler's maps on the golden's points
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                SOURCES_GOLDEN))
+    for name, make in (('bm', lambda dk: BendingMagnet.create(
+            eE=6.0, eI=0.2, B0=0.85, eMin=10000, eMax=60000,
+            xPrimeMax=1.0, zPrimeMax=0.3, **dk)),
+            ('wig', lambda dk: Wiggler.create(
+                eE=3.0, eI=0.5, K=13.0, period=150.0, n=10, eMin=1000,
+                eMax=30000, xPrimeMax=1.0, zPrimeMax=0.3, **dk))):
+        out = {}
+        for dt in (torch.float32, torch.float64):
+            src = make(dict(dtype=dt, device='cuda'))
+            pts = [torch.as_tensor(gold[f'{name}_{k}'], dtype=dt,
+                                   device='cuda')
+                   for k in ('E', 'theta', 'psi')]
+            out[dt] = [v.cpu().numpy() for v in src.build_I_map(None,
+                                                                 *pts)]
+        g64 = out[torch.float64]
+        atol_I = 1e-3 if name == 'wig' else 0.0
+        e_gold = max(
+            float(np.max(np.abs(v - gold[f'{name}_{k}']) /
+                         (3e-8 * np.abs(gold[f'{name}_{k}']) + atol)))
+            for v, k, atol in ((g64[0], 'I', atol_I), (g64[1], 'Es', 1e-10),
+                               (g64[2], 'Ep', 1e-10)))
+        e32 = max(float(np.abs(a.astype(b.dtype) - b).max() /
+                        np.abs(b).max())
+                  for a, b in zip(out[torch.float32], g64))
+        finite = all(np.isfinite(np.abs(a)).all()
+                     for a in out[torch.float32])
+        print(f'phase 19 {name} build_I_map at ref_sources.npz\'s 693 '
+              f'points: float64 against the golden at its tolerances '
+              f'(rtol 3e-8): {e_gold:.3f} of the allowed; float32 against '
+              f'float64 {e32:.2e} (limit 1e-5), finite {finite}',
+              flush=True)
+        check(e_gold <= 1 and e32 < 1e-5 and finite,
+              f'{name} maps: {e_gold}, {e32}, finite {finite}')
+    wig = Wiggler.create(nrays=1_000_000, eE=3.0, eI=0.5, K=13.0,
+                         period=150.0, n=10, eMin=1000, eMax=30000,
+                         xPrimeMax=1.0, zPrimeMax=0.3, dtype=torch.float32,
+                         device='cuda')
+    wr = torch.Generator('cuda').manual_seed(33)
+    wig.shine(wr)
+    wms, wb = cuda_ms(lambda: wig.shine(wr))
+    check(bool(torch.isfinite(wb.Jss).all()) and float(wb.accepted) > 0,
+          'wiggler shine')
+    print(f'phase 19 wiggler shine: 1e6 rays (2e6 candidates), float32, '
+          f'{wms:.1f} ms (CUDA events)', flush=True)
+
+
+def phase_field_maps():
+    """Phase 20: the undulator's and the bending magnet's field maps on
+    their auto meshes."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch.sources import BendingMagnet, Undulator
+
+    def und(dt):
+        return Undulator.create(
+            eE=3.0, eI=0.5, period=18.0, n=111, targetE=(C5_E0, 7),
+            eEspread=8e-4, eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0,
+            betaZ=2.0, eMin=C5_E0 - 40, eMax=C5_E0 + 40, xPrimeMax=0.02,
+            zPrimeMax=0.02, gNodes=64, dtype=dt, device='cuda')
+
+    def bm(dt):
+        return BendingMagnet.create(
+            eE=3.0, eI=0.5, B0=1.7, eMin=C5_E0 - 50, eMax=C5_E0 + 50,
+            xPrimeMax=0.2, zPrimeMax=0.1, dtype=dt, device='cuda')
+    u32 = und(torch.float32)
+    u32.intensities_on_mesh(energy=np.array([C5_E0]))      # warm-up
+    rows = []
+    for name, fn in (
+            ('undulator Stokes', lambda: u32.intensities_on_mesh()),
+            ('undulator vortex', lambda: u32.intensities_on_mesh(
+                resultKind='vortex')),
+            ('undulator multi_electron_stack', lambda: u32.
+             multi_electron_stack(torch.Generator('cuda').manual_seed(3))),
+            ('bending magnet Stokes', lambda: bm(
+                torch.float32).intensities_on_mesh())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        shape = tuple(out[0].shape)
+        finite = all(np.isfinite(np.asarray(o.cpu() if hasattr(o, 'cpu')
+                                            else o)).all() for o in out)
+        rows.append((name, ms, shape, finite))
+        print(f'phase 20 {name}: {shape}, {ms:.1f} ms (host clock, '
+              f'synchronized; the field on the card, the Stokes / '
+              f'angular-momentum terms, the energy-spread average and the '
+              f'convolution on the host), finite {finite}', flush=True)
+        check(finite, f'{name} not finite')
+    npts = 65 * 33 * 33 * 36
+    print(f'phase 20 the undulator map: {npts} points (65 x 33 x 33 x 36 '
+          f'energy-spread samples) through the 64-node integral',
+          flush=True)
+    for name, make in (('undulator', und), ('bending magnet', bm)):
+        s32 = make(torch.float32).intensities_on_mesh()[0]
+        s64 = make(torch.float64).intensities_on_mesh()[0]
+        e = float(np.abs(s32 - s64).max() / np.abs(s64).max())
+        print(f'phase 20 {name} s0 float32 vs float64: max|d| / max '
+              f'{e:.2e} (limit {MAP_F32_LIMIT:g})', flush=True)
+        check(e < MAP_F32_LIMIT, f'{name} map f32 vs f64: {e}')
+
+
+def coherence_rows(timing):
+    """The kernels' rows on the coherence slice's paths: B1 at the two hop
+    shapes of configuration 5 (phase 18's launches) and ``hist_plot`` on
+    a configuration-2 pass (phase 19's)."""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    c5 = timing['config5']
+    rows = []
+    name, variant = 'kirchhoff_recentred', 'mono'
+    key = f'{name}:{variant}'
+    for hop, stage in zip(('slit-zoneplate', 'zoneplate-focus'),
+                          c5['stages']):
+        ms, plain_ms, ab, rel, Nd, Ns, _ = time_kernel(name, variant,
+                                                       stage)
+        bms, by = bound_ms(key, Nd, Ns)
+        launches = int(c5['shape_launches'].get((Nd, Ns), 0))
+        print(f'phase 5 {key}:config5-{hop}: {Nd} x {Ns} pairs, kernel '
+              f'{ms:.2f} ms, plain {plain_ms:.1f} ms, bound {bms:.2f} ms '
+              f'({by}), {bms / ms:.1%} of bound, '
+              f'{Nd * Ns / (ms * 1e-3):.3e} pairs/s, max rel {rel:.2e}, '
+              f'launches {launches}', flush=True)
+        check(rel < 2e-5, f'{key} at configuration 5 {hop}: {rel:.3e}')
+        check(launches == C5_MODES, f'{key} {hop}: {launches} launches')
+        rows.append(dict(name=f'{key}:config5-{hop}', route='cuda',
+                         source=SOURCES[name], replaces=REPLACES[name],
+                         launches=launches, max_abs_err=ab,
+                         max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=None,
+                         shape=f'{Nd}x{Ns}'))
+    args = timing['config2']['plot_args']
+    route = th.plot_route((128,) * 3)
+    kernel = lambda: th.hist_plot_kernel(*args)  # noqa: E731
+    kernel()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(kernel, 5)[0] for _ in range(3))
+    got = kernel()
+    plain_ms, _ = cuda_ms(lambda: th.hist_plot_plain(*args))
+    ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+    rel, _ = plot_errors(got, ref)
+    ab = max(float((got[k].double() - ref[k]).abs().max())
+             for k in th.PLOT_HISTS)
+    n = args[0].shape[0]
+    bms = 1e3 * (21.0 * n + 4.0 * (4 * (3 * 128 + 128 * 128) + 1)) / \
+        PEAK_BYTES
+    launches = int(timing['config2']['launches'].get(f'hist_plot:{route}',
+                                                     0))
+    print(f'phase 5 hist_plot:config2: {n} rays of a configuration-2 pass '
+          f'into eight histograms ({route}), kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.2f} ms, bound {bms:.4f} ms (bytes), launches '
+          f'{launches}', flush=True)
+    rows.append(dict(name='hist_plot:config2', route='cuda',
+                     source=SOURCES['hist_plot'],
+                     replaces=REPLACES['hist_plot'], launches=launches,
+                     max_abs_err=ab, max_rel_err=rel, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
+                     library_ms=None))
+    check(launches > 0, 'hist_plot:config2 was not launched on its path')
+    return rows
+
 def main():
     try:
         import torch
@@ -2645,9 +3324,12 @@ def main():
         phase_analyzer(timing)
         phase_dcm(timing)
         phase_config4(timing)
+        phase_coherent_modes(timing)
+        phase_config2(timing)
+        phase_field_maps()
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
-            timing['softimax_rows']
+            timing['softimax_rows'] + coherence_rows(timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

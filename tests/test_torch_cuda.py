@@ -48,7 +48,16 @@ check).  On the card:
 * the SoftiMAX slice: B2 on a contact tile pair of M2 -> PG against its
   plain version (2e-5), two launches bit-identical; the undulator field in
   float32 against float64 on the same samples (amplitude 1e-3, overlap
-  0.999).
+  0.999);
+* the coherence slice: the one-call hops of configuration 5 (source ->
+  slit, slit -> zone plate, zone plate -> screen) keep their waves on the
+  card and launch B1 once a Kirchhoff hop; ``solve_modes`` and the
+  coherence functions on CUDA tensors against their float64 CPU results;
+  the bending magnet's and the wiggler's shine with a CUDA generator
+  (beams on the card, one ``hist_plot`` through ``histogram_plot``) and
+  their float32 maps against float64 on the CPU (1e-5); the field maps of
+  a source on the card against the CPU (1e-5); the zone mask in float32
+  on the card against float64 away from zone edges.
 """
 import numpy as np
 import pytest
@@ -811,3 +820,156 @@ def test_undulator_field_float32_against_float64(cuda):
     ov = abs(np.vdot(e64, e32)) / np.sqrt(np.vdot(e64, e64).real *
                                           np.vdot(e32, e32).real)
     assert ov > 0.999
+
+
+def _c5(dtype, device):
+    import math
+    from xrt_tpu_torch.apertures import RectangularAperture
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import NormalFZP
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import Undulator
+    dk = dict(dtype=dtype, device=device)
+    und = Undulator.create(
+        nrays=100, eE=3.0, eI=0.5, period=18.0, n=111, targetE=(9000.0, 7),
+        eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0, betaZ=2.0,
+        xPrimeMax=0.02, zPrimeMax=0.02, gNodes=64, eMin=8999.0,
+        eMax=9001.0, **dk)
+    slit = RectangularAperture.create(center=(0, 25000.0, 0),
+                                      opening=(-0.04, 0.04, -0.04, 0.04))
+    fzp = NormalFZP.create(f=2000.0, E=9000.0, N=60,
+                           center=(0, 27000.0, 0), pitch=math.pi / 2,
+                           material=Material.create('Au', rho=19.3,
+                                                    kind='FZP', **dk))
+    return und, slit, fzp, Screen.create(center=(0, 29000.0, 0))
+
+
+def test_one_call_hops_stay_on_the_card_and_launch_b1(cuda):
+    und, slit, fzp, scr = _c5(torch.float32, 'cuda')
+    hop = dict(monochromatic=True, accumulate='vpu', narrowband=False)
+    tk.LAUNCHES.clear()
+    a = slit.propagate_wave(None, nrays=3000, prevOE=und, fixedEnergy=9000.0,
+                            generator=torch.Generator().manual_seed(1))
+    assert a.Es.device.type == 'cuda' and a.Es.dtype == torch.complex64
+    assert sum(tk.LAUNCHES.values()) == 0
+    glo, loc = fzp.propagate_wave(a, nrays=4000,
+                                  generator=torch.Generator().manual_seed(2),
+                                  **hop)
+    assert tk.LAUNCHES['kirchhoff_recentred:mono'] == 1
+    rN = fzp.limPhysX[1]
+    dim = np.linspace(-0.2 * rN, 0.2 * rN, 16)
+    f = scr.expose_wave(loc, dim, dim, prevOE=fzp, **hop)
+    assert tk.LAUNCHES['kirchhoff_recentred:mono'] == 2
+    for t in (glo.a, loc.Es, f.Es, f.Jss):
+        assert t.device.type == 'cuda'
+    assert bool(torch.isfinite(f.Jss).all()) and float(f.Jss.max()) > 0
+
+
+def test_modes_and_coherence_on_the_card(cuda):
+    from xrt_tpu_torch import coherence as tc, modes as tmodes
+    rng = np.random.default_rng(3)
+    base = np.exp(1j * rng.uniform(0, 6, 500))
+    fields = [(base * (1 + 0.3 * rng.normal()) + 0.2 * rng.normal(size=500),
+               0.1 * rng.normal(size=500) + 0j) for _ in range(12)]
+
+    def run(dev, dt):
+        f = [(torch.as_tensor(a, dtype=dt, device=dev),
+              torch.as_tensor(b, dtype=dt, device=dev)) for a, b in fields]
+        return tmodes.solve_modes(f, 4)
+    m32, w32, _ = run('cuda', torch.complex64)
+    m64, w64, _ = run('cpu', torch.complex128)
+    assert w32.device.type == 'cuda' and m32[0][0].device.type == 'cuda'
+    assert bool((w32[1:] >= w32[:-1]).all())       # ascending
+    np.testing.assert_allclose(w32.cpu().numpy(), w64.numpy(), atol=1e-5)
+    U = torch.as_tensor(rng.normal(size=(10, 12, 9)) +
+                        1j * rng.normal(size=(10, 12, 9)))
+    axis = torch.linspace(-1, 1, 12, dtype=torch.float64)
+    for fn in (tc.calc_degree_of_transverse_coherence_PCA,
+               lambda u: tc.calc_eigen_modes_PCA(u)[0],
+               lambda u: tc.calc_1D_coherent_fraction(
+                   u, 'x', axis.to(u.device))[6],
+               lambda u: tc.degree_of_coherence_map(
+                   u.reshape(10, -1))[0]):
+        got = fn(U.to('cuda', torch.complex64))
+        ref = fn(U)
+        assert got.device.type == 'cuda'
+        np.testing.assert_allclose(got.double().cpu().numpy(), ref.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_bending_magnet_and_wiggler_on_the_card(cuda):
+    import os
+    from xrt_tpu_torch import runner
+    from xrt_tpu_torch.plotspec import XYCAxis, XYCPlot
+    from xrt_tpu_torch.sources import BendingMagnet, Wiggler
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'golden', 'ref_sources.npz'))
+    kws = {'bm': (BendingMagnet, dict(eE=6.0, eI=0.2, B0=0.85, eMin=10000,
+                                      eMax=60000, xPrimeMax=1.0,
+                                      zPrimeMax=0.3)),
+           'wig': (Wiggler, dict(eE=3.0, eI=0.5, K=13.0, period=150.0, n=10,
+                                 eMin=1000, eMax=30000, xPrimeMax=1.0,
+                                 zPrimeMax=0.3))}
+    for name, (cls, kw) in kws.items():
+        src = cls.create(nrays=20000, dtype=torch.float32, device='cuda',
+                         **kw)
+        beam = src.shine(torch.Generator('cuda').manual_seed(4))
+        assert beam.x.device.type == 'cuda'
+        assert bool(torch.isfinite(beam.Jss).all())
+        pts = [gold[f'{name}_{k}'] for k in ('E', 'theta', 'psi')]
+        got = src.build_I_map(None, *(torch.as_tensor(
+            v, dtype=torch.float32, device='cuda') for v in pts))
+        ref = cls.create(dtype=torch.float64, device='cpu', **kw).build_I_map(
+            None, *(torch.as_tensor(v) for v in pts))
+        for g, r in zip(got, ref):
+            assert g.device.type == 'cuda'
+            r = r.numpy()
+            assert np.abs(g.cpu().numpy() - r).max() < 1e-5 * np.abs(r).max()
+        plot = XYCPlot(beam='b',
+                       xaxis=XYCAxis('x', 'mm', bins=64, limits=(-2, 2)),
+                       yaxis=XYCAxis('z', 'mm', bins=64, limits=(-2, 2)),
+                       caxis=XYCAxis('energy', 'eV', bins=64,
+                                     limits=(1000, 60000)))
+        th.LAUNCHES.clear()
+        runner.histogram_plot(plot, {'b': beam})
+        assert sum(th.LAUNCHES.values()) == 1
+
+
+def test_field_maps_on_the_card(cuda):
+    from xrt_tpu_torch.sources import BendingMagnet, Undulator
+    und_kw = dict(eE=3.0, eI=0.5, K=1.45, period=29.0, n=40,
+                  eEpsilonX=0.3, eEpsilonZ=0.01, eEspread=1e-3,
+                  eMin=3000.0, eMax=3200.0, xPrimeMax=0.05e-3,
+                  zPrimeMax=0.05e-3, gNodes=48)
+    kw = dict(energy=np.linspace(3050.0, 3150.0, 5), theta='auto',
+              psi='auto', eSpreadNSamples=6)
+    for make, kwm in ((lambda **d: Undulator.create(**und_kw, **d), kw),
+                      (lambda **d: BendingMagnet.create(
+                          eE=3.0, eI=0.5, B0=1.7, eMin=9000.0, eMax=11000.0,
+                          **d), {})):
+        got = make(dtype=torch.float32, device='cuda').intensities_on_mesh(
+            **kwm)
+        ref = make(dtype=torch.float64, device='cpu').intensities_on_mesh(
+            **kwm)
+        assert np.abs(got[0] - ref[0]).max() < 1e-5 * np.abs(ref[0]).max()
+    Es, _ = Undulator.create(**und_kw, dtype=torch.float32,
+                             device='cuda').multi_electron_stack(
+        torch.Generator('cuda').manual_seed(1), energy=[3100.0])
+    assert Es.device.type == 'cuda' and bool(torch.isfinite(Es.abs()).all())
+
+
+def test_zone_mask_float32_on_the_card(cuda):
+    _, _, fzp, _ = _c5(torch.float32, 'cuda')
+    rN = fzp.limPhysX[1]
+    xy = np.random.default_rng(5).uniform(-rN, rN, (2, 100000))
+    ones = torch.ones(100000, dtype=torch.int32)
+    x32, y32 = (torch.as_tensor(v, dtype=torch.float32, device='cuda')
+                for v in xy)
+    m32 = fzp.rays_good(x32, y32, ones.cuda()).cpu().numpy()
+    x64, y64 = (torch.as_tensor(v.astype(np.float32).astype(np.float64))
+                for v in xy)
+    m64 = fzp.rays_good(x64, y64, ones).numpy()
+    n = fzp._n_of_r(torch.hypot(x64, y64)).numpy()
+    far = np.abs(n - np.round(n)) > 1e-4
+    np.testing.assert_array_equal(m32[far], m64[far])
+    assert 0.3 < np.mean(m32 == 1) < 0.5

@@ -64,6 +64,8 @@ def test_import_adds_no_jax_or_reference_module():
     assert r.returncode == 0, r.stderr
     assert 'BAD []' in r.stdout, r.stdout
     assert len(mods) >= 15
+    assert {'xrt_tpu_torch.coherence', 'xrt_tpu_torch.modes',
+            'xrt_tpu_torch.kde'} <= set(mods)
 
 
 def test_no_import_statement_names_jax_or_the_reference():

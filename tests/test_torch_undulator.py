@@ -12,9 +12,11 @@ data.
   the JAX field to 1e-9 of max|Es| (the spherical phase k r is ~3e10 rad,
   where one ulp of r is ~4e-6 rad), and against xrt's field (overlap and
   amplitude, the bounds of ``tests/test_softimax_chain.py``); float32
-  against the JAX package's float32 field, run in a subprocess at XLA O0
-  (conftest ``run_in_clean_env(f32=True)``: at O1+ the double-float phase
-  loses its exactness), to 1e-5 of max|Es|.
+  against the float64 field: the amplitude to 1e-5 of max|Es|, and no
+  farther from it than the JAX package's float32 field, run in a
+  subprocess at XLA O0 (conftest ``run_in_clean_env(f32=True)``: at O1+
+  the double-float phase loses its exactness), which loses ~2e-3 in the
+  periodic factor (ROADMAP C16).
 * A run blocked into rays of ``ray_block`` equals the unblocked run bit for
   bit.
 """
@@ -210,14 +212,22 @@ def test_shine_wave_f32_matches_jax_f32(sx_ref, clean_env_runner, tmp_path):
     tw = interop.wave_from_numpy(arrays, device='cpu', dtype=torch.float32)
     got = Undulator.create(**SOFTIMAX).shine_wave(None, tw, 280.0)
     assert got.Es.dtype == torch.complex64
-    scale = float(np.abs(ref['Es']).max())
-    for name in ('Es', 'Ep'):
-        d = np.abs(getattr(got, name).numpy() - ref[name])
-        assert d.max() / scale < 1e-5, name
-    # and against the float64 field: the double-float phase holds
     f64 = Undulator.create(**SOFTIMAX).shine_wave(
         None, interop.wave_from_numpy(slit_wave_arrays(sx_ref), device='cpu',
                                       dtype=F64), 280.0)
+    scale = float(np.abs(f64.Es.numpy()).max())
+    for name in ('Es', 'Ep'):
+        t, j, e = (np.asarray(v) for v in (getattr(got, name).numpy(),
+                                            ref[name],
+                                            getattr(f64, name).numpy()))
+        # the port evaluates the periodic factor in float64 (ROADMAP C16):
+        # its float32 amplitude holds float64 to 1e-5 of the largest (the
+        # JAX package's float32 to ~2e-3), and its float32 field is no
+        # farther from float64 than the JAX package's
+        assert np.abs(np.abs(t) - np.abs(e)).max() / scale < 1e-5, name
+        assert np.abs(t - e).max() <= np.abs(j - e).max() + 1e-5 * scale, \
+            name
+    # the double-float phase holds
     assert _overlap(f64.Es.numpy(), got.Es.numpy()) > 0.9999
 
 
@@ -243,13 +253,13 @@ def test_unported_undulator_options_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP A8'):
         Undulator.create(**dict(GOLDEN_UND, gNodes=None))
     und = Undulator.create(**GOLDEN_UND)
-    for call in (und.power_vs_K, und.tuning_curves):
-        with pytest.raises(NotImplementedError, match='ROADMAP A'):
-            call()
-    # the ray-mode shine is ported: it runs on the card unless the source
-    # was made for the CPU
+    # the power is host arithmetic; the ray-mode shine and the field maps
+    # on meshes are ported: they run on the card unless the source was
+    # made for the CPU
+    assert und.power_vs_K() > 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA'):
             und.shine()
-    with pytest.raises(NotImplementedError, match='ROADMAP A9'):
-        und.intensities_on_mesh()
+        for call in (und.intensities_on_mesh, und.multi_electron_stack):
+            with pytest.raises(RuntimeError, match='CUDA'):
+                call()

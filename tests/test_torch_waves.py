@@ -226,13 +226,12 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     chain = WaveChain(src, nrays=10).through_aperture(slit)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         chain.build(mesh=object(), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ToroidMirror.create(gratingDensity=[1, 300.0])
-    # the second crystal of a DCM (is2ndXtal) is ported; a figure error and
-    # the physics of a grating's material are not
+    # the second crystal of a DCM (is2ndXtal), gratings and zone plates are
+    # ported; a figure error and the refraction of a plate or a lens are not
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ToroidMirror.create(figure_error=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tor.replace(material=Material.create(
-            'Au', rho=19.3, kind='plate', dtype=torch.float64,
-            device='cpu')).reflect(s0)
+    for kind in ('plate', 'lens'):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tor.replace(material=Material.create(
+                'Au', rho=19.3, kind=kind, dtype=torch.float64,
+                device='cpu')).reflect(s0)

@@ -89,6 +89,17 @@ class _ApertureBase(config.Replaceable):
             return self._to_global(lo), lo
         return lo
 
+    def propagate_wave(self, wave=None, nrays='auto', generator=None,
+                       fixedEnergy=None, prevOE=None, **kw):
+        """One-call Kirchhoff hop onto samples inside this opening (see
+        :func:`xrt_tpu_torch.waves.propagate_wave_to_aperture`).  Returns
+        the filled Wave."""
+        from .waves import propagate_wave_to_aperture
+        return propagate_wave_to_aperture(self, wave, nrays=nrays,
+                                          generator=generator,
+                                          fixedEnergy=fixedEnergy,
+                                          prevOE=prevOE, **kw)
+
     def _to_global(self, lo: Beam) -> Beam:
         ex, ey, ez, c = self.ex, self.ey, self.ez, self.center
         return lo.replace(

@@ -1,10 +1,10 @@
-"""Materials: elements, amorphous materials (mirror reflectivity) and
-crystals."""
+"""Materials: elements, amorphous materials (mirror reflectivity,
+transmittivity, grating efficiencies), the empty material and crystals."""
 from .element import Element
-from .material import Material
+from .material import EmptyMaterial, Material
 from .crystal import (Crystal, CrystalDiamond, CrystalFcc, CrystalFromCell,
                       CrystalSi)
 from . import data
 
-__all__ = ['Element', 'Material', 'Crystal', 'CrystalFcc', 'CrystalDiamond',
-           'CrystalSi', 'CrystalFromCell', 'data']
+__all__ = ['Element', 'Material', 'EmptyMaterial', 'Crystal', 'CrystalFcc',
+           'CrystalDiamond', 'CrystalSi', 'CrystalFromCell', 'data']

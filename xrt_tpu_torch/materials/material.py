@@ -1,34 +1,49 @@
 """Amorphous materials: refractive index, absorption and Fresnel
 amplitudes.
 
-Port of ``Material`` from the reference package's
-``materials/material.py`` for the mirror kinds ('mirror', 'thin mirror',
-'grating'), whose Fresnel reflectivity the mirrors need, and as the base
-of the crystals (``materials/crystal.py``: kind 'crystal', which needs the
-refractive index and the absorption coefficient).  The transmitting kinds,
-tabulated refractive-index files and grating-efficiency tables come with
-later slices (ROADMAP A8).
+Port of ``Material`` and ``EmptyMaterial`` from the reference package's
+``materials/material.py``: the Fresnel reflectivity of the mirror kinds
+('mirror', 'thin mirror', 'grating'), the transmittivity of the
+transmitting kinds ('plate', 'lens'; a zone plate's 'FZP' has unit
+amplitudes), tabulated grating efficiencies by order (constant or from an
+energy table), and the base of the crystals (``materials/crystal.py``:
+kind 'crystal', which needs the refractive index and the absorption
+coefficient).  Tabulated refractive-index files come with ROADMAP A8.
+
+The transmitting kinds square by products and divide tensors by tensors:
+PyTorch takes a complex ``z ** 2`` through exp and log and a Python number
+over a tensor as a reciprocal times the number (ROADMAP C12).  The mirror
+kinds keep the formulas their tests hold.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import config
+from ..ops.dd import sqrt_rn
+from ..ops.interp import fast_interp
 from ..physconsts import AVOGADRO, CH, CHBAR, PI2, R0
 from .element import Element
 
 _MIRROR_KINDS = ('mirror', 'thin mirror', 'grating')
+_TRANSMIT_KINDS = ('plate', 'lens', 'FZP')
 
 
 class Material:
     """A material given by chemical formula and density.
 
-    *kind*: 'mirror', 'thin mirror' or 'grating' ('auto' resolves to the
-    hosting element's preference).  *rho* in
-    g/cm^3, *t* thickness in mm (for 'thin mirror')."""
+    *kind*: 'mirror', 'thin mirror', 'grating', 'plate', 'lens' or 'FZP'
+    ('auto' resolves to the hosting element's preference).  *rho* in
+    g/cm^3, *t* thickness in mm (for 'thin mirror').  A grating's
+    tabulated efficiency: *efficiency_orders*, a tuple of orders, and
+    *efficiency_I*, a tensor of their efficiencies, (n_orders,) or, over
+    the energies *efficiency_E*, (n_orders, nE)."""
 
     def __init__(self, elements, quantities, rho, t=None, kind='auto',
-                 name='', table='Chantler total', refractiveIndex=None):
+                 name='', table='Chantler total', refractiveIndex=None,
+                 efficiency_orders=(), efficiency_I=None,
+                 efficiency_E=None):
         self.elements = elements
         self.quantities = quantities
         self.rho = rho
@@ -37,11 +52,18 @@ class Material:
         self.name = name
         self.table = table
         self.refractiveIndex = refractiveIndex
+        self.efficiency_orders = efficiency_orders
+        self.efficiency_I = efficiency_I
+        self.efficiency_E = efficiency_E
 
     @classmethod
     def create(cls, elements, quantities=None, kind='auto', rho=0.0, t=None,
                table='Chantler total', name='', refractiveIndex=None,
-               dtype=None, device=None):
+               efficiency=None, efficiencyFile=None, dtype=None,
+               device=None):
+        """The reference's constructor arguments.  *efficiency*: a list of
+        (order, efficiency) pairs or, with *efficiencyFile* (a text table
+        whose column 0 is the energy), (order, 1-based column)."""
         dt = config.resolve_dtype(dtype)
         dev = config.resolve_device(device)
         if isinstance(elements, str):
@@ -52,11 +74,27 @@ class Material:
             quantities = [1.0] * len(els)
         if name == '':
             name = ''.join(el.name for el in els)
+        eff_orders = ()
+        eff_I = eff_E = None
+        if efficiency is not None:
+            eff_orders = tuple(int(o) for o, _ in efficiency)
+            if efficiencyFile is None:
+                eff_I = torch.tensor([float(v) for _, v in efficiency],
+                                     dtype=dt, device=dev)
+            else:
+                data = np.loadtxt(efficiencyFile)
+                eff_E = torch.as_tensor(np.ascontiguousarray(data[:, 0]),
+                                        dtype=dt, device=dev)
+                eff_I = torch.as_tensor(
+                    np.stack([data[:, int(v)] for _, v in efficiency]),
+                    dtype=dt, device=dev)
         return cls(els, tuple(float(q) for q in quantities), float(rho),
                    t=None if t is None else float(t), kind=kind, name=name,
                    table=table,
                    refractiveIndex=None if refractiveIndex is None
-                   else complex(refractiveIndex))
+                   else complex(refractiveIndex),
+                   efficiency_orders=eff_orders, efficiency_I=eff_I,
+                   efficiency_E=eff_E)
 
     @property
     def mass(self):
@@ -66,6 +104,20 @@ class Material:
 
     def resolved_kind(self, default='mirror') -> str:
         return default if self.kind == 'auto' else self.kind
+
+    def get_grating_efficiency(self, E, order):
+        """(ampS, ampP) of each ray from the tabulated efficiency of its
+        diffraction *order* (interpolated in energy for a table); 0 for an
+        order that is not tabulated."""
+        resI = torch.zeros_like(E)
+        for i, o in enumerate(self.efficiency_orders):
+            if self.efficiency_E is None:
+                val = self.efficiency_I[i]
+            else:
+                val = fast_interp(E, self.efficiency_E, self.efficiency_I[i])
+            resI = torch.where(order == o, val, resI)
+        amp = sqrt_rn(torch.clamp(resI, min=0.0))
+        return amp, amp
 
     def get_refractive_index(self, E):
         """n(E) = 1 - r0 lambda^2 N_A rho / (2 pi M) sum_i x_i f_i(0)."""
@@ -84,28 +136,66 @@ class Material:
         return torch.abs(self.get_refractive_index(E).imag) * E / CHBAR * 2e8
 
     def get_amplitude(self, E, beamInDotNormal, fromVacuum=True):
-        """Fresnel amplitude reflectivity for s and p: (rs, rp,
+        """Fresnel amplitude reflectivity (the mirror kinds) or
+        transmittivity (the transmitting kinds) for s and p: (rs, rp,
         mu [1/cm], refraction phase [1/cm])."""
         kind = self.resolved_kind()
-        if kind not in _MIRROR_KINDS:
-            raise NotImplementedError(
-                f'material kind {kind!r} of {self.name} is not ported yet '
-                '(ROADMAP A8)')
+        if kind == 'FZP':
+            one = torch.ones_like(E)
+            return one, one, torch.zeros_like(one), torch.zeros_like(one)
+        if kind not in _MIRROR_KINDS + _TRANSMIT_KINDS:
+            raise ValueError(f'unknown material kind {kind!r} of '
+                             f'{self.name}')
         n = self.get_refractive_index(E)
         one_c = torch.ones_like(n)
         n1, n2 = (one_c, n) if fromVacuum else (n, one_c)
         cosAlpha = torch.abs(beamInDotNormal)
         sinAlpha2 = torch.clamp(1 - beamInDotNormal ** 2, min=0.0)
         n1cosAlpha = n1 * cosAlpha
-        q = (n1 / n2) ** 2 * sinAlpha2
+        if kind in _MIRROR_KINDS:
+            q = (n1 / n2) ** 2 * sinAlpha2
+        else:
+            r12 = n1 / n2
+            q = r12 * r12 * sinAlpha2
         cosBeta = torch.sqrt(torch.complex(1 - q.real, -q.imag))
         n2cosBeta = n2 * cosBeta
-        rs = (n1cosAlpha - n2cosBeta) / (n1cosAlpha + n2cosBeta)
-        rp = (n2 * cosAlpha - n1 * cosBeta) / (n2 * cosAlpha + n1 * cosBeta)
-        if kind == 'thin mirror':
-            arg = 2 * E / CHBAR * n2cosBeta * self.t * 1e7
-            p2 = torch.exp(torch.complex(-arg.imag, arg.real))
-            rs = rs * (1 - p2) / (1 - rs ** 2 * p2)
-            rp = rp * (1 - p2) / (1 - rp ** 2 * p2)
+        if kind in _MIRROR_KINDS:
+            rs = (n1cosAlpha - n2cosBeta) / (n1cosAlpha + n2cosBeta)
+            rp = (n2 * cosAlpha - n1 * cosBeta) / \
+                (n2 * cosAlpha + n1 * cosBeta)
+            if kind == 'thin mirror':
+                arg = 2 * E / CHBAR * n2cosBeta * self.t * 1e7
+                p2 = torch.exp(torch.complex(-arg.imag, arg.real))
+                rs = rs * (1 - p2) / (1 - rs ** 2 * p2)
+                rp = rp * (1 - p2) / (1 - rp ** 2 * p2)
+        else:
+            tf = sqrt_rn((n2cosBeta * n1.conj()).real /
+                         torch.clamp(cosAlpha, min=1e-300)) / torch.abs(n1)
+            two = 2 * n1cosAlpha
+            rs = two / (n1cosAlpha + n2cosBeta) * tf
+            rp = two / (n2 * cosAlpha + n1 * cosBeta) * tf
         return (rs, rp, torch.abs(n.imag) * E / CHBAR * 2e8,
                 n.real * E / CHBAR * 1e8)
+
+
+class EmptyMaterial:
+    """A geometry-only material (a grating whose efficiency is given
+    elsewhere): unit amplitudes, refractive index 1, no absorption."""
+
+    def __init__(self, kind='mirror', name='None'):
+        self.kind = kind
+        self.name = name
+
+    def resolved_kind(self, default='mirror') -> str:
+        return default if self.kind == 'auto' else self.kind
+
+    def get_refractive_index(self, E):
+        return torch.complex(torch.ones_like(E), torch.zeros_like(E))
+
+    def get_absorption_coefficient(self, E):
+        return torch.zeros_like(E)
+
+    def get_amplitude(self, E, beamInDotNormal, fromVacuum=True):
+        one = torch.ones_like(E)
+        zero = torch.zeros_like(one)
+        return one, one, zero, zero

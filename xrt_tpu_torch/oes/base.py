@@ -9,9 +9,12 @@ alignment energy or 'auto'), the local/global frames, ``local_z``/
 ``reflect`` (with the search, or with ``noIntersectionSearch=True`` for
 the wave hops, which reflect at the exact receiving samples), the element
 offsets and the second crystal of a DCM (``is2ndXtal``), and ``_interact``
-for the mirror kinds and for crystals: Bragg and Laue, symmetric or
-asymmetric through the crystal's grating vector (``_grating_deflection``),
-mosaic (``_mosaic_normal``), with the two-beam amplitudes.  Rays are never
+for the mirror kinds, for gratings and zone plates (the grating vector
+``local_g`` of the element, or of any OE given a ``gratingDensity``, into
+one order, several shared at random or a per-ray order, with tabulated
+efficiencies) and for crystals: Bragg and Laue, symmetric or asymmetric
+through the crystal's grating vector (``_grating_deflection``), mosaic
+(``_mosaic_normal``), with the two-beam amplitudes.  Rays are never
 filtered: the ``state`` mask selects which rays change.
 
 The search is a vectorized Illinois (modified regula falsi) iteration on
@@ -28,10 +31,9 @@ Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
 coordinate and classified, reflected and reported in (s, phi, r); an OE
 with ``analytic_intersect`` (the blazed grating) is intersected by it
-instead of the search.  The grating, refractive, multilayer and powder
-physics, figure errors, volumetric diffraction and bent-crystal
-(Takagi-Taupin) amplitudes come with ROADMAP A8 and raise
-``NotImplementedError``.
+instead of the search.  The refractive, multilayer and powder physics,
+figure errors, volumetric diffraction and bent-crystal (Takagi-Taupin)
+amplitudes come with ROADMAP A8 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -217,7 +219,9 @@ class OE(config.Replaceable):
     Material tables are tensors on the material's device.  *alpha* is a
     crystal's asymmetry angle: the Bragg planes are turned by it about x,
     and ``local_n`` gives the Bragg-plane normal and the surface normal as
-    six components."""
+    six components.  *gratingDensity* (rho0, P0, P1, ...) makes the
+    element a grating along *grooveAxis*: rho(t) = rho0 (P0 + 2 P1 t +
+    3 P2 t^2 + ...) lines/mm."""
 
     isParametric = False
 
@@ -227,7 +231,8 @@ class OE(config.Replaceable):
                  limPhysY=None, limOptX=None, limOptY=None, alpha=None,
                  material=None, shape='rect', rotationSequence='RzRyRx',
                  extraRotationSequence='RzRyRx', order=1, curSurface=0,
-                 overEdge='ymax', auto_material_kind='mirror'):
+                 overEdge='ymax', auto_material_kind='mirror',
+                 gratingDensity=None, grooveAxis='y'):
         self.name = name
         self.center = tuple(config.number(c) for c in center)
         self.pitch, self.roll, self.yaw = pitch, roll, yaw
@@ -246,6 +251,8 @@ class OE(config.Replaceable):
         self.curSurface = curSurface
         self.overEdge = overEdge
         self.auto_material_kind = auto_material_kind
+        self.gratingDensity = gratingDensity
+        self.grooveAxis = grooveAxis
 
     @classmethod
     def create(cls, name='', center=(0, 0, 0), pitch=0.0, roll=0.0, yaw=0.0,
@@ -259,11 +266,16 @@ class OE(config.Replaceable):
         """The reference's constructor arguments.  *bragg* adds to the
         pitch: an angle, or an alignment energy ('8000 eV') whose Bragg
         angle (less the refraction correction) the material gives, in the
-        material's dtype; 'auto' leaves it out."""
-        if figure_error is not None or gratingDensity is not None:
+        material's dtype; 'auto' leaves it out.  *gratingDensity* is the
+        reference's [axis, rho0, P0, P1, ...]."""
+        if figure_error is not None:
             raise NotImplementedError(
-                'figure errors and grating densities are not ported yet '
-                '(ROADMAP A8)')
+                'figure errors are not ported yet (ROADMAP A8)')
+        if gratingDensity is not None:
+            kwargs['grooveAxis'] = str(gratingDensity[0])
+            kwargs['gratingDensity'] = tuple(float(v)
+                                             for v in gratingDensity[1:])
+            kwargs.setdefault('auto_material_kind', 'grating')
         if isinstance(bragg, str):
             E_al = config.parse_energy(bragg)
             if E_al is not None:
@@ -314,6 +326,37 @@ class OE(config.Replaceable):
             bA, cA = rotate_x(zero, one, cos(self.alpha), -sin(self.alpha))
             return [zero, bA, cA, zero, zero, one]
         return [zero, zero, one]
+
+    def local_g(self, x, y):
+        """The local groove vector (1/mm) of an element with a
+        *gratingDensity*: -rho(t) along its groove axis."""
+        gd = self.gratingDensity
+        if gd is None:
+            raise NotImplementedError(
+                f'{type(self).__name__} has no grating vector: give it a '
+                'gratingDensity')
+        t = x if self.grooveAxis == 'x' else y
+        rho = gd[0] * torch.ones_like(t)
+        if len(gd) > 1:
+            poly = gd[1] * torch.ones_like(t)
+            for i in range(2, len(gd)):
+                poly = poly + i * gd[i] * t ** (i - 1)
+            rho = rho * poly
+        zero = torch.zeros_like(t)
+        if self.grooveAxis == 'x':
+            return [-rho, zero, zero]
+        return [zero, -rho, zero]
+
+    def propagate_wave(self, wave=None, nrays='auto', generator=None,
+                       fixedEnergy=None, prevOE=None, **kw):
+        """One-call Kirchhoff hop onto this OE and reflection at its surface
+        (see :func:`xrt_tpu_torch.waves.propagate_wave_to_oe`).  Returns
+        (beamGlobal, beamLocal)."""
+        from ..waves import propagate_wave_to_oe
+        return propagate_wave_to_oe(self, wave, nrays=nrays,
+                                    generator=generator,
+                                    fixedEnergy=fixedEnergy, prevOE=prevOE,
+                                    **kw)
 
     def _placement(self, is2ndXtal=False):
         pitch = self.pitch
@@ -629,15 +672,17 @@ class OE(config.Replaceable):
     def _interact(self, lb, goodN, roll, fromVacuum, tMax, material,
                   local_n=None, generator=None):
         """Direction update, reflectivity and polarization bookkeeping for
-        rays with state == 1: the mirror kinds, and Bragg and Laue crystals
-        (flat or mosaic, symmetric or asymmetric)."""
+        rays with state == 1: the mirror kinds, gratings and zone plates,
+        and Bragg and Laue crystals (flat or mosaic, symmetric or
+        asymmetric)."""
         if local_n is None:
             local_n = self.local_n
         matSur = material[self.curSurface] \
             if isinstance(material, (list, tuple)) else material
         kind = 'mirror' if matSur is None else \
             matSur.resolved_kind(self.auto_material_kind)
-        if kind not in ('mirror', 'thin mirror', 'crystal'):
+        if kind not in ('mirror', 'thin mirror', 'crystal', 'grating',
+                        'FZP'):
             raise NotImplementedError(
                 f'OE physics of kind {kind!r} is not ported yet '
                 '(ROADMAP A8)')
@@ -663,8 +708,14 @@ class OE(config.Replaceable):
         beamInDotSurfaceNormal = _dot3(lb.a, lb.b, lb.c, nsx, nsy, nsz) \
             if isAsymmetric else beamInDotNormal
         mosaic = crystal and matSur.mosaicity is not None
+        order_arr = None
 
-        if not crystal:
+        if kind in ('grating', 'FZP'):
+            a_out, b_out, c_out, order_arr = self._grating_deflection(
+                generator, lb.a, lb.b, lb.c, lb.E, self.local_g(lb.x, lb.y),
+                normal, beamInDotSurfaceNormal, self.order,
+                1 if kind == 'FZP' else -1)
+        elif not crystal:
             a_out = lb.a - nbx * 2 * beamInDotNormal
             b_out = lb.b - nby * 2 * beamInDotNormal
             c_out = lb.c - nbz * 2 * beamInDotNormal
@@ -710,6 +761,8 @@ class OE(config.Replaceable):
             ras, rap = matSur.get_amplitude(
                 lb.E, beamInDotSurfaceNormal,
                 _dot3(a_out, b_out, c_out, nsx, nsy, nsz), beamInDotNormal)
+        elif kind == 'grating' and getattr(matSur, 'efficiency_orders', ()):
+            ras, rap = matSur.get_grating_efficiency(lb.E, order_arr)
         else:
             ras, rap = matSur.get_amplitude(lb.E, beamInDotNormal,
                                             fromVacuum)[0:2]
@@ -731,6 +784,10 @@ class OE(config.Replaceable):
             mPh = torch.complex(torch.cos(arg), torch.sin(arg))
             updates['Es'] = torch.where(goodN, Es_l * ras * mPh, lb.Es)
             updates['Ep'] = torch.where(goodN, Ep_l * rap * mPh, lb.Ep)
+        if order_arr is not None:
+            prev = lb.order if lb.order is not None else \
+                torch.zeros_like(lb.x)
+            updates['order'] = torch.where(goodN, order_arr, prev)
         return lb.replace(**updates), rollAngle
 
 

@@ -79,6 +79,17 @@ class Screen(config.Replaceable):
                             c=lc, path=beam.path + path, state=state,
                             **propagated_amplitudes(beam, path))
 
+    def expose_wave(self, wave=None, dim1=None, dim2=None, generator=None,
+                    fixedEnergy=None, prevOE=None, **kw):
+        """One-call Kirchhoff hop onto this screen's pixel grid (see
+        :func:`xrt_tpu_torch.waves.expose_wave_on_screen`).  Returns the
+        filled Wave."""
+        from .waves import expose_wave_on_screen
+        return expose_wave_on_screen(self, wave, dim1, dim2,
+                                     generator=generator,
+                                     fixedEnergy=fixedEnergy, prevOE=prevOE,
+                                     **kw)
+
     def expose_global(self, beam: Beam, onlyPositivePath=False) -> Beam:
         """Like :meth:`expose` but returns the beam in the global frame."""
         ey, c = self.ey, self.center

@@ -16,9 +16,10 @@ PyTorch: the reference evaluates it in its array library, not in a kernel
 of its own.  Above ``2 * RAY_BLOCK`` rays ``shine`` and ``shine_wave``
 walk the rays in blocks of ``RAY_BLOCK``.
 
-The tapered and near-field integrals, the quadrature convergence search
-(``gNodes=None``), ``power_vs_K`` and ``tuning_curves`` come with ROADMAP
-A8 and raise ``NotImplementedError``.
+``power_vs_K``, ``tuning_curves`` and ``power_vs_K_through_aperture`` are
+host products of ``intensities_on_mesh`` (``_SynchrotronBase``).  The
+tapered and near-field integrals and the quadrature convergence search
+(``gNodes=None``) come with ROADMAP A8 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,10 +31,10 @@ import torch
 from .. import config
 from ..ops import dd
 from ..ops.dd import sqrt_rn
-from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, M0, PI,
-                          PI2, SIE0, SQ2, SQPI)
+from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, K2B, M0,
+                          PI, PI2, SIE0, SQ2, SQPI)
 from ..transforms import virgin_local_to_global
-from .synchrotron import _SynchrotronBase
+from .synchrotron import _SynchrotronBase, _ebeam_sizes
 
 #: quadrature nodes per step of the integral
 NODE_CHUNK = 64
@@ -45,7 +46,6 @@ _TAPER_TODO = f'the tapered undulator integral is not ported yet: {_A8}'
 _NEAR_TODO = f'the near-field undulator integral (R0) is not ported yet: {_A8}'
 _CONVERGE_TODO = ('the quadrature convergence search of the undulator '
                   f'(gNodes=None) is not ported yet: {_A8}; pass gNodes')
-_TUNING_TODO = f'undulator power and tuning curves are not ported yet: {_A8}'
 
 #: 1e7 / CHBAR as a double-float constant (k [1/mm] = E [eV] * KC)
 _KC = 1e7 / CHBAR
@@ -143,18 +143,8 @@ class Undulator(_SynchrotronBase):
             Ky = K
         if Ky is None:
             Ky = 4.4
-        epsX = eEpsilonX * 1e-6
-        epsZ = eEpsilonZ * 1e-6
-        if eSigmaX is not None:
-            dx = eSigmaX * 1e-3
-        else:
-            dx = math.sqrt(epsX * betaX * 1e3) if betaX else 0.0
-        if eSigmaZ is not None:
-            dz = eSigmaZ * 1e-3
-        else:
-            dz = math.sqrt(epsZ * betaZ * 1e3) if betaZ else 0.0
-        dxprime = epsX / dx if dx > 0 else 0.0
-        dzprime = epsZ / dz if dz > 0 else 0.0
+        dx, dz, dxprime, dzprime = _ebeam_sizes(
+            eSigmaX, eSigmaZ, eEpsilonX, eEpsilonZ, betaX, betaZ)
         xPrimeMax_ = xPrimeMax * 1e-3
         zPrimeMax_ = zPrimeMax * 1e-3
         if xPrimeMaxAutoReduce:
@@ -203,10 +193,52 @@ class Undulator(_SynchrotronBase):
         raise NotImplementedError(_CONVERGE_TODO)
 
     def power_vs_K(self, Ks=None):
-        raise NotImplementedError(_TUNING_TODO)
+        """Total radiated power in W, P = 0.633 E^2 [GeV] B^2 [T] L [m]
+        I [A], at *Ks* (this source's Ky if None; a number or an array)."""
+        Kv = self.Ky if Ks is None else np.asarray(Ks, float)
+        B = K2B * Kv / self.L0
+        length = self.L0 * self.Np * 1e-3
+        return 0.633 * (self.eE ** 2) * (B ** 2) * length * self.eI * 1e3
 
-    def tuning_curves(self, *args, **kwargs):
-        raise NotImplementedError(_TUNING_TODO)
+    @staticmethod
+    def _steps(*axes):
+        """The steps of mesh axes, 1 each when an axis has one point."""
+        try:
+            return tuple(a[1] - a[0] for a in axes)
+        except IndexError:
+            return (1.0,) * len(axes)
+
+    def tuning_curves(self, energy, theta, psi, harmonics, Ks):
+        """The largest flux of each of *harmonics* through the (theta, psi)
+        aperture over *energy*, for each K of *Ks*: (tunesE [keV], tunesF
+        [ph/s/0.1% bw]) shaped (len(Ks), len(harmonics))."""
+        energy = np.atleast_1d(np.asarray(energy, float))
+        theta = np.atleast_1d(np.asarray(theta, float))
+        psi = np.atleast_1d(np.asarray(psi, float))
+        dtheta, dpsi = self._steps(theta, psi)
+        tunesE, tunesF = [], []
+        for K in Ks:
+            I0 = self.replace(Ky=float(K)).intensities_on_mesh(
+                energy=energy, theta=theta, psi=psi, harmonic=harmonics)[0]
+            flux = I0.sum(axis=(1, 2)) * dtheta * dpsi   # (nE, nHarm)
+            tunesE.append(energy[np.argmax(flux, axis=0)] / 1000.0)
+            tunesF.append(np.max(flux, axis=0))
+        return np.array(tunesE), np.array(tunesF)
+
+    def power_vs_K_through_aperture(self, energy, theta, psi, Ks):
+        """The power [W] through the (theta, psi) aperture within *energy*
+        for each K of *Ks*."""
+        energy = np.atleast_1d(np.asarray(energy, float))
+        theta = np.atleast_1d(np.asarray(theta, float))
+        psi = np.atleast_1d(np.asarray(psi, float))
+        dtheta, dpsi, dE = self._steps(theta, psi, energy)
+        powers = []
+        for K in Ks:
+            I0 = self.replace(Ky=float(K)).intensities_on_mesh(
+                energy=energy, theta=theta, psi=psi)[0]
+            I0 = I0 * energy[:, None, None]   # per eV -> power density
+            powers.append(I0.sum() * dtheta * dpsi * dE * EV2ERG * 1e-7)
+        return np.array(powers)
 
     # ------------------------------------------------------------------
     def _integrate(self, ww1, w, wu, gamma, ddphi, ddpsi):
@@ -273,26 +305,40 @@ class Undulator(_SynchrotronBase):
         """(flux, amp_s, amp_p) at photon energies *w* (eV) and angles
         (*ddtheta*, *ddpsi*) (rad), tensors of one shape.  With an energy
         spread the Lorentz factor is *gamma* (per ray) where given, else
-        gamma + *dgamma*, or drawn from *generator* when both are None."""
+        gamma + *dgamma*, or drawn from *generator* when both are None.
+
+        The Lorentz factor, the harmonic number ww1 and the periodic factor
+        sin(pi Np ww1) / sin(pi ww1) are evaluated in float64 whatever the
+        rays' dtype: near a harmonic h both sines are near zero, and in
+        float32 their arguments (~pi Np h) carry ulps of ~1e-4 rad, which
+        put the factor out by up to 2.5x at the 7th harmonic of Np = 111
+        (ROADMAP C16).  In float64 these are the reference's operations."""
         dt, dev = w.dtype, w.device
         gamma0 = self.gamma
+        w64 = w.to(torch.float64)
         if gamma is None and self.eEspread > 0 and dgamma is not None:
-            gamma = gamma0 + dgamma * torch.ones_like(w)
+            g64 = gamma0 + dgamma * torch.ones_like(w64)
         elif gamma is None:
-            gamma = self._sample_gamma(generator, gamma0, w.shape, dt, dev)
-        gamma2 = gamma ** 2
+            g64 = self._sample_gamma(generator, gamma0, w.shape,
+                                     torch.float64, dev)
+        else:
+            g64 = gamma.to(torch.float64)
+        gamma = g64.to(dt)
+        gamma2 = g64 ** 2
         Kx, Ky = self.Kx, self.Ky
         wu = PI / self.L0 / gamma2 * \
             (2 * gamma2 - 1 - 0.5 * Kx ** 2 - 0.5 * Ky ** 2) / E2WC
-        ww1 = w * ((1. + 0.5 * Kx ** 2 + 0.5 * Ky ** 2) +
-                   gamma2 * (ddtheta ** 2 + ddpsi ** 2)) / (2. * gamma2 * wu)
+        ww1 = w64 * ((1. + 0.5 * Kx ** 2 + 0.5 * Ky ** 2) + gamma2 * (
+            ddtheta.to(torch.float64) ** 2 + ddpsi.to(torch.float64) ** 2)
+        ) / (2. * gamma2 * wu)
         sinw = torch.sin(PI * ww1)
         tiny = torch.finfo(dt).tiny
         sinw = torch.where(torch.abs(sinw) < tiny,
                            torch.full_like(sinw, tiny), sinw)
-        ab = 1. / PI2 / wu * torch.sin(PI * self.Np * ww1) / sinw
+        ab = (1. / PI2 / wu * torch.sin(PI * self.Np * ww1) / sinw).to(dt)
+        wu = wu.to(dt)
 
-        Is, Ip = self._integrate(ww1, w, wu, gamma, ddtheta, ddpsi)
+        Is, Ip = self._integrate(ww1.to(dt), w, wu, gamma, ddtheta, ddpsi)
 
         bwFact = 0.001 if self.distE == 'BW' else 1. / w
         Amp2Flux = FINE_STR * bwFact * self.eI / SIE0
@@ -308,20 +354,12 @@ class Undulator(_SynchrotronBase):
                 sqA * ab * Ip * 0.5 * dstep)
 
     def _I_map_blocks(self, generator, w, ddtheta, ddpsi, ray_block=None,
-                      gamma=None, dgamma=None):
-        """``build_I_map`` over the rays, in blocks of *ray_block*
-        (``RAY_BLOCK``) above two blocks: the same integral with bounded
-        temporaries.  *gamma* is per ray, *dgamma* one shift."""
-        n = w.shape[0]
-        rb = RAY_BLOCK if ray_block is None else int(ray_block)
-        if n <= 2 * rb:
-            return self.build_I_map(generator, w, ddtheta, ddpsi,
-                                    dgamma=dgamma, gamma=gamma)
-        outs = [self.build_I_map(
-            generator, w[j:j + rb], ddtheta[j:j + rb], ddpsi[j:j + rb],
-            dgamma=dgamma, gamma=None if gamma is None else gamma[j:j + rb])
-            for j in range(0, n, rb)]
-        return tuple(torch.cat(col) for col in zip(*outs))
+                      **kw):
+        """``build_I_map`` in blocks of *ray_block* (:data:`RAY_BLOCK`)
+        rays above two blocks."""
+        return super()._I_map_blocks(
+            generator, w, ddtheta, ddpsi,
+            RAY_BLOCK if ray_block is None else ray_block, **kw)
 
     def get_sigma_r02(self, E):
         """sigma_r0^2 (Tanaka & Kitamura, after their Eq. 23)."""
@@ -366,11 +404,11 @@ class Undulator(_SynchrotronBase):
         return (sqrt_rn(self.dxprime ** 2 + sigmaP_r2),
                 sqrt_rn(self.dzprime ** 2 + sigmaP_r2))
 
-    def _sample_positions(self, E, Theta0, nx, nz):
-        """x, z ~ N(0, SIGMA(E)) from the standard normals *nx*, *nz*;
-        y = 0."""
+    def _sample_positions(self, E, Theta0, r):
+        """x, z ~ N(0, SIGMA(E)) from the standard normals r['x'],
+        r['z']; y = 0."""
         sx, sz = self.get_SIGMA(E, onlyOddHarmonics=False)
-        return sx * nx, torch.zeros_like(E), sz * nz
+        return sx * r['x'], torch.zeros_like(E), sz * r['z']
 
     def shine(self, generator=None, toGlobal=True, withAmplitudes=True,
               fixedEnergy=False, draws=None):
@@ -391,7 +429,8 @@ class Undulator(_SynchrotronBase):
             beam = virgin_local_to_global(beam, self.center)
         return beam
 
-    def shine_wave(self, generator, wave, fixedEnergy, ray_block=None):
+    def shine_wave(self, generator, wave, fixedEnergy, ray_block=None,
+                   draws=None):
         """The coherent field of one macro-electron (filament) at the
         samples of *wave* (from a ``prepare_wave_on_*``), with the 1/r and
         sqrt(area) factors so that sum(|Es|^2 + |Ep|^2) estimates the flux,
@@ -399,11 +438,14 @@ class Undulator(_SynchrotronBase):
         through double-float arithmetic: k r is ~1e10 rad).
 
         The e-beam offsets and divergences (and the energy-spread shift)
-        are normal draws from *generator* (seed 0 if None).  Returns the
-        wave with E, Es, Ep, the coherency matrix and directions set."""
+        are normal draws from *generator* (seed 0 if None), or the five
+        standard normals *draws* (x, z, x', z', energy spread).  Returns
+        the wave with E, Es, Ep, the coherency matrix and directions
+        set."""
         dt, dev = wave.xDiffr.dtype, wave.xDiffr.device
         n = wave.xDiffr.shape[0]
-        g = _normals(generator, 5)
+        g = _normals(generator, 5) if draws is None else \
+            torch.as_tensor(draws, dtype=torch.float64)
         rX = self.dx * float(g[0])
         rZ = self.dz * float(g[1])
         dtheta = self.dxprime * float(g[2])

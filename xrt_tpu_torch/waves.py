@@ -27,8 +27,15 @@ receiving coordinates.
 
 Blockwise tiling (``diffract(tile_modes=...)``, modes from
 :func:`choose_tile_modes`) runs each (destination tile, source tile) pair
-of a float32 stage through the kernel mode chosen for it.  Not in this
-module yet: ``diffract(mesh=...)`` (multi-device), which raises
+of a float32 stage through the kernel mode chosen for it.
+
+The one-call hops (:func:`propagate_wave_to_oe`,
+:func:`expose_wave_on_screen`, :func:`propagate_wave_to_aperture`; the
+methods ``OE.propagate_wave``, ``Screen.expose_wave`` and
+``propagate_wave`` of the apertures) sample the receiver, fill it from the
+incoming wave (a synchrotron source shines its filament field there) and,
+onto an OE, reflect at the samples.  Not in this module yet:
+``diffract(mesh=...)`` (multi-device), which raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch.utils.checkpoint
 
 from . import config
 from .beam import Beam, rotate_coherency_matrix
-from .physconsts import CHBAR, PI
+from .physconsts import CH, CHBAR, PI
 from .ops.dd import sqrt_rn
 from .transforms import cos, rotate_xyz, rotate_y, sin
 
@@ -1019,3 +1026,87 @@ def reflect_wave(oe, b, generator=None, **kwargs):
     if b.s is not None:
         loc = loc.replace(s=b.s, phi=b.phi)
     return glo, loc
+
+
+def qualify_sampling(wave: Wave, E, goodlen):
+    """(Fresnel number, samples per Fresnel zone) of a receiving *wave*
+    at energy *E* with *goodlen* good samples."""
+    a = wave.xDiffr / wave.rDiffr
+    c = wave.zDiffr / wave.rDiffr
+    NAx = (torch.max(a) - torch.min(a)) * 0.5
+    NAz = (torch.max(c) - torch.min(c)) * 0.5
+    invLambda = E / CH * 1e7
+    fn = (NAx ** 2 + NAz ** 2) * torch.mean(wave.rDiffr) * invLambda
+    return fn, torch.abs(goodlen / fn)
+
+
+def _hop_setup(wave, prevOE, dtype, device):
+    """(prevOE, dtype, device) of a one-call hop: the element the incoming
+    samples live on (*wave.toOE* unless given), and the incoming wave's
+    dtype and device unless given."""
+    if prevOE is None:
+        prevOE = getattr(wave, 'toOE', None) if wave is not None else None
+    if prevOE is None:
+        raise ValueError('the incoming beam has no toOE (e.g. it came out '
+                         'of reflect); pass prevOE= explicitly')
+    if wave is not None:
+        dtype = wave.x.dtype if dtype is None else dtype
+        device = wave.x.device if device is None else device
+    return prevOE, dtype, device
+
+
+def _hop_nrays(wave, nrays):
+    """The samples of a hop: as many as *wave* has for 'auto', else
+    *nrays* (a number, or a mesh's (nx, ny))."""
+    if isinstance(nrays, str):
+        return wave.xDiffr.shape[0]
+    return nrays if isinstance(nrays, (tuple, list)) else int(nrays)
+
+
+def propagate_wave_to_oe(oe, wave, nrays='auto', generator=None,
+                         fixedEnergy=None, prevOE=None, samples=None,
+                         dtype=None, device=None, **dkw):
+    """One-call wave hop onto an OE: samples its surface (*nrays* random
+    samples, a mesh (nx, ny), 'auto' as many as *wave* has, or
+    *samples*), diffracts the
+    incoming *wave* onto them (or shines the filament field of a source
+    parent at *fixedEnergy*, *wave* then may be None), and reflects at the
+    samples without an intersection search.  *generator* draws the samples,
+    then what the source or the material draws; *dkw* goes to
+    :func:`diffract`.  Returns (beamGlobal, beamLocal) like reflect."""
+    prevOE, dtype, device = _hop_setup(wave, prevOE, dtype, device)
+    waveOnSelf = prepare_wave_on_oe(
+        oe, prevOE, None if samples is not None else _hop_nrays(wave, nrays),
+        generator=generator, samples=samples, dtype=dtype, device=device)
+    waveOnSelf = _shine_or_diffract(wave, waveOnSelf, generator,
+                                    fixedEnergy=fixedEnergy, **dkw)
+    retGlo, retLoc = reflect_wave(oe, waveOnSelf, generator)
+    if retLoc.area is None:
+        retLoc = retLoc.replace(area=waveOnSelf.area)
+    return retGlo, retLoc
+
+
+def expose_wave_on_screen(screen, wave, dim1, dim2, generator=None,
+                          fixedEnergy=None, prevOE=None, dtype=None,
+                          device=None, **dkw):
+    """One-call wave hop onto the pixel grid *dim1* x *dim2* of a screen.
+    Returns the filled Wave."""
+    prevOE, dtype, device = _hop_setup(wave, prevOE, dtype, device)
+    waveOnSelf = prepare_wave_on_screen(screen, prevOE, dim1, dim2,
+                                        dtype=dtype, device=device)
+    return _shine_or_diffract(wave, waveOnSelf, generator,
+                              fixedEnergy=fixedEnergy, **dkw)
+
+
+def propagate_wave_to_aperture(aperture, wave, nrays='auto', generator=None,
+                               fixedEnergy=None, prevOE=None, samples=None,
+                               dtype=None, device=None, **dkw):
+    """One-call wave hop onto samples inside an aperture's opening (drawn
+    inside it, so nothing is masked).  Returns the filled Wave."""
+    prevOE, dtype, device = _hop_setup(wave, prevOE, dtype, device)
+    waveOnSelf = prepare_wave_on_aperture(
+        aperture, prevOE,
+        None if samples is not None else _hop_nrays(wave, nrays),
+        generator=generator, samples=samples, dtype=dtype, device=device)
+    return _shine_or_diffract(wave, waveOnSelf, generator,
+                              fixedEnergy=fixedEnergy, **dkw)
