@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs twenty phases and exits
+process per source, in parallel), then runs twenty-four phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -199,12 +199,60 @@ non-zero if any fails:
     ``multi_electron_stack`` and the bending magnet's Stokes map, timed;
     s0 float32 against float64 to 1e-5 for both sources.
 
+21. bent crystals and Laue optics: (a) ``examples/04_bent_crystal_tt.py``,
+    Si(111) 0.1 mm at 9 keV, Rm inf / 5 / 2 / 1 m over 201 angles, 4000
+    Lawson steps, float32 and float64 timed, float32 against float64 (<
+    5e-2 of the peak), the launches of one ``tt_amplitudes`` call (by
+    torch.profiler at 50 and 100 steps); float64 against pyTTE's curves
+    in ``tests/golden/ref_tt.npz`` (read with numpy; the file must be in
+    the tree) at ``tests/test_tt.py``'s limits (Bragg 1e-4, Laue 1e-2 at
+    8000 steps; cylindrical, spherical, anticlastic; sigma and pi); the
+    gradient of the integrated reflectivity with respect to 1/R (1500
+    steps) by autograd against a central difference (2%); (b) the
+    bent-Laue monochromator of ``examples/13_laue_mono.py`` (Si(111) 0.7
+    mm, R = 2 m, useTT, 60 keV +- 600 eV) at 1e6 rays a pass, float32, 4
+    passes through ``run_ray_tracing``: pass time, nGood, flux, dE, the
+    split of a pass (source, search, TT amplitudes, expose, histograms),
+    ``hist_plot`` against its plain version (< 1e-5, the same non-empty,
+    NaN and infinite bins), float32 against float64 on 2e5 rays (flux per
+    ray within 1.9e-2 and weighted mean energy within 4.2 eV, about twice
+    the card's reading; the reference package's own float32 error on the
+    CPU, 8.64e-2 and 82 eV, is printed beside them); (c) ``BentLaue2D`` with
+    volumetric diffraction at ``tests/test_bentlaue2d.py``'s geometry, 1e6
+    rays, one reflect timed, its flux above a flat ``LauePlate``'s;
+22. the CRL of ``examples/14_lenses_crl.py`` (Be, focus 0.1 mm, zmax 1 mm,
+    t 0.05 mm, nCRL for f = 3 m at 9 keV, at 10 m; a flat 0.5 x 0.5 mm
+    parallel beam) at 1e6 rays a pass, float32, 4 passes: the lens count,
+    the focal distance (within 5% of the thin lens's), the focal sizes (<
+    20 um), the transmission, the pass time and a lens's, the searches and
+    host reads of a pass, the device's busy share of a pass
+    (torch.profiler), ``hist_plot`` against its plain version (as in 21);
+    a C plate's transmission against T_fresnel^2 e^(-mu t) (1e-3); float32
+    against float64 on 2e5 rays (focal distance, sizes, transmission;
+    printed);
+23. the [W/Si]x40 multilayer mirror of ``examples/10_multilayer.py`` at
+    the peak of its Parratt reflectivity, 1e6 rays a pass, float32, 4
+    passes: pass time, the split of a pass, the traced reflectivity
+    against the material's own at the rays' angles (1e-3),
+    ``get_amplitude``'s time and launches a call, ``hist_plot`` against its
+    plain version (as in 21), the peak reflectivity float32 against
+    float64 (1e-3);
+24. the Si powder rings of ``examples/15_xrd_powder.py`` (reflexes up to
+    333, Cu K-alpha, a flat detector 150 mm behind) at 1e6 rays a pass,
+    float32, 4 passes: pass time, the split of a pass with
+    ``reflect_multi_hkl``'s time, the weighted radii of the 111, 220 and
+    311 rings against Bragg's law (1%), ``hist_plot`` against its plain
+    version (< 1e-5; the same NaN and infinite bins, no bin filled by the
+    kernel alone, and a bin the kernel leaves empty, its faint rays under
+    the fixed-point unit, within its count of rays times half the unit,
+    ``fixed_quantum``).
+
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
 pass (phase 16's); B1's at configuration 5's two hop shapes, 2e5 x 1e5
 and 65536 x 2e5 (phase 18's launches, each against the plain version at
-the full shape), and ``hist_plot`` on a configuration-2 pass (phase
-19's).
+the full shape), ``hist_plot`` on a configuration-2 pass (phase
+19's), and ``hist_plot`` on a pass of each of phases 21-24.
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -2709,7 +2757,7 @@ def c5_run(dtype, electrons, nslit, nfzp, nfocus):
     und, slit, fzp, scr = config5_line(dtype)
     E0 = C5_E0
     g = torch.Generator().manual_seed(50)
-    sync()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     w0 = slit.propagate_wave(None, nrays=nslit, prevOE=und, fixedEnergy=E0,
                              generator=g, dtype=dtype, device='cuda')
@@ -2719,10 +2767,10 @@ def c5_run(dtype, electrons, nslit, nfzp, nfocus):
     for _ in range(electrons - 1):
         w = und.shine_wave(g, w0, E0)
         fields.append((w.Es * sq / norm, w.Ep * sq / norm))
-    sync()
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
     modes, wAll, flux = tmodes.solve_modes(fields, C5_MODES)
-    sync()
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
     # the stack solve_modes decomposes (phaseEsEp = 0): its DoTC is the sum
     # of the squared weights
@@ -2737,7 +2785,7 @@ def c5_run(dtype, electrons, nslit, nfzp, nfocus):
     rN = fzp.limPhysX[1]
     dim = np.linspace(-0.2 * rN, 0.2 * rN, nfocus)
     focal, evs, stages = [], [], None
-    sync()
+    torch.cuda.synchronize()
     t3 = time.perf_counter()
     for mEs, mEp in modes:
         src = w0.replace(Es=mEs, Ep=mEp, Jss=(mEs * torch.conj(mEs)).real,
@@ -2758,7 +2806,7 @@ def c5_run(dtype, electrons, nslit, nfzp, nfocus):
         if stages is None:
             stages = [(src, wave_fzp), (masked, W.prepare_wave_on_screen(
                 scr, fzp, dim, dim, dtype=dtype, device='cuda'))]
-    sync()
+    torch.cuda.synchronize()
     t4 = time.perf_counter()
     stack = torch.stack(focal)          # (modes, 2, nx, nz)
     I = (torch.abs(stack) ** 2).sum(dim=(0, 1))
@@ -3283,6 +3331,798 @@ def coherence_rows(timing):
     check(launches > 0, 'hist_plot:config2 was not launched on its path')
     return rows
 
+# ---------------------------------------------------------------------------
+# the rest of the OE physics: Takagi-Taupin and Laue crystals, refractive
+# lenses, multilayers and powders
+# ---------------------------------------------------------------------------
+
+#: rays a pass and passes of phases 21-24, and the float32 / float64
+#: cross-checks' rays
+OE_NRAYS, OE_REPEATS, OE_CROSS_NRAYS = 1_000_000, 4, 200_000
+#: examples/04_bent_crystal_tt.py: energy, radii (mm), angles, steps
+TT_E0, TT_RADII, TT_NANGLES, TT_NSTEPS = 9000.0, \
+    (math.inf, 5000.0, 2000.0, 1000.0), 201, 4000
+TT_GOLDEN = 'tests/golden/ref_tt.npz'
+#: examples/13_laue_mono.py: energy, distance, bending radius, band
+LAUE_E0, LAUE_P, LAUE_R, LAUE_DE = 60000.0, 10000.0, 2000.0, 600.0
+#: the reference package's own float32 error of the Laue monochromator's flux
+#: per ray and weighted mean energy (eV) against float64, on the CPU at 3000
+#: rays (tests/test_torch_laue.py), and the limits held on the card: about
+#: twice the port's own reading there at OE_CROSS_NRAYS rays (9.11e-3,
+#: 2.08 eV on an H100 80GB HBM3 at 700 W)
+LAUE_F32_REF, LAUE_F32_CARD = (8.64e-2, 82.0), (1.9e-2, 4.2)
+#: tests/test_bentlaue2d.py's volumetric crystal
+VD_E0, VD_RM, VD_RS = 40000.0, 2000.0, -10000.0
+#: examples/14_lenses_crl.py
+CRL_E0, CRL_P, CRL_F = 9000.0, 10000.0, 3000.0
+#: examples/10_multilayer.py
+ML_E0, ML_P, ML_Q = 8050.0, 10000.0, 2000.0
+#: examples/15_xrd_powder.py
+PW_E0, PW_A, PW_P, PW_D = 8047.8, 5.430710, 1000.0, 150.0
+
+
+def oe_passes(process, plot_fn, reps, seed, warm=True):
+    """A warm-up run of one pass (with *warm*), then *reps* passes through
+    run_ray_tracing: (plot, pass ms with the calibration pass first, the
+    median of the others, histogram launches, peak device memory, the
+    generator)."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    entries = []
+
+    def run_process(beamLine, rng):
+        torch.cuda.synchronize()
+        entries.append(time.perf_counter())
+        return process(rng)
+    rng = torch.Generator('cuda').manual_seed(seed)
+    if warm:
+        runner.run_ray_tracing(plot_fn(), repeats=1,
+                               run_process=run_process, rng=rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    entries.clear()
+    th.LAUNCHES.clear()
+    plot = plot_fn()
+    runner.run_ray_tracing(plot, repeats=reps, run_process=run_process,
+                           rng=rng)
+    torch.cuda.synchronize()
+    t = entries + [time.perf_counter()]
+    pass_ms = [1e3 * (b - a) for a, b in zip(t[:-1], t[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    return (plot, pass_ms, statistics.median(pass_ms[1:]),
+            dict(th.LAUNCHES), peak, rng)
+
+
+def fixed_quantum(m):
+    """The unit 2^-e of the histogram kernels' fixed-point sums for float32
+    weights bounded by *m*, in a launch of fewer than 2^34 rays
+    (hist_ray.cuh: fixed_exp with scale_count's n = 2^34).  A weight rounds
+    to the nearest multiple, so by at most half of it: 2^-e / 2 <= n m
+    2^-62 = m 2^-28."""
+    if not m > 0:
+        return 0.0
+    f0, pm = math.frexp(m)
+    f, p = math.frexp(f0 * 2 ** 34)
+    e = min(max(62 - (pm + p - (1 if f == 0.5 else 0)), -1000), 1000)
+    return math.ldexp(1.0, -e)
+
+
+def oe_hist_plot_check(phase, label, plot, beams, exact=True):
+    """The phase's ``hist_plot`` against ``hist_plot_plain`` with float64
+    sums on one pass's rays: max|h - h64| / max|h64| < 1e-5 and, with
+    *exact*, the same non-empty, NaN and infinite bins (plot_errors).
+
+    Without *exact* (a powder: its weights span twelve decades) a bin of
+    only faint rays may sum to zero in the kernel's fixed point.  The NaN
+    and infinite bins must still be the same, no bin may be filled by the
+    kernel alone, and a bin that the kernel leaves empty must hold no more
+    than its count of rays times half the fixed-point unit
+    (:func:`fixed_quantum`, of the largest finite |flux| times
+    max(1, |1 - colorSaturation|) for the 1D and colour columns, of the
+    largest finite |w2d| for the 2D intensity; hist_plot.cu: plot_exps),
+    with 1e-9 of it for the float64 sum's own rounding.  Returns the
+    kernel's arguments."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    x, y, cData, inten, fl, mask, _ = runner._plot_arrays(plot, beams)
+    bins = (plot.xaxis.bins, plot.yaxis.bins, plot.caxis.bins)
+    args = (x, y, cData, fl, inten, mask, bins,
+            tuple(tuple(a.limits) for a in (plot.xaxis, plot.yaxis,
+                                             plot.caxis)),
+            plot.colorFactor, plot.colorSaturation)
+    got = th.hist_plot_kernel(*args)
+    ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+    rel, same = plot_errors(got, ref)
+    if exact:
+        print(f'phase {phase} hist_plot on a {label} pass: eight histograms '
+              f'vs plain float64 sums max rel {rel:.2e} (limit 1e-5), bins '
+              f'identical {same}', flush=True)
+        check(same and rel < 1e-5, f'{label} hist_plot: {rel:.3e}, bins '
+              f'identical {same}')
+        return args
+    # the rays of each bin, and the largest rounding of one weight
+    ones = torch.ones_like(x)
+    count = th.hist_plot_plain(x, y, cData, ones, ones, mask, *args[6:],
+                               sum_dtype=torch.float64)
+    fmask = mask.to(x.dtype)
+    sat = torch.tensor(plot.colorSaturation, dtype=x.dtype)
+    big = lambda v: float(torch.nan_to_num(  # noqa: E731
+        (v * fmask).abs(), nan=0.0, posinf=0.0).max())
+    half = dict(a=0.5 * fixed_quantum(
+        big(fl) * float(torch.clamp((1 - sat).abs(), min=1.0))),
+        b=0.5 * fixed_quantum(big(inten)))
+    nonfinite_same, spurious, emptied, over = True, 0, 0, 0
+    worst = 0.0
+    for k in th.PLOT_HISTS + ('intensity',):
+        g, r = got[k].double(), ref[k]
+        nan_r, inf_r = torch.isnan(r), torch.isinf(r)
+        nonfinite_same &= bool(torch.equal(torch.isnan(g), nan_r) and
+                               torch.equal(g[inf_r], r[inf_r]) and
+                               torch.equal(torch.isinf(g), inf_r))
+        if k == 'intensity':
+            continue
+        fin = ~nan_r & ~inf_r
+        spurious += int(((g != 0) & (r == 0) & fin).sum())
+        lost = (g == 0) & (r != 0) & fin
+        emptied += int(lost.sum())
+        if lost.any():
+            c = count[k.replace('RGB', '')].to(r.device)
+            c = c[..., None].expand_as(r) if k.endswith('RGB') else c
+            limit = c[lost] * half['b' if k == 'xyh' else 'a'] * (1 + 1e-9)
+            over += int((r[lost].abs() > limit).sum())
+            worst = max(worst, float((r[lost].abs() / limit).max()))
+    print(f'phase {phase} hist_plot on a {label} pass: eight histograms vs '
+          f'plain float64 sums max rel {rel:.2e} (limit 1e-5); NaN and '
+          f'infinite bins the same {nonfinite_same}; bins filled by the '
+          f'kernel alone {spurious}; bins of faint rays that sum to zero '
+          f'{emptied}, their largest sum {worst:.3f} of its bound (rays x '
+          f'half a fixed-point unit), {over} above it', flush=True)
+    check(rel < 1e-5 and nonfinite_same and spurious == 0 and over == 0,
+          f'{label} hist_plot: {rel:.3e}, non-finite bins the same '
+          f'{nonfinite_same}, {spurious} spurious, {over} emptied bins '
+          'above the fixed-point bound')
+    return args
+
+
+def oe_plot(x, z, c):
+    from xrt_tpu_torch.plotspec import XYCAxis, XYCPlot
+    return XYCPlot(beam='screen', xaxis=XYCAxis(**x, bins=128),
+                   yaxis=XYCAxis(**z, bins=128), caxis=XYCAxis(**c, bins=128))
+
+
+def tt_launch_count(si, E, bIn):
+    """Kernel launches of one tt_amplitudes call at TT_NSTEPS steps: the
+    profiler's counts at 50 and 100 steps give the launches a step and
+    the fixed part."""
+    from xrt_tpu_torch.materials import tt
+    c1, c2, ir1 = tt.compute_tt_params(si, 0.0, Rm=2000.0, Rs=math.inf)
+    n = [profiled_kernel_count(lambda: tt.tt_amplitudes(
+        E, bIn, None, None, si, c1, c2, ir1, nsteps=s)) for s in (50, 100)]
+    per_step = (n[1] - n[0]) / 50
+    return per_step, n[0] - 50 * per_step
+
+
+class _Timed:
+    """Wraps a method of an object: CUDA events around each call, read
+    after the pass."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name = obj, name
+        self.orig = getattr(obj, name)
+        self.own = name in vars(obj)
+        self.pairs = []
+
+    def __enter__(self):
+        def timed(*a, **k):
+            ev = events(2)
+            ev[0].record()
+            out = self.orig(*a, **k)
+            ev[1].record()
+            self.pairs.append(ev)
+            return out
+        setattr(self.obj, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        if self.own:
+            setattr(self.obj, self.name, self.orig)
+        else:
+            delattr(self.obj, self.name)
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def laue_mono_line(nrays, dtype):
+    """examples/13_laue_mono.py: GeometricSource (60 keV +- 600 eV flat,
+    dz' 6e-4) -> Si(111) 'Laue reflected', 0.7 mm, useTT, on a
+    BentLaueCylinder (R = 2 m) at 10 m -> screen 2 m downstream."""
+    from xrt_tpu_torch.materials import CrystalSi
+    from xrt_tpu_torch.oes import BentLaueCylinder
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    cr = CrystalSi.create(hkl=(1, 1, 1), t=0.7, geom='Laue reflected',
+                          useTT=True, **dk)
+    thetaB = float(cr.get_Bragg_angle(LAUE_E0))
+    mono = BentLaueCylinder.create(
+        R=LAUE_R, center=(0, LAUE_P, 0), pitch=math.pi / 2 + thetaB,
+        material=cr, limPhysX=(-20, 20), limPhysY=(-20, 20))
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.1, dz=0.1, dxprime=1e-5, distzprime='flat',
+        dzprime=6e-4, distE='flat', energies=(LAUE_E0 - LAUE_DE,
+                                              LAUE_E0 + LAUE_DE),
+        polarization='horizontal', **dk)
+    scr = Screen.create(center=(0, LAUE_P + 2000.0 * math.cos(2 * thetaB),
+                                -2000.0 * math.sin(2 * thetaB)))
+    return src, mono, scr
+
+
+def flux_energy_sums(g):
+    """(rays, sum I, sum I E) of a beam's good rays, float64 on the
+    device."""
+    import torch
+    I = torch.where(g.state == 1, g.Jss + g.Jpp,
+                    torch.zeros_like(g.Jss)).double()
+    return torch.stack([torch.full_like(I[0], g.E.shape[0]), I.sum(),
+                        (I * g.E.double()).sum()])
+
+
+def phase_tt(timing):
+    """Phase 21: bent crystals by Takagi-Taupin integration and Laue
+    optics."""
+    import numpy as np
+    import os
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.materials import CrystalSi, tt
+    from xrt_tpu_torch.oes import BentLaue2D, LauePlate
+    from xrt_tpu_torch.sources import GeometricSource
+    f64, f32 = torch.float64, torch.float32
+    # (a) examples/04_bent_crystal_tt.py
+    si = {dt: CrystalSi.create(hkl=(1, 1, 1), t=0.1, dtype=dt, device='cuda')
+          for dt in (f32, f64)}
+    thetaB = float(si[f64].get_Bragg_angle(TT_E0))
+    scan = torch.linspace(-50e-6, 150e-6, TT_NANGLES, dtype=f64, device='cuda')
+    bIn = {f64: -torch.sin(thetaB + scan)}
+    bIn[f32] = bIn[f64].float()
+    E = {dt: torch.full((TT_NANGLES,), TT_E0, dtype=dt, device='cuda')
+         for dt in (f32, f64)}
+    dth = float(scan[1] - scan[0]) * 1e6
+    si[f32].get_amplitude_pytte(E[f32], bIn[f32], Ry=2000.0, nsteps=20)
+    for Rm in TT_RADII:
+        R, ms = {}, {}
+        for dt in (f32, f64):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs, _ = si[dt].get_amplitude_pytte(E[dt], bIn[dt], Ry=Rm,
+                                               alphaAsym=0.0,
+                                               nsteps=TT_NSTEPS)
+            R[dt] = (rs.abs() ** 2).double()
+            torch.cuda.synchronize()
+            ms[dt] = 1e3 * (time.perf_counter() - t0)
+        e32 = float((R[f32] - R[f64]).abs().max() / R[f64].max())
+        tag = 'flat' if math.isinf(Rm) else f'Rm = {Rm / 1000:g} m'
+        peakR = float(R[f64].max())
+        print(f'phase 21 Si(111) 0.1 mm {tag}: peak R {peakR:.4f}, '
+              f'integrated {float(R[f64].sum()) * dth:.4f} urad; '
+              f'{TT_NANGLES} angles, {TT_NSTEPS} steps: float32 '
+              f'{ms[f32]:.1f} ms, float64 {ms[f64]:.1f} ms (host clock, '
+              f'synchronized); float32 vs float64 max|dR|/R_peak '
+              f'{e32:.2e}', flush=True)
+        check(bool(torch.isfinite(R[f32]).all()) and e32 < 0.05,
+              f'TT {tag} float32: {e32}')
+    per_step, fixed = tt_launch_count(si[f32], E[f32], bIn[f32])
+    tt_launches = fixed + TT_NSTEPS * per_step
+    print(f'phase 21 tt_amplitudes launches (torch.profiler at 50 and 100 '
+          f'steps): {per_step:.1f} a step + {fixed:.0f}, '
+          f'{tt_launches:.0f} at {TT_NSTEPS} steps', flush=True)
+    # float64 against pyTTE's curves
+    gold = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                TT_GOLDEN))
+    gscan = torch.as_tensor(gold['scan'], dtype=f64, device='cuda')
+    gE = torch.full(gscan.shape, float(gold['E0']), dtype=f64, device='cuda')
+    th_ = float(gold['thetaB']) + gscan
+    Rm = float(gold['Rm_mm'])
+    worst = 0.0
+    for geom, atol, ns in (('Bragg reflected', 1e-4, 4000),
+                           ('Laue reflected', 1e-2, 8000)):
+        cr = CrystalSi.create(hkl=(1, 1, 1), t=float(gold['t_mm']),
+                              geom=geom, dtype=f64, device='cuda')
+        args = (-torch.sin(th_),) if geom.startswith('B') else \
+            (-torch.cos(th_), -torch.cos(th_), torch.sin(th_))
+        for tag, Rx in (('', None), ('_sph', Rm), ('_acl', -Rm)):
+            rs, rp = cr.get_amplitude_pytte(gE, *args, Ry=Rm, Rx=Rx,
+                                            alphaAsym=0.0, nsteps=ns)
+            for pol, r in (('sigma', rs), ('pi', rp)):
+                key = f'{geom[:5].lower().strip()}_{pol}{tag}_R'
+                err = float(np.abs((r.abs() ** 2).cpu().numpy() -
+                                   gold[key].real).max())
+                worst = max(worst, err / atol)
+                check(err <= atol, f'TT {key}: {err} > {atol}')
+    print(f'phase 21 float64 against ref_tt.npz (pyTTE; Bragg atol 1e-4, '
+          f'Laue 1e-2; cylindrical, spherical, anticlastic; sigma, pi): '
+          f'worst {worst:.3f} of the allowed', flush=True)
+    # d(integrated R) / d(1/R) by autograd against a central difference
+    cr = si[f64]
+    c1_0, c2_0, _ = tt.compute_tt_params(cr, 0.0, Rm=2000.0, Rs=math.inf)
+
+    def integrated(invR):
+        rs, _ = tt.tt_amplitudes(E[f64], bIn[f64], None, None, cr,
+                                 c1_0 * invR * 2e6, c2_0 * invR * 2e6,
+                                 invR, nsteps=1500, autoLimits=False)
+        return torch.sum(rs.abs() ** 2)
+    invR = torch.tensor(5e-7, dtype=f64, device='cuda', requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    integrated(invR).backward()
+    grad = float(invR.grad)
+    gms = 1e3 * (time.perf_counter() - t0)
+    with torch.no_grad():
+        fd = (float(integrated(5e-7 + 1e-9)) -
+              float(integrated(5e-7 - 1e-9))) / 2e-9
+    print(f'phase 21 d(integrated R)/d(1/R), 1500 steps: autograd {grad:.6e}'
+          f', central difference {fd:.6e} ({abs(grad / fd - 1):.2e}; limit '
+          f'2e-2); forward + backward {gms:.0f} ms', flush=True)
+    check(abs(grad / fd - 1) < 2e-2, f'TT gradient {grad} vs {fd}')
+
+    # (b) the bent-Laue monochromator
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, mono, scr = laue_mono_line(n, f32)
+
+    def process(rng):
+        glo = mono.reflect(src.shine(rng), rng)[0]
+        return {'screen': scr.expose(glo)}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='mm', limits=(-2, 2)),
+                       dict(label='z', unit='mm'),
+                       dict(label='energy', unit='keV'))
+    # no warm-up run: nothing is compiled, and a pass is ~4 s of
+    # Takagi-Taupin steps (the calibration pass is not in the median)
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 41, warm=False)
+    print(f'phase 21 bent-Laue monochromator (Si(111) 0.7 mm, R = 2 m, '
+          f'useTT, {LAUE_E0 / 1e3:g} keV +- {LAUE_DE:g} eV): {n} rays/pass, '
+          f'float32, {reps} passes + calibration: '
+          f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median {med:.1f} '
+          f'ms, {n / (med * 1e-3):.3e} rays/s; nGood {plot.nRaysGood}, flux '
+          f'{plot.intensity:.6g}, dE {plot.dE * 1e3:.4g} eV; peak device '
+          f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'Laue mono: not one hist_plot launch a pass: {launches}')
+    check(plot.nRaysGood > 0 and plot.intensity > 0, 'Laue mono: no flux')
+    with _Timed(mono.material, 'get_amplitude_pytte') as tamp:
+        ms, (beam, glo, img, hists) = step_split([
+            lambda: src.shine(rng), lambda b: mono.reflect(b, rng)[0],
+            lambda g: scr.expose(g),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    s_ms, iters = search_alone(mono, beam)
+    tt_ms = tamp.ms()
+    print(f'phase 21 split of a Laue pass (CUDA events): source {ms[0]:.1f} '
+          f'ms, reflect {ms[1]:.1f} ms (bracket + search alone {s_ms:.1f} ms '
+          f'in {iters} Illinois iterations; TT amplitudes {tt_ms:.1f} ms, '
+          f'{tt_launches:.0f} launches), expose {ms[2]:.1f} ms, histograms '
+          f'{ms[3]:.2f} ms', flush=True)
+    args = oe_hist_plot_check(21, 'Laue', plot, {'screen': img})
+    timing['laue'] = dict(launches=launches, plot_args=args)
+    del beam, glo, img, hists
+    res = {}
+    for dt in (f32, f64):
+        s_, m_, _ = laue_mono_line(OE_CROSS_NRAYS, dt)
+        g = m_.reflect(s_.shine(torch.Generator().manual_seed(5)))[0]
+        nr, fl, fE = flux_energy_sums(g).tolist()
+        res[dt] = (fl / nr, fE / fl)
+    ef = abs(res[f32][0] / res[f64][0] - 1)
+    eE = abs(res[f32][1] - res[f64][1])
+    print(f'phase 21 Laue mono float32 vs float64, {OE_CROSS_NRAYS} rays: '
+          f'flux per ray {res[f32][0]:.6e} / {res[f64][0]:.6e} ({ef:.2e}; '
+          f'limit {LAUE_F32_CARD[0]:.1e}; the reference package\'s own '
+          f'float32 on the CPU {LAUE_F32_REF[0]:.2e}), weighted mean E '
+          f'{eE:.3f} eV (limit {LAUE_F32_CARD[1]:g} eV; the reference '
+          f'package\'s {LAUE_F32_REF[1]:g} eV)', flush=True)
+    check(ef <= LAUE_F32_CARD[0] and eE <= LAUE_F32_CARD[1],
+          f'Laue mono float32 vs float64: {ef}, {eE}')
+
+    # (c) volumetric diffraction in a 2D-bent Laue crystal
+    dk = dict(dtype=f32, device='cuda')
+    cr = CrystalSi.create(hkl=(1, 1, 1), t=0.2, geom='Laue reflected',
+                          volumetricDiffraction=True, **dk)
+    thB = float(cr.get_Bragg_angle(VD_E0))
+    geo = dict(center=(0, 1000.0, 0), pitch=thB + math.pi / 2,
+               limPhysX=(-10, 10), limPhysY=(-10, 10))
+    oe = BentLaue2D.create(Rm=VD_RM, Rs=VD_RS, material=cr, **geo)
+    flat = LauePlate.create(material=CrystalSi.create(
+        hkl=(1, 1, 1), t=0.2, geom='Laue reflected', **dk), **geo)
+    vsrc = GeometricSource.create(nrays=n, dzprime=1e-4, energies=(VD_E0,),
+                                  distE='lines', **dk)
+    beam = vsrc.shine(torch.Generator('cuda').manual_seed(7))
+    g = torch.Generator('cuda').manual_seed(8)
+    oe.reflect(beam, g)
+    vms, (vglo, _) = cuda_ms(lambda: oe.reflect(beam, g))
+    fglo = flat.reflect(beam)[0]
+    fv, ff = (float(torch.where(b.state == 1, b.Jss + b.Jpp,
+                                torch.zeros_like(b.Jss)).double().sum())
+              for b in (vglo, fglo))
+    print(f'phase 21 BentLaue2D with volumetric diffraction (Rm 2 m, Rs '
+          f'-10 m, 0.2 mm, 40 keV): {n} rays, one reflect {vms:.1f} ms (CUDA '
+          f'events); integrated flux {fv:.6g} against the flat LauePlate\'s '
+          f'{ff:.6g}', flush=True)
+    check(fv > ff > 0, f'volumetric flux {fv} <= flat {ff}')
+
+
+def crl_line(nrays, dtype, nCRL=None):
+    """examples/14_lenses_crl.py: a flat 0.5 x 0.5 mm parallel beam at 9
+    keV -> Be ParaboloidFlatLens stack (focus 0.1 mm, zmax 1 mm, t 0.05
+    mm, nCRL for f = 3 m) at 10 m -> screen at the thin-lens focus."""
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import ParaboloidFlatLens
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    mat = Material.create('Be', rho=1.848, kind='lens', **dk)
+    lens = ParaboloidFlatLens.create(
+        focus=0.1, zmax=1.0, nCRL=(CRL_F, CRL_E0) if nCRL is None else nCRL,
+        material=mat, center=(0, CRL_P, 0), t=0.05, limPhysX=(-2, 2),
+        limPhysY=(-2, 2))
+    delta = 1.0 - float(mat.get_refractive_index(CRL_E0).real)
+    f_real = 2 * 0.1 / (lens.nCRL * delta)
+    src = GeometricSource.create(
+        nrays=nrays, distx='flat', dx=0.5, distz='flat', dz=0.5,
+        distxprime=None, distzprime=None, dxprime=0.0, dzprime=0.0,
+        distE='lines', energies=(CRL_E0,), polarization='horizontal', **dk)
+    return src, lens, Screen.create(center=(0, CRL_P + f_real, 0)), f_real
+
+
+def crl_numbers(glo, img):
+    """(focal distance from the rays' crossings of the axis, std x, std z
+    on the screen, transmission) of a beam after the stack."""
+    import torch
+    good = glo.state == 1
+    x, y, a, b = (v.double()[good] for v in (glo.x, glo.y, glo.a, glo.b))
+    far = x.abs() > 0.1
+    f = float(torch.median((y - x * b / a)[far])) - CRL_P
+    I = torch.where(good, glo.Jss + glo.Jpp,
+                    torch.zeros_like(glo.Jss)).double()
+    gi = img.state == 1
+    return (f, float(img.x.double()[gi].std()),
+            float(img.z.double()[gi].std()), float(I.sum()) / I.numel())
+
+
+def phase_crl(timing):
+    """Phase 22: the CRL stack of examples/14_lenses_crl.py."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import Plate
+    from xrt_tpu_torch.oes import base as oebase
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, lens, scr, f_real = crl_line(n, f32)
+
+    def process(rng):
+        return {'screen': scr.expose(lens.multiple_refract(src.shine(rng),
+                                                           rng)[0])}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='um', limits=(-30, 30)),
+                       dict(label='z', unit='um', limits=(-30, 30)),
+                       dict(label='energy', unit='eV',
+                            limits=(CRL_E0 - 1, CRL_E0 + 1)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 42)
+    print(f'phase 22 CRL: {lens.nCRL} Be lenses, thin-lens focus '
+          f'{f_real:.1f} mm; {n} rays/pass, float32, {reps} passes + '
+          f'calibration: {", ".join(f"{v:.1f}" for v in pass_ms)} ms, median '
+          f'{med:.1f} ms ({med / lens.nCRL:.2f} ms a lens), '
+          f'{n / (med * 1e-3):.3e} rays/s; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'CRL: not one hist_plot launch a pass: {launches}')
+    # the searches and their host reads in one pass
+    counts = []
+    orig = oebase.find_intersection_dz
+
+    def counted(dz_fn, *a, **k):
+        evals = []
+
+        def f(*xyz):
+            evals.append(1)
+            return dz_fn(*xyz)
+        out = orig(f, *a, **k)
+        counts.append(len(evals))
+        return out
+    oebase.find_intersection_dz = counted
+    try:
+        ms, (beam, glo, img, hists) = step_split([
+            lambda: src.shine(rng),
+            lambda b: lens.multiple_refract(b, rng)[0],
+            lambda g: scr.expose(g),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    finally:
+        oebase.find_intersection_dz = orig
+    # dz evaluations: 2 bracket ends, the iterations, 2 Newton steps; a
+    # host read at the start of every iteration and at the end
+    reads = sum(c - 3 for c in counts)
+    host_ms = [0.0]
+
+    def one_pass():
+        t0 = time.perf_counter()
+        process(rng)
+        torch.cuda.synchronize()
+        host_ms[0] = 1e3 * (time.perf_counter() - t0)
+    dev_ms = profiled_device_ms(one_pass)
+    f, sx, sz, T = crl_numbers(glo, img)
+    print(f'phase 22 split of a CRL pass (CUDA events): source {ms[0]:.1f} '
+          f'ms, multiple_refract {ms[1]:.1f} ms ({len(counts)} searches, '
+          f'{reads} host reads), expose {ms[2]:.1f} ms, histograms '
+          f'{ms[3]:.2f} ms; device busy {dev_ms:.1f} ms of a {host_ms[0]:.1f}'
+          f' ms pass under the profiler ({dev_ms / host_ms[0]:.1%})',
+          flush=True)
+    print(f'phase 22 CRL focus: crossing distance {f:.2f} mm (thin lens '
+          f'{f_real:.2f}), sizes at the thin-lens focus {sx * 1e3:.3f} x '
+          f'{sz * 1e3:.3f} um (std x, z), transmission {T:.5f}; plot flux '
+          f'{plot.intensity:.6g}, dx {plot.dx:.4g} um, dy {plot.dy:.4g} um',
+          flush=True)
+    check(abs(f / f_real - 1) < 0.05 and sx < 0.02 and sz < 0.02 and
+          0.3 < T < 1.0, f'CRL focus {f}, {sx}, {sz}, {T}')
+    args = oe_hist_plot_check(22, 'CRL', plot, {'screen': img})
+    timing['crl'] = dict(launches=launches, plot_args=args)
+    del beam, glo, img, hists
+    # a plate's transmission: T_fresnel^2 e^(-mu t)
+    dk = dict(dtype=f32, device='cuda')
+    cmat = Material.create('C', rho=3.52, kind='plate', **dk)
+    plate = Plate.create(center=(0, CRL_P, 0), pitch=math.pi / 2, t=0.5,
+                         material=cmat, limPhysX=(-10, 10),
+                         limPhysY=(-10, 10))
+    pglo = plate.double_refract(src.shine(rng))[0]
+    good = pglo.state == 1
+    flux = float((pglo.Jss + pglo.Jpp).double()[good].mean())
+    Et = torch.full((1,), CRL_E0, **dk)
+    mu = float(cmat.get_absorption_coefficient(Et)[0])
+    T2 = float(cmat.get_amplitude(Et, -torch.ones_like(Et))[0].abs()[0]) ** 4
+    expected = T2 * math.exp(-mu * 0.5 * 0.1)
+    print(f'phase 22 C plate 0.5 mm at normal incidence: transmission '
+          f'{flux:.6f}, T_fresnel^2 e^(-mu t) {expected:.6f} '
+          f'({abs(flux / expected - 1):.2e}; limit 1e-3)', flush=True)
+    check(abs(flux / expected - 1) < 1e-3, f'plate {flux} vs {expected}')
+    # float32 against float64 on the same rays and lens count
+    res = {}
+    for dt in (f32, f64):
+        s_, l_, sc_, fr_ = crl_line(OE_CROSS_NRAYS, dt, nCRL=lens.nCRL)
+        g = l_.multiple_refract(s_.shine(torch.Generator().manual_seed(5)))[0]
+        res[dt] = crl_numbers(g, sc_.expose(g))
+    r32, r64 = res[f32], res[f64]
+    print(f'phase 22 CRL float32 vs float64, {OE_CROSS_NRAYS} rays: focal '
+          f'distance {r32[0]:.2f} / {r64[0]:.2f} mm '
+          f'({abs(r32[0] / r64[0] - 1):.2e}; ROADMAP C18, 1.94e-2 in both '
+          f'packages on the CPU; C12: n in float32 equals the reference '
+          f'package\'s bits), sizes {r32[1] * 1e3:.3f} x {r32[2] * 1e3:.3f} '
+          f'/ {r64[1] * 1e3:.3f} x {r64[2] * 1e3:.3f} um, transmission '
+          f'{r32[3]:.6f} / {r64[3]:.6f}', flush=True)
+    check(all(math.isfinite(v) for v in r32), 'CRL float32 not finite')
+
+
+def ml_line(nrays, dtype):
+    """examples/10_multilayer.py: a [W/Si]x40 (d = 45 A) multilayer on a
+    FlatMirror at 10 m at the peak of its Parratt reflectivity, 8050 eV,
+    a beam of dz' 4e-3 theta_B -> screen 2 m downstream."""
+    import torch
+    from xrt_tpu_torch.materials import Material, Multilayer
+    from xrt_tpu_torch.oes import FlatMirror
+    from xrt_tpu_torch.physconsts import CH
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    mSi = Material.create('Si', rho=2.33, **dk)
+    mW = Material.create('W', rho=19.3, **dk)
+    ml = Multilayer.create(mSi, 27.0, mW, 18.0, 40, mSi, **dk)
+    theta0 = math.asin(CH / ML_E0 * 1e-7 / (2 * 45.0e-7))
+    thetas = torch.linspace(0.9 * theta0, 1.4 * theta0, 201, dtype=dtype,
+                            device='cuda')
+    R = ml.get_amplitude(torch.full_like(thetas, ML_E0),
+                         torch.sin(thetas))[0].abs() ** 2
+    thetaB = float(thetas[int(torch.argmax(R))])
+    mirror = FlatMirror.create(center=(0, ML_P, 0), pitch=thetaB,
+                               material=ml, limPhysX=(-10, 10),
+                               limPhysY=(-60, 60))
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.1, dz=0.01, dxprime=1e-5, distzprime='flat',
+        dzprime=4e-3 * thetaB, distE='lines', energies=(ML_E0,),
+        polarization='horizontal', **dk)
+    scr = Screen.create(center=(0, ML_P + ML_Q, 2 * thetaB * ML_Q))
+    return src, mirror, scr, thetaB
+
+
+def phase_multilayer(timing):
+    """Phase 23: the multilayer mirror of examples/10_multilayer.py."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, mirror, scr, thetaB = ml_line(n, f32)
+    ml = mirror.material
+
+    def process(rng):
+        return {'screen': scr.expose(mirror.reflect(src.shine(rng))[0])}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='mm', limits=(-1, 1)),
+                       dict(label='z', unit='mm'),
+                       dict(label="z'", unit='mrad'))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 43)
+    print(f'phase 23 multilayer [W/Si]x40 at theta_B {thetaB * 1e3:.4f} mrad'
+          f' (the Parratt peak): {n} rays/pass, float32, {reps} passes + '
+          f'calibration: {", ".join(f"{v:.1f}" for v in pass_ms)} ms, '
+          f'median {med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; flux '
+          f'{plot.intensity:.6g}, nGood {plot.nRaysGood}; peak device '
+          f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'multilayer: not one hist_plot launch a pass: {launches}')
+    with _Timed(ml, 'get_amplitude') as tamp:
+        ms, (beam, (glo, loc), img, hists) = step_split([
+            lambda: src.shine(rng), lambda b: mirror.reflect(b),
+            lambda g: scr.expose(g[0]),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    a_ms = tamp.ms()
+    good = glo.state == 1
+    E = torch.full((int(good.sum()),), ML_E0, dtype=f32, device='cuda')
+    sinT = torch.sin(loc.theta[good]).abs()
+    amp = lambda: ml.get_amplitude(E, sinT)     # noqa: E731
+    rs = amp()[0]
+    err = float((glo.Jss[good] - rs.abs() ** 2).abs().max())
+    nk = profiled_kernel_count(amp)
+    call_ms = cuda_ms(amp)[0]
+    print(f'phase 23 split of a pass (CUDA events): source {ms[0]:.1f} ms, '
+          f'reflect {ms[1]:.1f} ms (get_amplitude {a_ms:.1f} ms), expose '
+          f'{ms[2]:.1f} ms, histograms {ms[3]:.2f} ms; get_amplitude on '
+          f'{E.numel()} rays {call_ms:.2f} ms, {nk} kernel launches a call '
+          f'(torch.profiler); traced reflectivity against the material\'s '
+          f'own |rs|^2 at the rays\' angles max|d| {err:.2e} (limit 1e-3)',
+          flush=True)
+    check(err < 1e-3, f'multilayer traced vs material {err}')
+    args = oe_hist_plot_check(23, 'multilayer', plot, {'screen': img})
+    timing['multilayer'] = dict(launches=launches, plot_args=args)
+    del beam, glo, loc, img, hists
+    R = {}
+    for dt in (f32, f64):
+        _, m_, _, _ = ml_line(16, dt)
+        e = torch.full((1,), ML_E0, dtype=dt, device='cuda')
+        R[dt] = float(m_.material.get_amplitude(
+            e, torch.full_like(e, math.sin(thetaB)))[0].abs()[0] ** 2)
+    print(f'phase 23 peak reflectivity |rs|^2 at theta_B: float32 '
+          f'{R[f32]:.6f}, float64 {R[f64]:.6f} '
+          f'({abs(R[f32] / R[f64] - 1):.2e})', flush=True)
+    check(abs(R[f32] / R[f64] - 1) < 1e-3 and R[f64] > 0.3,
+          f'multilayer peak {R}')
+
+
+def powder_line(nrays, dtype):
+    """examples/15_xrd_powder.py: a Cu K-alpha pencil beam (0.2 x 0.2 mm)
+    -> Si powder (reflexes up to 333) on a FlatMirror at 45 deg, 1 m ->
+    flat detector 150 mm behind."""
+    from xrt_tpu_torch.materials import Powder
+    from xrt_tpu_torch.oes import FlatMirror
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    powder = Powder.create(hkl=(3, 3, 3), a=PW_A, name='Si', **dk)
+    sample = FlatMirror.create(center=(0, PW_P, 0), pitch=math.pi / 4,
+                               material=powder, limPhysX=(-2, 2),
+                               limPhysY=(-2, 2))
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.2, dz=0.2, distx='flat', distz='flat',
+        distxprime=None, distzprime=None, dxprime=0.0, dzprime=0.0,
+        distE='lines', energies=(PW_E0,), polarization='horizontal', **dk)
+    return src, sample, Screen.create(center=(0, PW_P + PW_D, 0))
+
+
+def phase_powder(timing):
+    """Phase 24: the powder rings of examples/15_xrd_powder.py."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.physconsts import CH
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, sample, det = powder_line(n, torch.float32)
+
+    def process(rng):
+        return {'screen': det.expose(sample.reflect(src.shine(rng),
+                                                    rng)[0])}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='mm', limits=(-150, 150)),
+                       dict(label='z', unit='mm', limits=(-150, 150)),
+                       dict(label='theta', unit='deg', data='theta',
+                            factor=180 / math.pi, limits=(0, 90)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 44)
+    print(f'phase 24 powder rings (Si, reflexes up to 333, Cu K-alpha): {n} '
+          f'rays/pass, float32, {reps} passes + calibration: '
+          f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median {med:.1f} ms,'
+          f' {n / (med * 1e-3):.3e} rays/s; detector flux '
+          f'{plot.intensity:.6g}, nGood {plot.nRaysGood}; peak device memory '
+          f'{peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'powder: not one hist_plot launch a pass: {launches}')
+    with _Timed(sample.material, 'reflect_multi_hkl') as tr:
+        ms, (beam, glo, img, hists) = step_split([
+            lambda: src.shine(rng), lambda b: sample.reflect(b, rng)[0],
+            lambda g: det.expose(g),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    r_ms = tr.ms()
+    print(f'phase 24 split of a pass (CUDA events): source {ms[0]:.1f} ms, '
+          f'reflect {ms[1]:.1f} ms (reflect_multi_hkl over '
+          f'{sample.material.reflex_tables()[0].shape[0]} reflexes '
+          f'{r_ms:.1f} ms), expose {ms[2]:.1f} ms, histograms {ms[3]:.2f} ms',
+          flush=True)
+    # the ring radii against Bragg's law
+    ok = (img.state == 1) & (glo.b > 0)
+    r = torch.sqrt(img.x.double() ** 2 + img.z.double() ** 2)[ok]
+    w = (img.Jss + img.Jpp).double()[ok]
+    worst = 0.0
+    for hkl in ((1, 1, 1), (2, 2, 0), (3, 1, 1)):
+        d = PW_A / math.sqrt(sum(i * i for i in hkl))
+        r0 = PW_D * math.tan(2 * math.asin(CH / PW_E0 / (2 * d)))
+        near = (r > 0.97 * r0) & (r < 1.03 * r0)
+        rm = float((w[near] * r[near]).sum() / w[near].sum())
+        worst = max(worst, abs(rm / r0 - 1))
+        print(f'phase 24 ring {hkl}: weighted radius {rm:.3f} mm, Bragg '
+              f'{r0:.3f} mm ({abs(rm / r0 - 1):.2e}; limit 1e-2), '
+              f'{int(near.sum())} rays', flush=True)
+        check(int(near.sum()) > 0 and abs(rm / r0 - 1) < 1e-2,
+              f'powder ring {hkl}: {rm} vs {r0}')
+    args = oe_hist_plot_check(24, 'powder', plot, {'screen': img},
+                              exact=False)
+    timing['powder'] = dict(launches=launches, plot_args=args,
+                            multi_hkl_ms=r_ms)
+
+
+def oe_physics_rows(timing):
+    """``hist_plot``'s rows on the paths of phases 21-24."""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    rows = []
+    for key in ('laue', 'crl', 'multilayer', 'powder'):
+        args = timing[key]['plot_args']
+        bins = args[6]
+        route = th.plot_route(bins)
+        kernel = lambda: th.hist_plot_kernel(*args)  # noqa: E731
+        kernel()
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(kernel, 5)[0] for _ in range(3))
+        got = kernel()
+        plain_ms, _ = cuda_ms(lambda: th.hist_plot_plain(*args))
+        ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
+        rel, _ = plot_errors(got, ref)
+        ab = max(float((got[k].double() - ref[k]).abs().max())
+                 for k in th.PLOT_HISTS)
+        n = args[0].shape[0]
+        bx, by, bc = bins
+        bms = 1e3 * (21.0 * n + 4.0 * (4 * (bx + by + bc + bx * by) + 1)) / \
+            PEAK_BYTES
+        launches = int(timing[key]['launches'].get(f'hist_plot:{route}', 0))
+        print(f'phase 5 hist_plot:{key}: {n} rays of a pass into eight '
+              f'histograms ({route}), kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.2f} ms, bound {bms:.4f} ms (bytes), launches '
+              f'{launches}', flush=True)
+        rows.append(dict(name=f'hist_plot:{key}', route='cuda',
+                         source=SOURCES['hist_plot'],
+                         replaces=REPLACES['hist_plot'], launches=launches,
+                         max_abs_err=ab, max_rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by='bytes',
+                         library_ms=None))
+        check(launches > 0, f'hist_plot:{key} was not launched on its path')
+        check(rel < 1e-5, f'hist_plot:{key}: {rel:.3e}')
+    return rows
+
+
 def main():
     try:
         import torch
@@ -3327,9 +4167,14 @@ def main():
         phase_coherent_modes(timing)
         phase_config2(timing)
         phase_field_maps()
+        phase_tt(timing)
+        phase_crl(timing)
+        phase_multilayer(timing)
+        phase_powder(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
-            timing['softimax_rows'] + coherence_rows(timing)
+            timing['softimax_rows'] + coherence_rows(timing) + \
+            oe_physics_rows(timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

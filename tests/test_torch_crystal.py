@@ -17,8 +17,9 @@
 * float32 rocking curves against float64: the port's error no worse than
   the JAX package's own float32 error on the same angles (run in a
   subprocess with x64 off) plus 1e-3 of the peak.
-* Guards: bent-crystal amplitudes raise naming ROADMAP A8; the
-  complex-free i z helper.
+* Guards: ``useTT=True`` is accepted and an unbent crystal's
+  Takagi-Taupin entry is its two-beam amplitude; the complex-free i z
+  helper.
 """
 import math
 import os
@@ -295,11 +296,19 @@ def test_float32_rocking_no_worse_than_jax_float32(clean_env_runner,
 
 
 def test_bent_crystal_amplitudes_raise_naming_the_item():
-    with pytest.raises(NotImplementedError, match='A8'):
-        tm.CrystalSi.create(useTT=True, dtype=F64, device='cpu')
-    cr = tm.CrystalSi.create(dtype=F64, device='cpu')
-    with pytest.raises(NotImplementedError, match='A8'):
-        cr.get_amplitude_pytte(9000.0, -0.2)
+    """Bent crystals are ported (``tests/test_torch_tt.py``): ``useTT=True``
+    is accepted by both crystal constructors and raises nothing, and an
+    unbent crystal's Takagi-Taupin entry gives its two-beam amplitudes."""
+    cr = tm.CrystalSi.create(useTT=True, dtype=F64, device='cpu')
+    assert cr.useTT
+    assert tm.CrystalFromCell.create('Si', useTT=True, dtype=F64,
+                                     device='cpu').useTT
+    thetaB = float(cr.get_Bragg_angle(9000.0))
+    E = torch.full((41,), 9000.0, dtype=F64)
+    bIn = -torch.sin(thetaB + torch.linspace(-3e-5, 6e-5, 41, dtype=F64))
+    for got, ref in zip(cr.get_amplitude_pytte(E, bIn),
+                        cr.get_amplitude(E, bIn)):
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
 
 
 def test_mul_i_is_i_times_z():

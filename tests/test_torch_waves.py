@@ -226,12 +226,13 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     chain = WaveChain(src, nrays=10).through_aperture(slit)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         chain.build(mesh=object(), device='cpu')
-    # the second crystal of a DCM (is2ndXtal), gratings and zone plates are
-    # ported; a figure error and the refraction of a plate or a lens are not
+    # the second crystal of a DCM (is2ndXtal), gratings, zone plates,
+    # plates and lenses are ported; a figure error and a voxel-volume
+    # (TXM) material are not
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ToroidMirror.create(figure_error=object())
-    for kind in ('plate', 'lens'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tor.replace(material=Material.create(
-                'Au', rho=19.3, kind=kind, dtype=torch.float64,
-                device='cpu')).reflect(s0)
+    txm = Material.create('Au', rho=19.3, kind='plate', dtype=torch.float64,
+                          device='cpu')
+    txm.needsSpatialAmplitude = True
+    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
+        tor.replace(material=txm).reflect(s0)

@@ -21,8 +21,9 @@ so a rocking curve in float32 is off by a few 0.1% (the reference's formula
 is kept).  The 1e-100 guards of the thick-Bragg branch flush to zero in
 float32, as in the reference; a NaN branch is then replaced by the other.
 
-Bent crystals by Takagi-Taupin integration (``get_amplitude_pytte``,
-``useTT=True``) come with ROADMAP A8 and raise ``NotImplementedError``.
+Bent crystals (``useTT=True``, ``get_amplitude_pytte``) take their
+amplitudes from the Takagi-Taupin integration of ``materials/tt.py``; an
+unbent crystal and Bragg-transmitted geometry keep the two-beam forms.
 """
 from __future__ import annotations
 
@@ -35,10 +36,6 @@ from ..ops.dd import sqrt_rn
 from ..physconsts import AVOGADRO, CH, PI, PI2, R0, SQRT2PI
 from .element import Element
 from .material import Material
-
-_TT_TODO = ('bent-crystal amplitudes by Takagi-Taupin integration '
-            '(get_amplitude_pytte, useTT=True) are not ported yet: '
-            'ROADMAP A8')
 
 
 def _over(c, t):
@@ -322,9 +319,29 @@ class _CrystalMethods:
                 sqrt_rn(for_one_polarization(Qp)))
 
     # ---- bent crystals (Takagi-Taupin) ----------------------------------
-    def get_amplitude_pytte(self, *args, **kwargs):
-        raise NotImplementedError(_TT_TODO)
+    def get_amplitude_pytte(self, E, beamInDotNormal, beamOutDotNormal=None,
+                            beamInDotHNormal=None, alphaAsym=None, Ry=None,
+                            Rx=None, inPlaneRotation=0.0, nsteps=4000,
+                            autoLimits=True):
+        """Bent-crystal amplitudes by Takagi-Taupin integration; the
+        two-beam amplitudes for an unbent crystal and in Bragg-transmitted
+        geometry.  *Ry* meridional, *Rx* sagittal bending radii in mm
+        (positive concave), *alphaAsym* the asymmetry angle."""
+        from . import tt
+        unbent = (Ry is None or math.isinf(float(Ry))) and \
+            (Rx is None or math.isinf(float(Rx)))
+        if unbent or (self.geom.startswith('B') and
+                      self.geom.endswith('transmitted')):
+            return self.get_amplitude(E, beamInDotNormal, beamOutDotNormal,
+                                      beamInDotHNormal)
+        c1, c2, ir1 = tt.compute_tt_params(
+            self, alphaAsym, Rm=Ry, Rs=Rx, inPlaneRotation=inPlaneRotation)
+        return tt.tt_amplitudes(
+            E, beamInDotNormal, beamOutDotNormal, beamInDotHNormal, self,
+            c1, c2, ir1, alphaAsym=alphaAsym, nsteps=nsteps,
+            autoLimits=autoLimits)
 
+    # the reference's second name for the same integration
     get_amplitude_TT = get_amplitude_pytte
 
 
@@ -360,8 +377,6 @@ class Crystal(_CrystalMethods, Material):
                geom='Bragg reflected', table='Chantler total', name='',
                mosaicity=0.0, nu=None, useTT=False,
                volumetricDiffraction=False, dtype=None, device=None):
-        if useTT:
-            raise NotImplementedError(_TT_TODO)
         base = Material.create(elements, quantities, kind='crystal', rho=rho,
                                t=t, table=table, name=name, dtype=dtype,
                                device=device)
@@ -499,8 +514,6 @@ class CrystalFromCell(Crystal):
                geom='Bragg reflected', table='Chantler total',
                mosaicity=0.0, nu=None, useTT=False,
                volumetricDiffraction=False, dtype=None, device=None):
-        if useTT:
-            raise NotImplementedError(_TT_TODO)
         b = b or a
         c = c or a
         atoms_Z = tuple(Element.create(at, dtype=dtype, device=device).Z

@@ -8,7 +8,8 @@ transmitting kinds ('plate', 'lens'; a zone plate's 'FZP' has unit
 amplitudes), tabulated grating efficiencies by order (constant or from an
 energy table), and the base of the crystals (``materials/crystal.py``:
 kind 'crystal', which needs the refractive index and the absorption
-coefficient).  Tabulated refractive-index files come with ROADMAP A8.
+coefficient), and the refractive index from a constant or from a
+table (``read_ri_file``).
 
 The transmitting kinds square by products and divide tensors by tensors:
 PyTorch takes a complex ``z ** 2`` through exp and log and a Python number
@@ -43,7 +44,7 @@ class Material:
     def __init__(self, elements, quantities, rho, t=None, kind='auto',
                  name='', table='Chantler total', refractiveIndex=None,
                  efficiency_orders=(), efficiency_I=None,
-                 efficiency_E=None):
+                 efficiency_E=None, riE=None, riN=None):
         self.elements = elements
         self.quantities = quantities
         self.rho = rho
@@ -52,6 +53,7 @@ class Material:
         self.name = name
         self.table = table
         self.refractiveIndex = refractiveIndex
+        self.riE, self.riN = riE, riN
         self.efficiency_orders = efficiency_orders
         self.efficiency_I = efficiency_I
         self.efficiency_E = efficiency_E
@@ -59,11 +61,14 @@ class Material:
     @classmethod
     def create(cls, elements, quantities=None, kind='auto', rho=0.0, t=None,
                table='Chantler total', name='', refractiveIndex=None,
-               efficiency=None, efficiencyFile=None, dtype=None,
-               device=None):
-        """The reference's constructor arguments.  *efficiency*: a list of
-        (order, efficiency) pairs or, with *efficiencyFile* (a text table
-        whose column 0 is the energy), (order, 1-based column)."""
+               refractiveIndexFile=None, efficiency=None,
+               efficiencyFile=None, dtype=None, device=None):
+        """The reference's constructor arguments.  *refractiveIndex*, a
+        complex number, replaces the tabulated scattering factors;
+        *refractiveIndexFile*, a table read by ``read_ri_file``, gives n(E)
+        by interpolation.  *efficiency*: a list of (order, efficiency)
+        pairs or, with *efficiencyFile* (a text table whose column 0 is
+        the energy), (order, 1-based column)."""
         dt = config.resolve_dtype(dtype)
         dev = config.resolve_device(device)
         if isinstance(elements, str):
@@ -74,6 +79,13 @@ class Material:
             quantities = [1.0] * len(els)
         if name == '':
             name = ''.join(el.name for el in els)
+        riE = riN = None
+        if refractiveIndexFile is not None:
+            E_tab, n_tab = cls.read_ri_file(refractiveIndexFile)
+            riE = torch.as_tensor(E_tab, dtype=dt, device=dev)
+            riN = torch.complex(
+                torch.as_tensor(n_tab.real, dtype=dt, device=dev),
+                torch.as_tensor(n_tab.imag, dtype=dt, device=dev))
         eff_orders = ()
         eff_I = eff_E = None
         if efficiency is not None:
@@ -94,7 +106,36 @@ class Material:
                    refractiveIndex=None if refractiveIndex is None
                    else complex(refractiveIndex),
                    efficiency_orders=eff_orders, efficiency_I=eff_I,
-                   efficiency_E=eff_E)
+                   efficiency_E=eff_E, riE=riE, riN=riN)
+
+    @staticmethod
+    def read_ri_file(fname):
+        """A refractive-index table (comma-separated, as
+        refractiveindex.info writes it: rows of (E, n) and rows of
+        (E, n, k) or (E, , k), header lines skipped).  Returns (E [eV],
+        complex n) as numpy arrays, k interpolated onto the energies of
+        n."""
+        En, Ek, n, k = [], [], [], []
+        with open(fname) as f:
+            for li in f:
+                fields = li.split(',')
+                try:
+                    float(fields[0])
+                except ValueError:
+                    continue
+                if len(fields) < 3:
+                    En.append(float(fields[0]))
+                    n.append(float(fields[-1]))
+                else:
+                    Ek.append(float(fields[0]))
+                    k.append(float(fields[-1]))
+                    if len(fields[1].strip()) > 0:
+                        En.append(float(fields[0]))
+                        n.append(float(fields[1]))
+        En = np.asarray(En)
+        kk = np.interp(En, np.asarray(Ek), np.asarray(k)) if Ek else \
+            np.zeros_like(En)
+        return En, np.asarray(n) + 1j * kk
 
     @property
     def mass(self):
@@ -119,17 +160,47 @@ class Material:
         amp = sqrt_rn(torch.clamp(resI, min=0.0))
         return amp, amp
 
+    def _mass(self, dtype, device):
+        """The molar mass as the reference sums it in *dtype*: the products
+        q_i m_i added in order, as a 0-dim tensor."""
+        m = None
+        for q, e in zip(self.quantities, self.elements):
+            t = config.scalar(q, dtype, device) * \
+                config.scalar(e.mass, dtype, device)
+            m = t if m is None else m + t
+        return m
+
     def get_refractive_index(self, E):
-        """n(E) = 1 - r0 lambda^2 N_A rho / (2 pi M) sum_i x_i f_i(0)."""
+        """n(E) = 1 - r0 lambda^2 N_A rho / (2 pi M) sum_i x_i f_i(0), the
+        constant *refractiveIndex*, or the tabulated one interpolated in
+        energy.  The reference's operations in its order: lambda by a true
+        division, its square by a product, and the complex sum scaled and
+        divided part by part (a complex division by a real number would
+        take a reciprocal).  A Python-number *E* is evaluated in the
+        material's dtype, its f1 and f2 in the tables' float32, as the
+        reference takes a weakly typed scalar."""
+        f1f2E = E
+        if not isinstance(E, torch.Tensor):
+            el = self.elements[0].Etable if self.elements else self.riE
+            E = config.scalar(E, el.dtype, el.device)
         cdt = config.cdtype(E.dtype)
         if self.refractiveIndex is not None:
             return torch.full(E.shape, self.refractiveIndex, dtype=cdt,
                               device=E.device)
+        if self.riE is not None:
+            return torch.complex(fast_interp(E, self.riE, self.riN.real),
+                                 fast_interp(E, self.riE, self.riN.imag))
         xf = torch.zeros(E.shape, dtype=cdt, device=E.device)
         for elem, xi in zip(self.elements, self.quantities):
-            xf = xf + (elem.Z + elem.get_f1f2(E)) * xi
-        return 1 - 1e-24 * AVOGADRO * R0 / PI2 * (CH / E) ** 2 * \
-            self.rho * xf / self.mass  # 1e-24 = A^3/cm^3
+            xf = xf + (elem.Z + elem.get_f1f2(f1f2E)).to(cdt) * xi
+        lam = config.scalar(CH, E.dtype, E.device) / E
+        # 1e-24 = A^3/cm^3
+        scale = config.scalar(1e-24 * AVOGADRO * R0 / PI2, E.dtype,
+                              E.device) * (lam * lam) * \
+            config.scalar(self.rho, E.dtype, E.device)
+        mass = self._mass(E.dtype, E.device)
+        return torch.complex(1 - scale * xf.real / mass,
+                             -(scale * xf.imag / mass))
 
     def get_absorption_coefficient(self, E):
         """Linear absorption coefficient mu = 2 Im(n) k, 1/cm."""

@@ -1,6 +1,7 @@
 """Optical elements: the OE base, the stock mirrors, the gratings and zone
 plates, the parametric elliptical mirror, the double-crystal
-monochromators and the bent-crystal analyzers."""
+monochromators, the bent-crystal analyzers, the Laue crystals and the
+refractive plates and lenses."""
 from .base import OE, find_intersection, find_intersection_dz
 from .bragg import (DicedJohannToroid, DicedJohanssonToroid, DicedOE,
                     GeneralBraggToroid, JohannCylinder, JohannToroid,
@@ -12,7 +13,11 @@ from .mirrors import (BentFlatMirror, ConicalMirror, CylindricalMirror,
                       FlatMirror, SimpleVCM, SimpleVFM, SphericalMirror,
                       ToroidMirror, VCM, VFM, rmer_from_coddington,
                       rsag_from_coddington)
+from .laue import (BentLaue2D, BentLaueCylinder, BentLaueSphere,
+                   GroundBentLaueCylinder, LauePlate)
 from .parametric import EllipticalMirror, EllipticalMirrorParam
+from .refractive import (DoubleParabolicCylinderLens, DoubleParaboloidLens,
+                         ParabolicCylinderFlatLens, ParaboloidFlatLens, Plate)
 
 __all__ = ['OE', 'find_intersection', 'find_intersection_dz', 'FlatMirror',
            'BentFlatMirror', 'SimpleVCM', 'VCM', 'SphericalMirror',
@@ -24,4 +29,8 @@ __all__ = ['OE', 'find_intersection', 'find_intersection_dz', 'FlatMirror',
            'DCM', 'DCMwithSagittalFocusing', 'DCMOnTripodWithOneXStage',
            'JohannCylinder', 'JohanssonCylinder', 'JohannToroid',
            'JohanssonToroid', 'GeneralBraggToroid', 'DicedOE',
-           'DicedJohannToroid', 'DicedJohanssonToroid']
+           'DicedJohannToroid', 'DicedJohanssonToroid', 'LauePlate',
+           'BentLaueCylinder', 'GroundBentLaueCylinder', 'BentLaueSphere',
+           'BentLaue2D', 'Plate', 'ParaboloidFlatLens',
+           'ParabolicCylinderFlatLens', 'DoubleParaboloidLens',
+           'DoubleParabolicCylinderLens']

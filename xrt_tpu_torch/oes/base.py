@@ -31,9 +31,13 @@ Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
 coordinate and classified, reflected and reported in (s, phi, r); an OE
 with ``analytic_intersect`` (the blazed grating) is intersected by it
-instead of the search.  The refractive, multilayer and powder physics,
-figure errors, volumetric diffraction and bent-crystal (Takagi-Taupin)
-amplitudes come with ROADMAP A8 and raise ``NotImplementedError``.
+instead of the search.  ``_interact`` also refracts through plates and
+lenses (with absorption along the path inside), reflects off multilayers,
+gives bent crystals their Takagi-Taupin amplitudes (``useTT``), diffracts
+a volumetric crystal at a random depth with the lattice orientation there
+(``local_n_depth``), and scatters off powders, monocrystals and crystal
+harmonics.  Figure errors and voxel-volume (TXM) materials come with
+ROADMAP A8 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ import torch
 
 from .. import config
 from ..beam import Beam, rotate_coherency_matrix
+from ..materials.crystal import _over
 from ..ops.dd import sqrt_rn
 from ..physconsts import CH, CHBAR
 from ..sources.geometric import _draw
@@ -176,6 +181,19 @@ def _rng(generator, like):
     if generator is None:
         return torch.Generator(like.device).manual_seed(0)
     return generator
+
+
+def _stream(generator, like):
+    """A function that gives :func:`_rng`'s generator, made at its first
+    call and the same at every later one: the draws of one reflect share
+    one stream, and a reflect that draws nothing makes no generator."""
+    made = []
+
+    def get():
+        if not made:
+            made.append(_rng(generator, like))
+        return made[0]
+    return get
 
 
 def _mosaic_normal(generator, mat, oeNormal, E, draws=None):
@@ -347,6 +365,11 @@ class OE(config.Replaceable):
             return [-rho, zero, zero]
         return [zero, -rho, zero]
 
+    def local_n_depth(self, x, y, z):
+        """The Bragg-plane and surface normals at depth *z* inside a
+        crystal, for volumetric diffraction; None: no depth dependence."""
+        return None
+
     def propagate_wave(self, wave=None, nrays='auto', generator=None,
                        fixedEnergy=None, prevOE=None, **kw):
         """One-call Kirchhoff hop onto this OE and reflection at its surface
@@ -506,10 +529,12 @@ class OE(config.Replaceable):
     # ---- reflection -----------------------------------------------------
     def reflect(self, beam: Beam, generator=None, needLocal=True,
                 noIntersectionSearch=False, is2ndXtal=False,
-                fromVacuum=True, surfacePoints=None):
+                fromVacuum=True, surfacePoints=None, draws=None):
         """Reflect *beam* (global frame) off this OE; returns (beamGlobal,
         beamLocal).  *generator* draws what a material needs at random (a
-        mosaic crystal's crystallites, a grating's orders; seed 0 if None).
+        mosaic crystal's crystallites, a grating's orders, a powder's
+        crystallites and depths, a volumetric crystal's depths; seed 0 if
+        None); *draws* replaces some of them (see ``_interact``).
         With ``noIntersectionSearch=True`` the rays are taken
         to be on the surface already (the wave hops); *surfacePoints*, the
         local (x, y, z) of those points, then replaces the positions that
@@ -523,7 +548,7 @@ class OE(config.Replaceable):
         lb, out = self._reflect_local(
             lb, good_in, pitch, roll, yaw, dx, dy, dz, fromVacuum=fromVacuum,
             is2ndXtal=is2ndXtal, noIntersectionSearch=noIntersectionSearch,
-            surfacePoints=surfacePoints, generator=generator)
+            surfacePoints=surfacePoints, generator=generator, draws=draws)
         glo = virgin_local_to_global(lb, self.center)
         merged = _merge_by_mask(beam, glo, good_in)
         if needLocal:
@@ -534,7 +559,7 @@ class OE(config.Replaceable):
                        dz=None, fromVacuum=True, is2ndXtal=False,
                        noIntersectionSearch=False, surfacePoints=None,
                        local_z=None, local_n=None, material=None,
-                       limits=None, generator=None):
+                       limits=None, generator=None, draws=None):
         """The virgin-local part of reflect.  *dx, dy, dz* are the
         element's offsets in its own frame; the second crystal of a DCM
         (*is2ndXtal*) is turned by pi in roll before and after and takes
@@ -605,7 +630,7 @@ class OE(config.Replaceable):
         goodN = state == 1
         lb = lb.replace(path=torch.where(goodN, lb.path + t, lb.path))
         lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
-                                       material, local_n, generator)
+                                       material, local_n, generator, draws)
         if param:
             # back to cartesian, keeping the parametric impact coordinates
             xC, yC, zC = self.param_to_xyz(lb.x, lb.y, lb.z)
@@ -670,27 +695,29 @@ class OE(config.Replaceable):
         return a_out / norm, b_out / norm, c_out / norm, locOrder
 
     def _interact(self, lb, goodN, roll, fromVacuum, tMax, material,
-                  local_n=None, generator=None):
-        """Direction update, reflectivity and polarization bookkeeping for
+                  local_n=None, generator=None, draws=None):
+        """Direction update, amplitudes and polarization bookkeeping for
         rays with state == 1: the mirror kinds, gratings and zone plates,
-        and Bragg and Laue crystals (flat or mosaic, symmetric or
-        asymmetric)."""
+        Bragg and Laue crystals (flat, mosaic, bent by Takagi-Taupin
+        integration, or diffracting through the depth), multilayers,
+        refracting plates and lenses, and the multi-reflex materials
+        (powder, monocrystal, crystal harmonics).  *draws* (a dict of
+        tensors: 'orientation', a pair of uniforms, 'depth', uniforms, and
+        'gumbel', one (N, 16) tensor a reflex chunk) replaces the draws
+        from *generator*."""
         if local_n is None:
             local_n = self.local_n
+        draws = {} if draws is None else draws
+        rng = _stream(generator, lb.x)   # one stream for every draw
         matSur = material[self.curSurface] \
             if isinstance(material, (list, tuple)) else material
         kind = 'mirror' if matSur is None else \
             matSur.resolved_kind(self.auto_material_kind)
-        if kind not in ('mirror', 'thin mirror', 'crystal', 'grating',
-                        'FZP'):
+        if getattr(matSur, 'needsSpatialAmplitude', False):
             raise NotImplementedError(
-                f'OE physics of kind {kind!r} is not ported yet '
-                '(ROADMAP A8)')
+                'voxel-volume materials (TXM) need materials/volume.py, '
+                'which is not ported yet: ROADMAP A8')
         crystal = kind == 'crystal'
-        if crystal and (matSur.useTT or matSur.volumetricDiffraction):
-            raise NotImplementedError(
-                'bent-crystal (Takagi-Taupin) amplitudes and volumetric '
-                'diffraction are not ported yet (ROADMAP A8)')
         normal = list(local_n(lb.x, lb.y))
         ones = torch.ones_like(lb.x)
         nbx, nby, nbz = (normal[0] * ones, normal[1] * ones,
@@ -698,6 +725,18 @@ class OE(config.Replaceable):
         nsx, nsy, nsz = (normal[-3] * ones, normal[-2] * ones,
                          normal[-1] * ones)
         isAsymmetric = len(normal) == 6
+
+        if kind == 'powder':
+            # both normals become the crystallite's, and the interaction
+            # point moves to a random depth of the powder layer
+            nbx, nby, nbz = matSur.random_orientation(
+                rng(), lb.x.shape[0], lb.x.dtype, lb.x.device,
+                draws=draws.get('orientation'))
+            nsx, nsy, nsz = nbx, nby, nbz
+            isAsymmetric = False
+            if matSur.t is not None:
+                lb = _move(lb, goodN, _uniform_draw(
+                    rng, draws, 'depth', lb.x) * matSur.t)
 
         beamInDotNormal = torch.clamp(
             _dot3(lb.a, lb.b, lb.c, nbx, nby, nbz), -1.0, 1.0)
@@ -707,42 +746,86 @@ class OE(config.Replaceable):
         lb = lb.replace(theta=torch.where(goodN, theta_new, prev))
         beamInDotSurfaceNormal = _dot3(lb.a, lb.b, lb.c, nsx, nsy, nsz) \
             if isAsymmetric else beamInDotNormal
-        mosaic = crystal and matSur.mosaicity is not None
-        order_arr = None
 
-        if kind in ('grating', 'FZP'):
+        crystalVD = crystal and isAsymmetric and \
+            matSur.volumetricDiffraction and matSur.t is not None
+        if crystalVD:
+            # diffraction at a random depth through the crystal, with the
+            # lattice orientation there
+            thMax = _over(-matSur.t, torch.where(
+                beamInDotSurfaceNormal == 0, -torch.ones_like(ones),
+                beamInDotSurfaceNormal))
+            lb = _move(lb, goodN, _uniform_draw(
+                rng, draws, 'depth', lb.x) * thMax)
+            deep = self.local_n_depth(lb.x, lb.y, lb.z)
+            if deep is not None:
+                nbx, nby, nbz = (deep[0] * ones, deep[1] * ones,
+                                 deep[2] * ones)
+                beamInDotNormal = torch.clamp(
+                    _dot3(lb.a, lb.b, lb.c, nbx, nby, nbz), -1.0, 1.0)
+                theta_new = torch.arccos(beamInDotNormal) - math.pi / 2
+                lb = lb.replace(theta=torch.where(goodN, theta_new,
+                                                  lb.theta))
+        mosaic = crystal and matSur.mosaicity is not None
+        order_arr = poly = None
+        a_out, b_out, c_out = lb.a, lb.b, lb.c
+
+        if kind in ('powder', 'monocrystal', 'crystal harmonics'):
+            a_out, b_out, c_out, *poly = matSur.reflect_multi_hkl(
+                rng(), lb.E, (lb.a, lb.b, lb.c), (nbx, nby, nbz),
+                (nsx, nsy, nsz), gumbel=draws.get('gumbel'))
+        elif kind in ('grating', 'FZP'):
+            # draws (the one draw of the reflect) only for a tuple of
+            # orders, from its own stream then
             a_out, b_out, c_out, order_arr = self._grating_deflection(
                 generator, lb.a, lb.b, lb.c, lb.E, self.local_g(lb.x, lb.y),
                 normal, beamInDotSurfaceNormal, self.order,
                 1 if kind == 'FZP' else -1)
-        elif not crystal:
+        elif kind in ('mirror', 'thin mirror') or (
+                crystalVD and not matSur.geom.endswith('transmitted')):
+            # a volumetric crystal reflects about the depth's Bragg planes
             a_out = lb.a - nbx * 2 * beamInDotNormal
             b_out = lb.b - nby * 2 * beamInDotNormal
             c_out = lb.c - nbz * 2 * beamInDotNormal
-        elif matSur.geom.endswith('transmitted'):
-            a_out, b_out, c_out = lb.a, lb.b, lb.c
-        elif mosaic:
-            mx, my, mz = _mosaic_normal(generator, matSur,
-                                        (nbx, nby, nbz), lb.E)
-            mdot = _dot3(lb.a, lb.b, lb.c, mx, my, mz)
-            a_out = lb.a - mx * 2 * mdot
-            b_out = lb.b - my * 2 * mdot
-            c_out = lb.c - mz * 2 * mdot
-        else:
-            # reflection through the crystal's "grating" vector, the
-            # Bragg-plane normal's part along the surface; its sign follows
-            # the mean incidence of all rays, the dead ones included, and
-            # is taken on the device
-            nDotNs = nbx * nsx + nby * nsy + nbz * nsz
-            sgbdn = torch.where(torch.mean(beamInDotNormal) < 0, 1.0, -1.0)
-            wHd = 1.0 / (matSur.d * 1e-7)
-            gx = (nbx - nDotNs * nsx) * wHd * sgbdn
-            gy = (nby - nDotNs * nsy) * wHd * sgbdn
-            gz = (nbz - nDotNs * nsz) * wHd * sgbdn
-            sg = 1 if matSur.geom.startswith('Laue') else -1
-            a_out, b_out, c_out, _ = self._grating_deflection(
-                generator, lb.a, lb.b, lb.c, lb.E, (gx, gy, gz), normal,
-                beamInDotSurfaceNormal, 1, sg)
+        elif kind in ('crystal', 'multilayer'):
+            if matSur.geom.endswith('transmitted'):
+                pass
+            elif mosaic:
+                mx, my, mz = _mosaic_normal(rng(), matSur,
+                                            (nbx, nby, nbz), lb.E)
+                mdot = _dot3(lb.a, lb.b, lb.c, mx, my, mz)
+                a_out = lb.a - mx * 2 * mdot
+                b_out = lb.b - my * 2 * mdot
+                c_out = lb.c - mz * 2 * mdot
+            else:
+                # reflection through the crystal's "grating" vector, the
+                # Bragg-plane normal's part along the surface (zero for a
+                # multilayer: a specular reflection); its sign follows
+                # the mean incidence of all rays, the dead ones included,
+                # and is taken on the device
+                nDotNs = nbx * nsx + nby * nsy + nbz * nsz
+                sgbdn = torch.where(torch.mean(beamInDotNormal) < 0, 1.0,
+                                    -1.0)
+                wHd = 1.0 / (matSur.d * 1e-7)
+                gx = (nbx - nDotNs * nsx) * wHd * sgbdn
+                gy = (nby - nDotNs * nsy) * wHd * sgbdn
+                gz = (nbz - nDotNs * nsz) * wHd * sgbdn
+                sg = 1 if matSur.geom.startswith('Laue') else -1
+                a_out, b_out, c_out, _ = self._grating_deflection(
+                    generator, lb.a, lb.b, lb.c, lb.E, (gx, gy, gz), normal,
+                    beamInDotSurfaceNormal, 1, sg)
+        elif kind in ('plate', 'lens'):
+            n = matSur.get_refractive_index(lb.E).real
+            n1overn2 = _over(1.0, n) if fromVacuum else n
+            signN = torch.sign(-beamInDotNormal)
+            n1overn2cosTheta1 = -n1overn2 * beamInDotNormal
+            cosTheta2 = signN * sqrt_rn(torch.clamp(
+                1 - n1overn2 * n1overn2 +
+                n1overn2cosTheta1 * n1overn2cosTheta1, min=0.0))
+            dn = n1overn2cosTheta1 - cosTheta2
+            a_out = lb.a * n1overn2 + nbx * dn
+            b_out = lb.b * n1overn2 + nby * dn
+            c_out = lb.c * n1overn2 + nbz * dn
 
         rollAngle = roll + torch.atan2(nsx, nsz)
         Jss_l, Jpp_l, Jsp_l = rotate_coherency_matrix(
@@ -751,27 +834,54 @@ class OE(config.Replaceable):
         if lb.Es is not None:
             Es_l, Ep_l = rotate_y(lb.Es, lb.Ep, torch.cos(rollAngle),
                                   -torch.sin(rollAngle))
+        mu = nreal = None
         if matSur is None:
             ras = rap = torch.ones_like(lb.x)
-        elif mosaic:
-            ras, rap = matSur.get_amplitude_mosaic(
-                lb.E, beamInDotSurfaceNormal,
-                _dot3(a_out, b_out, c_out, nsx, nsy, nsz), beamInDotNormal)
+        elif poly is not None:
+            ras, rap = poly
         elif crystal:
-            ras, rap = matSur.get_amplitude(
-                lb.E, beamInDotSurfaceNormal,
-                _dot3(a_out, b_out, c_out, nsx, nsy, nsz), beamInDotNormal)
+            beamOutDotSurfaceNormal = _dot3(a_out, b_out, c_out,
+                                            nsx, nsy, nsz)
+            if mosaic:
+                ras, rap = matSur.get_amplitude_mosaic(
+                    lb.E, beamInDotSurfaceNormal, beamOutDotSurfaceNormal,
+                    beamInDotNormal)
+            elif matSur.useTT:
+                Ry, Rx = self._bending_radii()
+                ras, rap = matSur.get_amplitude_pytte(
+                    lb.E, beamInDotSurfaceNormal, beamOutDotSurfaceNormal,
+                    beamInDotNormal, alphaAsym=self.alpha, Ry=Ry, Rx=Rx)
+            else:
+                ras, rap = matSur.get_amplitude(
+                    lb.E, beamInDotSurfaceNormal, beamOutDotSurfaceNormal,
+                    beamInDotNormal)
+        elif kind == 'multilayer':
+            ras, rap = matSur.get_amplitude(lb.E, beamInDotSurfaceNormal,
+                                            lb.x, lb.y)[0:2]
         elif kind == 'grating' and getattr(matSur, 'efficiency_orders', ()):
             ras, rap = matSur.get_grating_efficiency(lb.E, order_arr)
         else:
-            ras, rap = matSur.get_amplitude(lb.E, beamInDotNormal,
-                                            fromVacuum)[0:2]
+            ras, rap, mu, nreal = matSur.get_amplitude(
+                lb.E, beamInDotNormal, fromVacuum)
         ras = torch.where(torch.isnan(torch.abs(ras)), 0.0, ras)
         rap = torch.where(torch.isnan(torch.abs(rap)), 0.0, rap)
 
         Jss_new = (Jss_l * ras * torch.conj(ras)).real
         Jpp_new = (Jpp_l * rap * torch.conj(rap)).real
         Jsp_new = Jsp_l * ras * torch.conj(rap)
+        mPh = None
+        if not fromVacuum and mu is not None:
+            # absorption (mu in 1/cm) and phase along the path inside
+            att = torch.exp(-mu * tMax * 0.1)
+            Jss_new, Jpp_new, Jsp_new = (Jss_new * att, Jpp_new * att,
+                                         Jsp_new * att)
+            if Es_l is not None:
+                arg = 0.1 * nreal * tMax
+                mPh = sqrt_rn(att) * torch.complex(torch.cos(arg),
+                                                   torch.sin(arg))
+        elif Es_l is not None:
+            arg = 1e7 * lb.E / CHBAR * tMax
+            mPh = torch.complex(torch.cos(arg), torch.sin(arg))
         updates = dict(
             a=torch.where(goodN, a_out, lb.a),
             b=torch.where(goodN, b_out, lb.b),
@@ -780,8 +890,6 @@ class OE(config.Replaceable):
             Jpp=torch.where(goodN, Jpp_new, lb.Jpp),
             Jsp=torch.where(goodN, Jsp_new, lb.Jsp))
         if Es_l is not None:
-            arg = 1e7 * lb.E / CHBAR * tMax
-            mPh = torch.complex(torch.cos(arg), torch.sin(arg))
             updates['Es'] = torch.where(goodN, Es_l * ras * mPh, lb.Es)
             updates['Ep'] = torch.where(goodN, Ep_l * rap * mPh, lb.Ep)
         if order_arr is not None:
@@ -789,6 +897,37 @@ class OE(config.Replaceable):
                 torch.zeros_like(lb.x)
             updates['order'] = torch.where(goodN, order_arr, prev)
         return lb.replace(**updates), rollAngle
+
+    def _bending_radii(self):
+        """(Ry, Rx) of a bent crystal for its Takagi-Taupin amplitudes, as
+        floats or None: Ry is the element's R, else its Rm (doubled for the
+        Johansson and ground-bent classes, whose planes are bent to twice
+        the surface's radius), Rx its Rs."""
+        Ry = getattr(self, 'R', None)
+        if Ry is None:
+            Ry = getattr(self, 'Rm', None)
+        lcname = type(self).__name__.lower()
+        if Ry is not None and ('johansson' in lcname or 'ground' in lcname):
+            Ry = Ry * 2
+        Rx = getattr(self, 'Rs', None)
+        return (None if Ry is None else config.host_float(Ry),
+                None if Rx is None else config.host_float(Rx))
+
+
+def _uniform_draw(rng, draws, name, like):
+    """*draws[name]*, or uniforms in [0, 1) from the generator that *rng*
+    gives (:func:`_stream`), one a ray."""
+    if name in draws:
+        return draws[name]
+    return _draw(torch.rand, rng(), like.shape[0], like.dtype, like.device)
+
+
+def _move(lb, mask, dist):
+    """The rays of *mask* moved by *dist* along their directions."""
+    return lb.replace(**{k: torch.where(mask, getattr(lb, k) +
+                                        getattr(lb, d) * dist,
+                                        getattr(lb, k))
+                         for k, d in zip('xyz', 'abc')})
 
 
 def _shift(lb, dx, dy, dz, sign):
