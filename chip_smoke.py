@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs twenty-four phases and exits
+process per source, in parallel), then runs twenty-nine phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -242,17 +242,64 @@ non-zero if any fails:
     float32, 4 passes: pass time, the split of a pass with
     ``reflect_multi_hkl``'s time, the weighted radii of the 111, 220 and
     311 rings against Bragg's law (1%), ``hist_plot`` against its plain
-    version (< 1e-5; the same NaN and infinite bins, no bin filled by the
-    kernel alone, and a bin the kernel leaves empty, its faint rays under
-    the fixed-point unit, within its count of rays times half the unit,
-    ``fixed_quantum``).
+    version (as in 21: the weights span twelve decades, and the kernels'
+    fine words keep the bins that only faint rays fill);
+25. the figure errors of ``examples/11_warping.py`` (a 30 nm, 80 mm
+    waviness, a 20 nm rms random roughness, a 30 nm Gaussian bump) on its
+    Rh toroid, each at 1e6 rays a pass, float32, 4 passes: pass time, the
+    split of a pass with the map's heights and normals, the meridional
+    angle the error adds to each ray against twice the normal's turn
+    that its slopes give at the rays' points (15%), ``hist_plot`` against
+    its plain version (as in 21); ``tests/test_figure_error.py:63``'s
+    flat mirror with a 50 nm, 20 mm waviness (the added spread within 15%
+    of twice the rms slope); float32 against float64 on 2e5 rays (flux
+    per ray 3e-2, ROADMAP C3; added spread 1e-2);
+26. a figure error on the wave chain, with its gradient:
+    ``examples/16_parametric_optimization.py`` part 2's branch (slit ->
+    Au toroid M1 -> flat M2 carrying a 1 nm, 4 mm waviness -> 129 x 129
+    screen, 280 eV) at 2e5 samples on the slit and on each mirror,
+    float32: the Gaussian-weighted focal flux and its gradient in the
+    waviness amplitude (at the example's 12 nm) and M2's pitch (B1 three
+    launches, B3 two a step),
+    forward and forward + backward times, peak memory; the same step with
+    the plain blocked backward in place of B3 (gradients within 1e-5); at
+    the example's sizes (20000 slit samples, 48 x 64 a mirror) float32
+    against float64 (3e-2) and float64 against four-point differences
+    (1e-3);
+27. the ellipsoidal capillary of ``examples/09_capillary.py`` with
+    ``multiple_reflect`` (up to 8 bounces) on an annulus source of 3 mrad
+    divergence 10 mm before it, 1e6 rays a pass, float32, 4 passes: pass
+    time, the split with the searches and host reads, the bounce counts,
+    the largest J of a good ray (1 + 1e-6), ``hist_plot`` against its
+    plain version (as in 21), the bounce counts float32 against float64
+    (5e-3 of the rays); one reflect of 1e6 rays off a parabolic mirror
+    (collimation: angle std < 1e-7, mean 2 pitch within 1e-3), a
+    hyperbolic mirror (virtual focus within 2%) and a DualVFM stripe
+    (sags within 1%, a sagittal focus), float32 and float64;
+28. the STL mesh mirror of ``examples/17_stl_mesh.py`` (the script writes
+    the cylinder's STL into a temporary directory), 'quad' and 'spline',
+    1e6 rays a pass, float32, 4 passes: host build time, pass time and
+    split, the focus (z std < 0.1 x the unfocused beam,
+    ``tests/test_mesh_oe.py``), the quad fit's meridional radius (1%),
+    ``hist_plot`` against its plain version (as in 21), float32 against
+    float64 (image centroid 1e-3 mm, size 1e-2);
+29. the TXM volume of ``examples/18_txm.py`` (40^3 voxels, water with a
+    gold cross, built with ``indexGrid=``) on a 50 um plate, 1e6 rays a
+    pass, float32, 4 passes: pass time, the split with the chord
+    integrals' time and the launches of a ``double_refract``, the gold
+    cross's shadow, ``hist_plot`` against its plain version (as in 21);
+    a uniform water grid against the plain water plate (1e-3), float32
+    against float64 (1e-4).
 
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
 pass (phase 16's); B1's at configuration 5's two hop shapes, 2e5 x 1e5
 and 65536 x 2e5 (phase 18's launches, each against the plain version at
 the full shape), ``hist_plot`` on a configuration-2 pass (phase
-19's), and ``hist_plot`` on a pass of each of phases 21-24.
+19's), ``hist_plot`` on a pass of each of phases 21-25 and 27-29, and
+B1 and B3 at phase 26's two differentiated hops (M1 -> M2, 2e5 x 2e5;
+M2 -> the screen, 16641 x 2e5; B3 held to the plain blocked backward on
+slices, as in 5, its plain time from phase 26's reference step).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -3393,35 +3440,11 @@ def oe_passes(process, plot_fn, reps, seed, warm=True):
             dict(th.LAUNCHES), peak, rng)
 
 
-def fixed_quantum(m):
-    """The unit 2^-e of the histogram kernels' fixed-point sums for float32
-    weights bounded by *m*, in a launch of fewer than 2^34 rays
-    (hist_ray.cuh: fixed_exp with scale_count's n = 2^34).  A weight rounds
-    to the nearest multiple, so by at most half of it: 2^-e / 2 <= n m
-    2^-62 = m 2^-28."""
-    if not m > 0:
-        return 0.0
-    f0, pm = math.frexp(m)
-    f, p = math.frexp(f0 * 2 ** 34)
-    e = min(max(62 - (pm + p - (1 if f == 0.5 else 0)), -1000), 1000)
-    return math.ldexp(1.0, -e)
-
-
-def oe_hist_plot_check(phase, label, plot, beams, exact=True):
+def oe_hist_plot_check(phase, label, plot, beams):
     """The phase's ``hist_plot`` against ``hist_plot_plain`` with float64
-    sums on one pass's rays: max|h - h64| / max|h64| < 1e-5 and, with
-    *exact*, the same non-empty, NaN and infinite bins (plot_errors).
-
-    Without *exact* (a powder: its weights span twelve decades) a bin of
-    only faint rays may sum to zero in the kernel's fixed point.  The NaN
-    and infinite bins must still be the same, no bin may be filled by the
-    kernel alone, and a bin that the kernel leaves empty must hold no more
-    than its count of rays times half the fixed-point unit
-    (:func:`fixed_quantum`, of the largest finite |flux| times
-    max(1, |1 - colorSaturation|) for the 1D and colour columns, of the
-    largest finite |w2d| for the 2D intensity; hist_plot.cu: plot_exps),
-    with 1e-9 of it for the float64 sum's own rounding.  Returns the
-    kernel's arguments."""
+    sums on one pass's rays: max|h - h64| / max|h64| < 1e-5 and the same
+    non-empty, NaN and infinite bins (plot_errors).  Returns the kernel's
+    arguments."""
     import torch
     from xrt_tpu_torch import histogram as th, runner
     x, y, cData, inten, fl, mask, _ = runner._plot_arrays(plot, beams)
@@ -3433,54 +3456,15 @@ def oe_hist_plot_check(phase, label, plot, beams, exact=True):
     got = th.hist_plot_kernel(*args)
     ref = th.hist_plot_plain(*args, sum_dtype=torch.float64)
     rel, same = plot_errors(got, ref)
-    if exact:
-        print(f'phase {phase} hist_plot on a {label} pass: eight histograms '
-              f'vs plain float64 sums max rel {rel:.2e} (limit 1e-5), bins '
-              f'identical {same}', flush=True)
-        check(same and rel < 1e-5, f'{label} hist_plot: {rel:.3e}, bins '
-              f'identical {same}')
-        return args
-    # the rays of each bin, and the largest rounding of one weight
-    ones = torch.ones_like(x)
-    count = th.hist_plot_plain(x, y, cData, ones, ones, mask, *args[6:],
-                               sum_dtype=torch.float64)
-    fmask = mask.to(x.dtype)
-    sat = torch.tensor(plot.colorSaturation, dtype=x.dtype)
-    big = lambda v: float(torch.nan_to_num(  # noqa: E731
-        (v * fmask).abs(), nan=0.0, posinf=0.0).max())
-    half = dict(a=0.5 * fixed_quantum(
-        big(fl) * float(torch.clamp((1 - sat).abs(), min=1.0))),
-        b=0.5 * fixed_quantum(big(inten)))
-    nonfinite_same, spurious, emptied, over = True, 0, 0, 0
-    worst = 0.0
-    for k in th.PLOT_HISTS + ('intensity',):
-        g, r = got[k].double(), ref[k]
-        nan_r, inf_r = torch.isnan(r), torch.isinf(r)
-        nonfinite_same &= bool(torch.equal(torch.isnan(g), nan_r) and
-                               torch.equal(g[inf_r], r[inf_r]) and
-                               torch.equal(torch.isinf(g), inf_r))
-        if k == 'intensity':
-            continue
-        fin = ~nan_r & ~inf_r
-        spurious += int(((g != 0) & (r == 0) & fin).sum())
-        lost = (g == 0) & (r != 0) & fin
-        emptied += int(lost.sum())
-        if lost.any():
-            c = count[k.replace('RGB', '')].to(r.device)
-            c = c[..., None].expand_as(r) if k.endswith('RGB') else c
-            limit = c[lost] * half['b' if k == 'xyh' else 'a'] * (1 + 1e-9)
-            over += int((r[lost].abs() > limit).sum())
-            worst = max(worst, float((r[lost].abs() / limit).max()))
-    print(f'phase {phase} hist_plot on a {label} pass: eight histograms vs '
-          f'plain float64 sums max rel {rel:.2e} (limit 1e-5); NaN and '
-          f'infinite bins the same {nonfinite_same}; bins filled by the '
-          f'kernel alone {spurious}; bins of faint rays that sum to zero '
-          f'{emptied}, their largest sum {worst:.3f} of its bound (rays x '
-          f'half a fixed-point unit), {over} above it', flush=True)
-    check(rel < 1e-5 and nonfinite_same and spurious == 0 and over == 0,
-          f'{label} hist_plot: {rel:.3e}, non-finite bins the same '
-          f'{nonfinite_same}, {spurious} spurious, {over} emptied bins '
-          'above the fixed-point bound')
+    emptied = sum(int(((got[k] == 0) & (ref[k] != 0) &
+                       torch.isfinite(ref[k])).sum())
+                  for k in th.PLOT_HISTS + ('intensity',))
+    print(f'phase {phase} hist_plot on a {label} pass: eight histograms '
+          f'vs plain float64 sums max rel {rel:.2e} (limit 1e-5), bins '
+          f'identical {same}, bins the float sums fill and the kernel '
+          f'leaves empty {emptied}', flush=True)
+    check(same and rel < 1e-5, f'{label} hist_plot: {rel:.3e}, bins '
+          f'identical {same}, {emptied} emptied')
     return args
 
 
@@ -4078,18 +4062,977 @@ def phase_powder(timing):
               f'{int(near.sum())} rays', flush=True)
         check(int(near.sum()) > 0 and abs(rm / r0 - 1) < 1e-2,
               f'powder ring {hkl}: {rm} vs {r0}')
-    args = oe_hist_plot_check(24, 'powder', plot, {'screen': img},
-                              exact=False)
+    args = oe_hist_plot_check(24, 'powder', plot, {'screen': img})
     timing['powder'] = dict(launches=launches, plot_args=args,
                             multi_hkl_ms=r_ms)
 
 
+# ---------------------------------------------------------------------------
+# figure errors, capillaries and conics, STL meshes and TXM volumes
+# ---------------------------------------------------------------------------
+
+#: examples/11_warping.py: energy, arms, grazing angle of the Rh toroid
+FE_E0, FE_P, FE_Q, FE_PITCH = 9000.0, 10000.0, 2000.0, 4e-3
+#: tests/test_figure_error.py:63's flat mirror: waviness amplitude (nm) and
+#: period (mm), the fan's divergence
+FE_FLAT_AMP, FE_FLAT_PERIOD, FE_FLAT_DIV = 50.0, 20.0, 2e-5
+#: float32 against float64 on the same rays: flux per ray (the mirror's
+#: float32 Fresnel amplitude near the critical angle, ROADMAP C3) and the
+#: spread the figure error adds
+FE_F32_LIMITS = (3e-2, 1e-2)
+
+
+def fe_maps(dtype, device='cuda'):
+    """The three figure errors of examples/11_warping.py's toroid (20 x 600
+    mm, 1 mm grid): a 30 nm, 80 mm waviness, a 20 nm rms random roughness
+    of 15 mm correlation length, and a 30 nm Gaussian bump (10 x 60 mm)."""
+    from xrt_tpu_torch import figure_error as fe
+    lims = dict(limPhysX=(-20, 20), limPhysY=(-300, 300), gridStep=1.0,
+                dtype=dtype, device=device)
+    return {'waviness': fe.waviness(amplitude=30.0, period=80.0, **lims),
+            'roughness': fe.random_roughness(rms=20.0, corrLength=15.0,
+                                             seed=3, **lims),
+            'bump': fe.gaussian_bump(height=30.0, sigmaX=10.0, sigmaY=60.0,
+                                     **lims)}
+
+
+def fe_line(nrays, dtype, figure_error=None):
+    """examples/11_warping.py: GeometricSource (9 keV, 0.1 x 0.05 mm, 3e-5
+    rad) -> Rh toroid at 10 m focusing at 2 m, 4 mrad, carrying
+    *figure_error* -> screen at the focus."""
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import ToroidMirror
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.1, dz=0.05, dxprime=3e-5, dzprime=3e-5,
+        distE='lines', energies=(FE_E0,), polarization='horizontal', **dk)
+    P, Q, th = FE_P, FE_Q, FE_PITCH
+    mirror = ToroidMirror.create(
+        center=(0, P, 0), pitch=th, R=2 * P * Q / (P + Q) / math.sin(th),
+        r=2 * P * Q / (P + Q) * math.sin(th),
+        material=Material.create('Rh', rho=12.41, **dk),
+        limPhysX=(-20, 20), limPhysY=(-300, 300), figure_error=figure_error)
+    return src, mirror, Screen.create(center=(0, P + Q, 2 * th * Q))
+
+
+def fe_spread(mirror, fe_, beam):
+    """Reflect *beam* off *mirror* without and with the figure error
+    *fe_*: (the std of the meridional angle the error adds to each ray,
+    twice the std of the normal's turn that the error's slopes give at
+    the rays' points on the mirror, the flux per ray with the error, the
+    rays good in both)."""
+    import torch
+    g0, l0 = mirror.replace(figure_error=None).reflect(beam)
+    g1, _ = mirror.replace(figure_error=fe_).reflect(beam)
+    ok = (g0.state == 1) & (g1.state == 1)
+    d = (torch.atan2(g1.c, g1.b) - torch.atan2(g0.c, g0.b)).double()[ok]
+    turn = fe_.local_n_distorted(l0.x, l0.y)[0].double()[ok]
+    flux = torch.where(g1.state == 1, g1.Jss + g1.Jpp,
+                       torch.zeros_like(g1.Jss)).double().mean()
+    return float(d.std()), 2 * float(turn.std()), float(flux), int(ok.sum())
+
+
+def phase_figure_errors(timing):
+    """Phase 25: the figure errors of examples/11_warping.py on the ray
+    trace."""
+    import torch
+    from xrt_tpu_torch import figure_error as fe, histogram as th, runner
+    from xrt_tpu_torch.oes import FlatMirror
+    from xrt_tpu_torch.sources import GeometricSource
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    route = th.plot_route((128,) * 3)
+    for seed, (name, fe_) in enumerate(fe_maps(f32).items()):
+        src, mirror, scr = fe_line(n, f32, fe_)
+
+        def process(rng):
+            return {'screen': scr.expose(mirror.reflect(src.shine(rng))[0])}
+
+        def plot_fn():
+            return oe_plot(dict(label='x', unit='mm', limits=(-1, 1)),
+                           dict(label='z', unit='mm', limits=(-1, 1)),
+                           dict(label="z'", unit='mrad', data='zprime',
+                                factor=1e3, limits=(7.7, 8.3)))
+        plot, pass_ms, med, launches, peak, rng = oe_passes(
+            process, plot_fn, reps, 50 + seed)
+        check(launches == {f'hist_plot:{route}': reps},
+              f'figure error {name}: not one hist_plot launch a pass: '
+              f'{launches}')
+        with _Timed(fe_, 'local_z_distorted') as tz, \
+                _Timed(fe_, 'local_n_distorted') as tn:
+            ms, (beam, (glo, loc), img, hists) = step_split([
+                lambda: src.shine(rng), lambda b: mirror.reflect(b),
+                lambda g: scr.expose(g[0]),
+                lambda i: runner.histogram_plot(plot, {'screen': i})])
+        print(f'phase 25 figure error {name} on the Rh toroid (rms '
+              f'{float(fe_.get_rms()):.2f} nm): {n} rays/pass, float32, '
+              f'{reps} passes + calibration: '
+              f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median '
+              f'{med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; dz '
+              f'{plot.dy:.4g} mm, flux {plot.intensity:.6g}, nGood '
+              f'{plot.nRaysGood}; split (CUDA events): source {ms[0]:.1f} '
+              f'ms, reflect {ms[1]:.1f} ms (the map\'s heights '
+              f'{tz.ms():.2f} ms, normals {tn.ms():.2f} ms), expose '
+              f'{ms[2]:.1f} ms, histograms {ms[3]:.2f} ms; peak device '
+              f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+              flush=True)
+        spread, expect, _, good = fe_spread(mirror, fe_, beam)
+        print(f'phase 25 {name}: the meridional angle it adds, std '
+              f'{spread:.4e} rad over {good} rays; 2 x the std of the '
+              f'normal\'s turn at their points {expect:.4e} rad '
+              f'({abs(spread / expect - 1):.2e}; limit 0.15)', flush=True)
+        check(abs(spread / expect - 1) < 0.15,
+              f'figure error {name}: spread {spread} vs {expect}')
+        args = oe_hist_plot_check(25, f'figure-error {name}', plot,
+                                  {'screen': img})
+        timing[f'fe:{name}'] = dict(launches=launches, plot_args=args)
+        del beam, glo, loc, img, hists
+    # tests/test_figure_error.py:63 on the card: a flat mirror with a
+    # waviness broadens a fan by twice its rms slope
+    dk = dict(dtype=f32, device='cuda')
+    w = fe.waviness(amplitude=FE_FLAT_AMP, period=FE_FLAT_PERIOD,
+                    limPhysX=(-10, 10), limPhysY=(-200, 200), gridStep=0.2,
+                    **dk)
+    flat = FlatMirror.create(center=(0, FE_P, 0), pitch=FE_PITCH,
+                             limPhysX=(-10, 10), limPhysY=(-200, 200))
+    fan = GeometricSource.create(
+        nrays=n, dx=0.0, dz=0.0, distx=None, distz=None, distxprime=None,
+        dxprime=0.0, dzprime=FE_FLAT_DIV, distE='lines', energies=(FE_E0,),
+        polarization='horizontal', **dk)
+    spread, _, _, good = fe_spread(flat, w, fan.shine(
+        torch.Generator('cuda').manual_seed(57)))
+    slope = 2 * math.pi * FE_FLAT_AMP * 1e-6 / FE_FLAT_PERIOD / math.sqrt(2)
+    print(f'phase 25 flat mirror with a {FE_FLAT_AMP:.0f} nm, '
+          f'{FE_FLAT_PERIOD:.0f} mm waviness, {good} rays: extra angular '
+          f'spread {spread:.4e} rad, 2 x the rms slope {2 * slope:.4e} '
+          f'({abs(spread / (2 * slope) - 1):.2e}; limit 0.15)', flush=True)
+    check(abs(spread / (2 * slope) - 1) < 0.15,
+          f'flat waviness spread {spread} vs {2 * slope}')
+    # float32 against float64 on the same rays (a host generator)
+    res = {}
+    for dt in (f32, f64):
+        fe_ = fe_maps(dt)['waviness']
+        src, mirror, _ = fe_line(OE_CROSS_NRAYS, dt)
+        res[dt] = fe_spread(mirror, fe_, src.shine(
+            torch.Generator().manual_seed(58)))
+    (s32, _, f32_, _), (s64, _, f64_, _) = res[f32], res[f64]
+    ef, es = abs(f32_ / f64_ - 1), abs(s32 / s64 - 1)
+    print(f'phase 25 waviness float32 vs float64, {OE_CROSS_NRAYS} rays: '
+          f'flux per ray {f32_:.6f} / {f64_:.6f} ({ef:.2e}; limit '
+          f'{FE_F32_LIMITS[0]:.0e}), added spread {s32:.5e} / {s64:.5e} '
+          f'({es:.2e}; limit {FE_F32_LIMITS[1]:.0e})', flush=True)
+    check(ef < FE_F32_LIMITS[0] and es < FE_F32_LIMITS[1],
+          f'figure error float32 vs float64: {ef:.3e}, {es:.3e}')
+
+
+#: examples/16_parametric_optimization.py part 2: energy (eV), source to
+#: M1, M1 to M2 and M2 to the focus (mm), the 1-degree grazing angle
+FW_E0, FW_P1, FW_D12, FW_Q = 280.0, 24000.0, 2000.0, 4000.0
+FW_PITCH = math.radians(1.0)
+#: the main run's samples on the slit, on each mirror, and the screen's
+#: side; the cross-checks' (the example's own: 20000 slit samples, 48 x 64
+#: mirror samples, a 129-point screen, here 129 x 129)
+FW_MAIN, FW_CROSS = (200_000, 200_000, 129), (20_000, 48 * 64, 129)
+#: the working point: the waviness amplitude (nm; the example's polishing
+#: error of 12 nm, on M2's 1 nm mode) and M2's pitch offset.  At 1 nm the
+#: focal flux is flat to first order in the amplitude (its relative slope
+#: 2.7e-5 a nm), and the float32 gradient is a difference of sums that
+#: cancel
+FW_POINT = (12.0, 0.0)
+FW_NAMES = ('amplitude', 'M2 pitch')
+#: four-point central differences (ROADMAP C6: float64 steps of 1e-6 to
+#: 1e-5 mm in height, here 1 nm of amplitude; 3e-8 rad in pitch as phase
+#: 10 takes)
+FW_STEPS = (1.0, 3e-8)
+
+
+def fw_line(dtype, nslit, nmirror, nscr, seed=0):
+    """examples/16_parametric_optimization.py part 2's branch: a Gaussian
+    source field (w0 0.05 mm, 280 eV) on a 0.6 mm slit -> Au toroid M1
+    (24 m, imaging onto the focus, 1 deg) -> flat M2 2 m on, deflecting
+    down, carrying a 1 nm, 4 mm waviness -> an nscr x nscr screen at the
+    focus.  The waves' samples are drawn on the host (the same in either
+    dtype).  Returns a dict: the elements, the prepared waves, the
+    retargeting constants and ``loss(amp, dp2)``, the Gaussian-weighted
+    focal flux (a window 1.5 focal sizes off the centre, so that neither
+    gradient vanishes by symmetry) as a function of the waviness amplitude
+    (nm) and M2's pitch offset."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import figure_error as fe, waves as W
+    from xrt_tpu_torch.apertures import RectangularAperture
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import FlatMirror, ToroidMirror
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GaussianBeam
+    dk = dict(dtype=dtype, device='cuda')
+    mat = Material.create('Au', rho=19.3, kind='mirror', **dk)
+    slit = RectangularAperture.create(center=(0, 0, 0),
+                                      opening=(-0.3, 0.3, -0.3, 0.3))
+    P, D, Q, th = FW_P1, FW_D12, FW_Q, FW_PITCH
+    limY2 = (-14.0, 14.0)
+    fe_mode = fe.waviness(amplitude=1.0, period=4.0, limPhysX=(-1, 1),
+                          limPhysY=limY2, gridStep=0.25, **dk)
+    m1 = ToroidMirror.create(center=(0, P, 0), pitch=th,
+                             R=2 * P * Q / (P + Q) / math.sin(th),
+                             r=2 * P * Q / (P + Q) * math.sin(th),
+                             material=mat, limPhysX=(-0.8, 0.8),
+                             limPhysY=(-24.0, 24.0))
+    zM2 = D * math.sin(2 * th)
+    m2 = FlatMirror.create(center=(0, P + D * math.cos(2 * th), zM2),
+                           pitch=-th, positionRoll=math.pi, material=mat,
+                           limPhysX=(-0.5, 0.5), limPhysY=limY2,
+                           figure_error=fe_mode)
+    scr = Screen.create(center=(0, P + D * math.cos(2 * th) + Q - D, zM2))
+    gb = GaussianBeam.create(w0=0.05, distE='lines', energies=(FW_E0,),
+                             polarization='horizontal')
+    gen = lambda k: torch.Generator().manual_seed(seed + k)  # noqa: E731
+    wSlit = W.prepare_wave_on_aperture(slit, gb, nslit, generator=gen(0),
+                                       **dk)
+    srcBeam = gb.shine(None, wSlit, toGlobal=False)
+    wM1 = W.prepare_wave_on_oe(m1, slit, nmirror, generator=gen(2), **dk)
+    wM2 = W.prepare_wave_on_oe(m2, m1, nmirror, generator=gen(3), **dk)
+    w_foc = 12398.4 / FW_E0 * 1e-7 * Q / 0.66
+    zs = np.linspace(-18 * w_foc, 18 * w_foc, nscr)
+    wScr = W.prepare_wave_on_screen(scr, m2, zs, zs, **dk)
+
+    def h64(t):
+        return t.detach().double().cpu().numpy()
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), **dk)
+    J22 = dev(W._placement_jacobian(m2, m1, h64(wM2.x), h64(wM2.y),
+                                    h64(wM2.z)))
+    J32 = dev(W._placement_jacobian(scr, m2, h64(wScr.x), h64(wScr.y),
+                                    h64(wScr.z), vary='from'))
+    R2 = [float(v) for v in W.wave_frame_rotation(m2, m1)[:, 2]]
+    unit_z = fe_mode.local_z_distorted(wM2.x, wM2.y)
+    wgt = torch.exp(-(wScr.x ** 2 + (wScr.z - 1.5 * w_foc) ** 2) /
+                    (2.5 * w_foc) ** 2)
+
+    def loss(amp, dp2):
+        fe_ = fe_mode.replace(zmap=amp * fe_mode.zmap,
+                              dzdx=amp * fe_mode.dzdx,
+                              dzdy=amp * fe_mode.dzdy)
+        m2_ = m2.replace(pitch=m2.pitch + dp2, figure_error=fe_)
+        dz = (amp - 1.0) * unit_z
+        w2 = wM2.replace(xDiffr=wM2.xDiffr + J22[0] * dp2 + R2[0] * dz,
+                         yDiffr=wM2.yDiffr + J22[1] * dp2 + R2[1] * dz,
+                         zDiffr=wM2.zDiffr + J22[2] * dp2 + R2[2] * dz,
+                         z=wM2.z + dz)
+        ws = wScr.replace(xDiffr=wScr.xDiffr + J32[0] * dp2,
+                          yDiffr=wScr.yDiffr + J32[1] * dp2,
+                          zDiffr=wScr.zDiffr + J32[2] * dp2)
+        _, l1 = W.reflect_wave(m1, W.diffract(srcBeam, wM1,
+                                              monochromatic=True))
+        _, l2 = W.reflect_wave(m2_, W.diffract(l1, w2, monochromatic=True))
+        out = W.diffract(l2, ws, monochromatic=True)
+        return ((out.Jss + out.Jpp) * wgt).double().sum() * 1e-6
+
+    return dict(loss=loss, m1=m1, m2=m2, scr=scr, src=srcBeam, wM1=wM1,
+                wM2=wM2, wScr=wScr, w_foc=w_foc)
+
+
+def fw_leaves(dtype, point=FW_POINT):
+    import torch
+    return [torch.tensor(v, dtype=dtype, device='cuda', requires_grad=True)
+            for v in point]
+
+
+@contextlib.contextmanager
+def b1_b3_by_shape():
+    """Count the launches of B1 and of its adjoint B3 inside the block by
+    (destinations, sources)."""
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    fwd, bwd = tk._launch_recentred, tk._launch_recentred_bwd
+    counts = dict(fwd=collections.Counter(), bwd=collections.Counter())
+
+    def fwd_rec(D, S, P, v):
+        counts['fwd'][D.shape[1]] += 1
+        return fwd(D, S, P, v)
+
+    def bwd_rec(D, S, P, G, v):
+        counts['bwd'][D.shape[1]] += 1
+        return bwd(D, S, P, G, v)
+    tk._launch_recentred, tk._launch_recentred_bwd = fwd_rec, bwd_rec
+    try:
+        yield counts
+    finally:
+        tk._launch_recentred, tk._launch_recentred_bwd = fwd, bwd
+
+
+def phase_fe_wave(timing):
+    """Phase 26: a figure error on the wave chain and its gradient
+    (examples/16_parametric_optimization.py part 2's geometry)."""
+    import torch
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    line = fw_line(f32, *FW_MAIN, seed=60)
+    t_build = time.perf_counter() - t0
+    loss = line['loss']
+
+    def step():
+        leaves = fw_leaves(f32)
+        val = loss(*leaves)
+        grads = torch.autograd.grad(val, leaves)
+        torch.cuda.synchronize()
+        return val, grads
+
+    def forward():
+        with torch.no_grad():
+            val = loss(*fw_leaves(f32))
+        torch.cuda.synchronize()
+        return val
+    step()      # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    tk.LAUNCHES.clear()
+    with b1_b3_by_shape() as shapes:
+        t0 = time.perf_counter()
+        val, grads = step()
+        times = [time.perf_counter() - t0]
+    launches = dict(tk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        val, grads = step()
+        times.append(time.perf_counter() - t0)
+    fwd = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        fwd.append(time.perf_counter() - t0)
+    med, medf = statistics.median(times), statistics.median(fwd)
+    vals = [float(g) for g in grads]
+    ns, nm, nscr = FW_MAIN
+    pairs = ns * nm + nm * nm + nm * nscr * nscr
+    print(f'phase 26 figure error on the wave chain (slit -> Au toroid M1 '
+          f'-> flat M2 with a 1 nm, 4 mm waviness -> {nscr}x{nscr} screen, '
+          f'280 eV): {ns} slit samples, {nm} on each mirror, float32; '
+          f'build {t_build:.2f} s; loss {float(val.detach()):.6e}; '
+          f'gradients {dict(zip(FW_NAMES, vals))}; forward median of 3 '
+          f'{medf * 1e3:.1f} ms ({", ".join(f"{t * 1e3:.1f}" for t in fwd)}'
+          f'), forward + backward {med * 1e3:.1f} ms '
+          f'({", ".join(f"{t * 1e3:.1f}" for t in times)}), ratio '
+          f'{med / medf:.2f}; {pairs / medf:.3e} pairs/s forward; peak '
+          f'device memory {peak / 2 ** 30:.2f} GiB; launches of one step '
+          f'{launches}; B1 by destinations {dict(shapes["fwd"])}, B3 '
+          f'{dict(shapes["bwd"])}', flush=True)
+    check(all(math.isfinite(v) and v != 0.0 for v in vals) and
+          math.isfinite(float(val.detach())),
+          f'figure-error wave chain: loss {float(val.detach())}, gradients '
+          f'{vals}')
+    check(launches == {'kirchhoff_recentred:mono': 3,
+                       'kirchhoff_recentred_bwd:mono': 2},
+          f'figure-error wave chain: launches {launches}')
+    tk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with plain_recentred_adjoint() as plain_ms:
+        ref = [float(g) for g in step()[1]]
+    t_ref = time.perf_counter() - t0
+    ref_launches = dict(tk.LAUNCHES)
+    errs = [abs(a / b - 1) for a, b in zip(vals, ref)]
+    print(f'phase 26 the same step with the plain blocked backward in place '
+          f'of the adjoint kernels ({t_ref:.1f} s, launches {ref_launches}; '
+          f'plain backward by destinations, ms: '
+          f'{ {n: round(t, 1) for n, t in plain_ms.items()} }): gradients '
+          f'{dict(zip(FW_NAMES, ref))}; kernels vs plain '
+          f'{", ".join(f"{e:.2e}" for e in errs)} (limit '
+          f'{GRAD_PLAIN_LIMIT:.0e})', flush=True)
+    check(ref_launches == {'kirchhoff_recentred:mono': 3},
+          f'plain-backward step: launches {ref_launches}')
+    check(max(errs) < GRAD_PLAIN_LIMIT,
+          f'figure-error gradient, kernels vs plain backward: {errs}')
+    # the hops' inputs for the kernels line: M1 -> M2 and M2 -> screen
+    with torch.no_grad():
+        _, l1 = W.reflect_wave(line['m1'], W.diffract(
+            line['src'], line['wM1'], monochromatic=True))
+        b2 = W.diffract(l1, line['wM2'], monochromatic=True)
+        _, l2 = W.reflect_wave(line['m2'], b2)
+    timing['fe_wave'] = dict(stages=[(l1, line['wM2']),
+                                     (l2, line['wScr'])],
+                             fwd=dict(shapes['fwd']),
+                             bwd=dict(shapes['bwd']), plain_ms=plain_ms)
+    del line, loss, b2
+    # the example's sizes: float32 (kernels) against float64 (plain), and
+    # float64 against four-point differences
+    res = {}
+    for dt in (f32, f64):
+        ln = fw_line(dt, *FW_CROSS, seed=61)
+        leaves = fw_leaves(dt)
+        val = ln['loss'](*leaves)
+        res[dt] = (float(val.detach()), [float(g) for g in
+                                         torch.autograd.grad(val, leaves)])
+    fds = []
+    for i, h in enumerate(FW_STEPS):
+        f = {}
+        for m in (-2, -1, 1, 2):
+            pt = list(FW_POINT)
+            pt[i] += m * h
+            with torch.no_grad():
+                f[m] = float(ln['loss'](*[torch.tensor(
+                    v, dtype=f64, device='cuda') for v in pt]))
+        fds.append((f[-2] - 8 * f[-1] + 8 * f[1] - f[2]) / (12 * h))
+    (l32, g32), (l64, g64) = res[f32], res[f64]
+    print(f'phase 26 cross-check at the example\'s sizes ({FW_CROSS[0]} '
+          f'slit samples, {FW_CROSS[1]} a mirror, {FW_CROSS[2]}^2 screen): '
+          f'loss float32 {l32:.6e} float64 {l64:.6e}', flush=True)
+    for name, a, b, fd in zip(FW_NAMES, g32, g64, fds):
+        e32, efd = abs(a / b - 1), abs(b / fd - 1)
+        print(f'phase 26 d/d({name}): float32 kernels {a:.6e}, float64 '
+              f'plain {b:.6e}, finite difference {fd:.6e}; float32 vs '
+              f'float64 {e32:.2e} (limit 3e-2), float64 vs FD {efd:.2e} '
+              f'(limit 1e-3)', flush=True)
+        check(e32 < 3e-2, f'figure-error gradient {name}: float32 vs '
+              f'float64 {e32:.3e}')
+        check(efd < 1e-3, f'figure-error gradient {name}: float64 vs FD '
+              f'{efd:.3e}')
+
+
+def fe_wave_rows(timing):
+    """B1 and B3 at phase 26's two differentiated hops (M1 -> M2, M2 ->
+    the screen), with that phase's launches."""
+    import torch
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    fw = timing['fe_wave']
+    rows = []
+    for stage in fw['stages']:
+        name, variant = 'kirchhoff_recentred', 'mono'
+        key = f'{name}:{variant}'
+        ms, plain_ms, ab, rel, Nd, Ns, _ = time_kernel(name, variant, stage)
+        bms, by = bound_ms(key, Nd, Ns)
+        launches = int(fw['fwd'].get(Nd, 0))
+        print(f'phase 5 {key}:figure-error {Nd} x {Ns} pairs: kernel '
+              f'{ms:.2f} ms, plain {plain_ms:.1f} ms, bound {bms:.2f} ms '
+              f'({by}), {bms / ms:.1%} of bound, max rel {rel:.2e}, '
+              f'launches of a step {launches}', flush=True)
+        check(rel < 2e-5, f'{key} at the figure-error hop {Nd} x {Ns}: '
+              f'{rel:.3e}')
+        check(launches > 0, f'{key} {Nd} x {Ns} was not launched on its path')
+        rows.append(dict(name=f'{key}:figure-error-{Nd}x{Ns}', route='cuda',
+                         source=SOURCES[name], replaces=REPLACES[name],
+                         launches=launches, max_abs_err=ab, max_rel_err=rel,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+        name = 'kirchhoff_recentred_bwd'
+        key = f'{name}:{variant}'
+        args = W.kirchhoff_kernel_args(*stage)
+        scheme, v, D, S, P = tk._kernel_inputs(*args, variant)
+        S = tk._pad_sources(S)
+        G = torch.randn((10, Nd), device='cuda',
+                        generator=torch.Generator('cuda').manual_seed(11))
+        got = launch_adjoint(scheme, v, D, S, P, G)
+        torch.cuda.synchronize()
+        ms = statistics.median(cuda_ms(lambda: launch_adjoint(
+            scheme, v, D, S, P, G))[0] for _ in range(3))
+        relD, relS, relP, ab = sliced_adjoint_errors(scheme, v, D, S, P, G,
+                                                     got, Ns)
+        bms, by = bound_ms(key, Nd, Ns)
+        launches = int(fw['bwd'].get(Nd, 0))
+        plain_ms = fw['plain_ms'][Nd]
+        print(f'phase 5 {key}:figure-error {Nd} x {Ns} pairs: kernel '
+              f'{ms:.2f} ms, plain blocked backward in phase 26\'s step '
+              f'{plain_ms:.1f} ms, bound {bms:.2f} ms ({by}), '
+              f'{bms / ms:.1%} of bound; on slices max row rel: dst '
+              f'{relD:.2e}, src {relS:.2e}, scalars {relP:.2e} (limit '
+              f'{ADJ_LIMIT:.0e}); launches of a step {launches}', flush=True)
+        check(max(relD, relS, relP) < ADJ_LIMIT,
+              f'{key} at the figure-error hop {Nd} x {Ns}: {relD:.3e} / '
+              f'{relS:.3e} / {relP:.3e}')
+        check(launches > 0, f'{key} {Nd} x {Ns} was not launched on its path')
+        rows.append(dict(name=f'{key}:figure-error-{Nd}x{Ns}', route='cuda',
+                         source=SOURCES[name], replaces=REPLACES[name],
+                         launches=launches, max_abs_err=ab,
+                         max_rel_err=max(relD, relS, relP),
+                         err_shape=f'{Nd}x{Ns}, on slices', ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+    return rows
+
+
+#: examples/09_capillary.py's capillary (ellipse semi-axes and working
+#: distance, mm); its source here 10 mm before the entrance, an annulus
+#: of 0.05-0.25 mm with 3 mrad of divergence, so that rays bounce several
+#: times; a bounce count's share of the rays, float32 against float64
+CAP_A, CAP_B, CAP_WD, CAP_MAXR = 5000.0, 2.0, 50.0, 8
+CAP_F32_LIMIT = 5e-3
+
+
+def cap_line(nrays, dtype):
+    """examples/09_capillary.py: an EllipsoidCapillaryMirror (Si, 200 mm
+    long, centred at 1 m) fed by an annulus source, a screen at the
+    working distance past its exit."""
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import EllipsoidCapillaryMirror
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    cap = EllipsoidCapillaryMirror.create(
+        ellipseA=CAP_A, ellipseB=CAP_B, workingDistance=CAP_WD,
+        center=(0, 1000.0, 0),
+        material=Material.create('Si', rho=2.33, kind='mirror', **dk),
+        limPhysX=(-5, 5), limPhysY=(-100, 100))
+    src = GeometricSource.create(
+        nrays=nrays, center=(0, 890.0, 0), distx='annulus',
+        dx=(0.05, 0.25), dz=0.0, distz=None, dxprime=3e-3, dzprime=3e-3,
+        distE='lines', energies=(FE_E0,), polarization='horizontal', **dk)
+    return src, cap, Screen.create(center=(0, 1100.0 + CAP_WD, 0))
+
+
+def bounce_shares(glo):
+    import torch
+    good = glo.state == 1
+    counts = torch.bincount(glo.nRefl[good].long(),
+                            minlength=CAP_MAXR + 1).double()
+    return (counts / glo.state.numel()).tolist()
+
+
+#: the parabolic mirror's collimated angle std: tests/test_parametric.py's
+#: 1e-7 rad in float64; in float32 s carries an ulp of y0 = -1e4 mm (ROADMAP
+#: C7), 4.35e-7 rad on an H100 80GB HBM3 at 700 W, held to 1e-6
+COLLIMATION_STD = {'float32': 1e-6, 'float64': 1e-7}
+
+
+def conic_checks():
+    """One reflect pass of 1e6 rays off the parabolic and hyperbolic
+    mirrors and a DualVFM stripe, float32 and float64, held to the reference
+    package's tests' foci."""
+    import torch
+    from xrt_tpu_torch.oes import (DualVFM, HyperbolicMirrorParam,
+                                   ParabolicalMirrorParam)
+    from xrt_tpu_torch.sources import GeometricSource
+    P, th = 10000.0, 4e-3
+    for dt in (torch.float32, torch.float64):
+        dk = dict(dtype=dt, device='cuda')
+
+        def fan(dzprime, dx=0.0, dxprime=0.0):
+            return GeometricSource.create(
+                nrays=OE_NRAYS, dx=dx, dz=0.0, distx=None if not dx else
+                'normal', distz=None, distxprime=None if not dxprime else
+                'normal', dxprime=dxprime, dzprime=dzprime, distE='lines',
+                energies=(FE_E0,), polarization='horizontal', **dk).shine(
+                torch.Generator('cuda').manual_seed(70))
+        tag = 'float32' if dt == torch.float32 else 'float64'
+        par = ParabolicalMirrorParam.create(
+            p=P, pitch=th, center=(0, P, 0), limPhysX=(-20, 20),
+            limPhysY=(-400, 400))
+        ms, (glo,) = step_split([lambda: par.reflect(fan(5e-5))[0]])
+        good = glo.state == 1
+        ang = torch.atan2(glo.c, glo.b).double()[good]
+        frac = float(good.double().mean())
+        print(f'phase 27 parabolic mirror (p 10 m, 4 mrad), {tag}: shine + '
+              f'reflect {ms[0]:.1f} ms; good {frac:.4f}; collimated angle '
+              f'std {float(ang.std()):.3e} rad (limit '
+              f'{COLLIMATION_STD[tag]:.0e}), mean '
+              f'{float(ang.mean()):.7e} (2 pitch {2 * th:.1e}, '
+              f'{abs(float(ang.mean()) / (2 * th) - 1):.2e}; limit 1e-3)',
+              flush=True)
+        check(frac > 0.9 and float(ang.std()) < COLLIMATION_STD[tag] and
+              abs(float(ang.mean()) / (2 * th) - 1) < 1e-3,
+              f'parabolic collimation {tag}: {frac}, {float(ang.std())}')
+        q = 3000.0
+        hyp = HyperbolicMirrorParam.create(
+            p=P, q=q, pitch=th, center=(0, P, 0), limPhysX=(-20, 20),
+            limPhysY=(-400, 400))
+        ms, (glo,) = step_split([lambda: hyp.reflect(fan(2e-5))[0]])
+        good = glo.state == 1
+        y0, z0, b, c = (v.double()[good] for v in (glo.y, glo.z, glo.b,
+                                                    glo.c))
+        slope = c / b
+        A = torch.stack([slope, torch.ones_like(slope)], 1)
+        sol = torch.linalg.lstsq(A, (slope * y0 - z0)[:, None]).solution
+        yw, yexp = float(sol[0, 0]), P - q * math.cos(2 * th)
+        frac = float(good.double().mean())
+        print(f'phase 27 hyperbolic mirror (p 10 m, q 3 m), {tag}: shine + '
+              f'reflect {ms[0]:.1f} ms; good {frac:.4f}; virtual focus at y '
+              f'{yw:.2f} mm ({yexp:.2f}: {abs(yw / yexp - 1):.2e}; limit '
+              f'2e-2)', flush=True)
+        check(frac > 0.8 and abs(yw / yexp - 1) < 2e-2,
+              f'hyperbolic focus {tag}: {frac}, {yw}')
+        vfm = DualVFM.create(center=(0, P, 0), pitch=th, R=5e6, r1=70.0,
+                             xCylinder1=23.5, hCylinder1=0.1, r2=36.0,
+                             xCylinder2=-25.0, hCylinder2=0.1,
+                             limPhysX=(-50, 50), limPhysY=(-100, 100))
+        x = torch.tensor([23.5, 24.5, -25.0, -24.0], **dk)
+        z = vfm.local_z(x, torch.zeros_like(x)).double()
+        sag = (float(z[1] - z[0]) * 2 * 70.0, float(z[3] - z[2]) * 2 * 36.0)
+        stripe, dxs = vfm.select_surface(1)
+        beam = fan(1e-5, dx=0.2, dxprime=2e-5)
+        beam = beam.replace(x=beam.x - dxs)
+        ms, (glo,) = step_split([lambda: stripe.reflect(beam)[0]])
+        good = glo.state == 1
+        qs = 1.0 / (2 * math.sin(th) / 36.0 - 1.0 / P)
+        t = (qs - (glo.y - P)) / glo.b
+        xf = (glo.x + glo.a * t).double()[good]
+        x0 = (glo.x + glo.a * (2 * qs - (glo.y - P)) / glo.b).double()[good]
+        print(f'phase 27 DualVFM, {tag}: sags of the two cylinders 1 mm off '
+              f'their axes x 2r {sag[0]:.4f}, {sag[1]:.4f} (1; limit 1e-2); '
+              f'stripe 2 (r 36 mm) reflect {ms[0]:.1f} ms, sagittal size at '
+              f'its focus {qs:.0f} mm behind {float(xf.std()):.4f} mm, at '
+              f'twice that {float(x0.std()):.4f} mm', flush=True)
+        check(all(abs(s - 1) < 1e-2 for s in sag) and
+              float(xf.std()) < 0.5 * float(x0.std()),
+              f'DualVFM {tag}: {sag}, {float(xf.std())}, {float(x0.std())}')
+
+
+def phase_capillary(timing):
+    """Phase 27: the capillary of examples/09_capillary.py with multiple
+    reflections, and the parabolic, hyperbolic and DualVFM mirrors."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.oes import base as oebase
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, cap, scr = cap_line(n, f32)
+
+    def process(rng):
+        glo, _ = cap.multiple_reflect(src.shine(rng),
+                                      maxReflections=CAP_MAXR)
+        return {'screen': scr.expose(glo)}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='mm', limits=(-1.5, 1.5)),
+                       dict(label='z', unit='mm', limits=(-1.5, 1.5)),
+                       dict(label='N reflections', unit='',
+                            data='reflection_number', limits=(0, 8)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 71)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'capillary: not one hist_plot launch a pass: {launches}')
+    counts = []
+    orig = oebase.find_intersection_dz
+
+    def counted(dz_fn, *a, **k):
+        evals = []
+
+        def f(*xyz):
+            evals.append(1)
+            return dz_fn(*xyz)
+        out = orig(f, *a, **k)
+        counts.append(len(evals))
+        return out
+    oebase.find_intersection_dz = counted
+    try:
+        ms, (beam, (glo, loc), img, hists) = step_split([
+            lambda: src.shine(rng),
+            lambda b: cap.multiple_reflect(b, maxReflections=CAP_MAXR),
+            lambda g: scr.expose(g[0]),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    finally:
+        oebase.find_intersection_dz = orig
+    reads = sum(c - 3 for c in counts)
+    good = glo.state == 1
+    J = (glo.Jss + glo.Jpp)[good]
+    jmax = float(J.max())
+    shares = bounce_shares(glo)
+    print(f'phase 27 capillary (ellipsoid A {CAP_A:.0f}, B {CAP_B:.0f} mm, '
+          f'Si), multiple_reflect up to {CAP_MAXR} bounces: {n} rays/pass, '
+          f'float32, {reps} passes + calibration: '
+          f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median {med:.1f} '
+          f'ms, {n / (med * 1e-3):.3e} rays/s; split (CUDA events): source '
+          f'{ms[0]:.1f} ms, multiple_reflect {ms[1]:.1f} ms ({len(counts)} '
+          f'searches, {reads} host reads), expose {ms[2]:.1f} ms, histograms '
+          f'{ms[3]:.2f} ms; flux {plot.intensity:.6g}, mean bounces '
+          f'{plot.cE:.3f}; peak device memory {peak / 2 ** 30:.2f} GiB; '
+          f'launches {launches}', flush=True)
+    print(f'phase 27 bounce counts 0..{CAP_MAXR}, share of the rays: '
+          f'{", ".join(f"{s:.4f}" for s in shares)}; the largest J of a good '
+          f'ray {jmax:.7f} (limit 1 + 1e-6)', flush=True)
+    check(jmax <= 1 + 1e-6 and sum(shares[2:]) > 0.05,
+          f'capillary: J {jmax}, bounces {shares}')
+    args = oe_hist_plot_check(27, 'capillary', plot, {'screen': img})
+    timing['capillary'] = dict(launches=launches, plot_args=args)
+    del beam, glo, loc, img, hists
+    res = {}
+    for dt in (f32, f64):
+        s_, c_, _ = cap_line(OE_CROSS_NRAYS, dt)
+        res[dt] = bounce_shares(c_.multiple_reflect(
+            s_.shine(torch.Generator().manual_seed(72)),
+            maxReflections=CAP_MAXR)[0])
+    diff = 0.5 * sum(abs(a - b) for a, b in zip(res[f32], res[f64]))
+    print(f'phase 27 capillary float32 vs float64, {OE_CROSS_NRAYS} rays, '
+          f'bounce shares {", ".join(f"{s:.4f}" for s in res[f32])} / '
+          f'{", ".join(f"{s:.4f}" for s in res[f64])}: rays counted apart '
+          f'{diff:.2e} (limit {CAP_F32_LIMIT:.0e})', flush=True)
+    check(diff < CAP_F32_LIMIT, f'capillary float32 vs float64: {diff}')
+    conic_checks()
+
+
+#: examples/17_stl_mesh.py: the cylinder's STL mesh (30 x 500 mm, 25 x 201
+#: vertices) for a Rh mirror at 10 m focusing at 2 m, 4 mrad
+MESH_SPLINE_PER_MM = 2.0
+
+
+def write_cylinder_stl(path, R, lx=30.0, ly=500.0, nx=25, ny=201):
+    """A binary STL of the meridional cylinder z = y^2 / (2R) with a floor
+    (examples/17_stl_mesh.py)."""
+    import struct
+    import numpy as np
+    xs = np.linspace(-lx / 2, lx / 2, nx)
+    ys = np.linspace(-ly / 2, ly / 2, ny)
+    X, Y = np.meshgrid(xs, ys, indexing='ij')
+    Z = Y ** 2 / (2 * R)
+    tris = []
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            p = [[X[i, j], Y[i, j], Z[i, j]],
+                 [X[i + 1, j], Y[i + 1, j], Z[i + 1, j]],
+                 [X[i, j + 1], Y[i, j + 1], Z[i, j + 1]],
+                 [X[i + 1, j + 1], Y[i + 1, j + 1], Z[i + 1, j + 1]]]
+            tris.append([p[0], p[1], p[3]])
+            tris.append([p[0], p[3], p[2]])
+    zb = Z.min() - 2.0
+    tris.append([[xs[0], ys[0], zb], [xs[-1], ys[0], zb],
+                 [xs[-1], ys[-1], zb]])
+    tris.append([[xs[0], ys[0], zb], [xs[-1], ys[-1], zb],
+                 [xs[0], ys[-1], zb]])
+    v = np.asarray(tris, float)
+    nrm = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
+    with open(path, 'wb') as f:
+        f.write(b'\0' * 80)
+        f.write(struct.pack('<I', len(v)))
+        for tri, nn in zip(v, nrm):
+            f.write(struct.pack('<3f', *nn))
+            for pt in tri:
+                f.write(struct.pack('<3f', *pt))
+            f.write(struct.pack('<H', 0))
+
+
+def mesh_line(nrays, dtype, path, hint):
+    """examples/17_stl_mesh.py: the GeometricSource of example 11 -> the
+    STL mirror (*hint* 'quad' or 'spline') -> screen at the focus."""
+    from xrt_tpu_torch.materials import Material
+    from xrt_tpu_torch.oes import MeshOE
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    P, Q, th = FE_P, FE_Q, FE_PITCH
+    mirror = MeshOE.create(
+        fileName=path, center=(0, P, 0), pitch=th, surfaceHint=hint,
+        gridPointsPerMM=MESH_SPLINE_PER_MM,
+        material=Material.create('Rh', rho=12.41, **dk),
+        limPhysX=(-14, 14), limPhysY=(-240, 240), **dk)
+    src = GeometricSource.create(
+        nrays=nrays, dx=0.1, dz=0.05, dxprime=3e-5, dzprime=3e-5,
+        distE='lines', energies=(FE_E0,), polarization='horizontal', **dk)
+    return src, mirror, Screen.create(center=(0, P + Q, 2 * th * Q))
+
+
+def phase_mesh(timing):
+    """Phase 28: the STL mesh mirror of examples/17_stl_mesh.py."""
+    import os
+    import tempfile
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    P, Q, thp = FE_P, FE_Q, FE_PITCH
+    R = 2 * P * Q / (P + Q) / math.sin(thp)
+    route = th.plot_route((128,) * 3)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, 'mirror.stl')
+        write_cylinder_stl(path, R)
+        for seed, hint in enumerate(('quad', 'spline')):
+            t0 = time.perf_counter()
+            src, mirror, scr = mesh_line(n, f32, path, hint)
+            t_build = time.perf_counter() - t0
+
+            def process(rng):
+                return {'screen': scr.expose(
+                    mirror.reflect(src.shine(rng))[0])}
+
+            def plot_fn():
+                return oe_plot(dict(label='x', unit='mm', limits=(-1, 1)),
+                               dict(label='z', unit='mm',
+                                    limits=(-0.1, 0.1)),
+                               dict(label='energy', unit='eV',
+                                    limits=(FE_E0 - 1, FE_E0 + 1)))
+            plot, pass_ms, med, launches, peak, rng = oe_passes(
+                process, plot_fn, reps, 80 + seed)
+            check(launches == {f'hist_plot:{route}': reps},
+                  f'mesh {hint}: not one hist_plot launch a pass: '
+                  f'{launches}')
+            ms, (beam, (glo, loc), img, hists) = step_split([
+                lambda: src.shine(rng), lambda b: mirror.reflect(b),
+                lambda g: scr.expose(g[0]),
+                lambda i: runner.histogram_plot(plot, {'screen': i})])
+            good = (img.state == 1)
+            zs = float(img.z.double()[good].std())
+            xs = float(img.x.double()[good].std())
+            unfocused = 3e-5 * (P + Q)
+            extra = ''
+            if hint == 'quad':
+                Rmer = float(mirror.fitted_radii()[0])
+                extra = (f'; fitted meridional radius {Rmer:.6g} mm '
+                         f'({abs(Rmer / R - 1):.2e} of {R:.6g}; limit 1e-2)')
+                check(abs(Rmer / R - 1) < 1e-2, f'mesh radius {Rmer}')
+            print(f'phase 28 STL mesh mirror ({hint}; built in '
+                  f'{t_build:.2f} s on the host): {n} rays/pass, float32, '
+                  f'{reps} passes + calibration: '
+                  f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median '
+                  f'{med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; split (CUDA '
+                  f'events): source {ms[0]:.1f} ms, reflect {ms[1]:.1f} ms, '
+                  f'expose {ms[2]:.1f} ms, histograms {ms[3]:.2f} ms; good '
+                  f'{float(good.double().mean()):.4f}; image z std '
+                  f'{zs:.4e} mm (limit 0.1 x the unfocused '
+                  f'{unfocused:.3f}), x std {xs:.4f} mm{extra}; peak device '
+                  f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+                  flush=True)
+            check(float(good.double().mean()) > 0.9 and zs < 0.1 * unfocused,
+                  f'mesh {hint} focus: {zs}')
+            args = oe_hist_plot_check(28, f'mesh {hint}', plot,
+                                      {'screen': img})
+            timing[f'mesh:{hint}'] = dict(launches=launches, plot_args=args)
+            del beam, glo, loc, img, hists
+        res = {}
+        for dt in (f32, f64):
+            s_, m_, sc_ = mesh_line(OE_CROSS_NRAYS, dt, path, 'spline')
+            im = sc_.expose(m_.reflect(s_.shine(
+                torch.Generator().manual_seed(82)))[0])
+            g = im.state == 1
+            res[dt] = (float(im.z.double()[g].mean()),
+                       float(im.z.double()[g].std()))
+    (m32, s32), (m64, s64) = res[f32], res[f64]
+    print(f'phase 28 spline mesh float32 vs float64, {OE_CROSS_NRAYS} rays: '
+          f'image z mean {m32:.4e} / {m64:.4e} mm ({abs(m32 - m64):.2e}; '
+          f'limit 1e-3 mm), std {s32:.4e} / {s64:.4e} '
+          f'({abs(s32 / s64 - 1):.2e}; limit 1e-2)', flush=True)
+    check(abs(m32 - m64) < 1e-3 and abs(s32 / s64 - 1) < 1e-2,
+          f'mesh float32 vs float64: {res}')
+
+
+#: examples/18_txm.py: energy, the plate's distance, the object's side
+#: (mm) and voxels a side
+TXM_E0, TXM_P, TXM_SIZE, TXM_N = 9000.0, 1000.0, 0.05, 40
+
+
+def txm_line(nrays, dtype, uniform=False):
+    """examples/18_txm.py: a flat parallel 80 um beam -> a Plate of t 50 um
+    carrying a 40^3 voxel grid (water with a gold cross; all water with
+    *uniform*) -> a detector 100 mm on.  The grid spans z in [0, t], the
+    volume's frame (``materials/volume.py``: the entry surface at z = 0);
+    the example's [-t/2, t/2] would leave half of each chord outside it."""
+    import numpy as np
+    from xrt_tpu_torch.materials import Material, TXMMaterial
+    from xrt_tpu_torch.oes import Plate
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import GeometricSource
+    dk = dict(dtype=dtype, device='cuda')
+    water = Material.create(('H', 'O'), quantities=(2, 1), rho=1.0,
+                            kind='plate', **dk)
+    gold = Material.create('Au', rho=19.3, kind='plate', **dk)
+    n, S = TXM_N, TXM_SIZE
+    grid = np.zeros((n, n, n), np.uint8)
+    if not uniform:
+        grid[:, n // 2 - 4:n // 2 + 4, n // 4:3 * n // 4] = 1
+        grid[:, n // 4:3 * n // 4, n // 2 - 4:n // 2 + 4] = 1
+    lim = {'x': (-S / 2, S / 2), 'y': (-S / 2, S / 2), 'z': (0.0, S)}
+    txm = TXMMaterial.create(indexGrid=grid.transpose(2, 1, 0), limits=lim,
+                             materialsIndex=(water, gold), device='cuda')
+    kw = dict(center=(0, TXM_P, 0), pitch=math.pi / 2, t=S,
+              limPhysX=(-S, S), limPhysY=(-S, S))
+    plate = Plate.create(material=txm, **kw)
+    src = GeometricSource.create(
+        nrays=nrays, distx='flat', dx=S * 1.6, distz='flat', dz=S * 1.6,
+        distxprime=None, distzprime=None, dxprime=0.0, dzprime=0.0,
+        distE='lines', energies=(TXM_E0,), polarization='horizontal', **dk)
+    return (src, plate, Screen.create(center=(0, TXM_P + 100.0, 0)),
+            Plate.create(material=water, **kw))
+
+
+def mean_flux(glo):
+    import torch
+    good = glo.state == 1
+    return float(torch.where(good, glo.Jss + glo.Jpp,
+                             torch.zeros_like(glo.Jss)).double().sum() /
+                 good.sum())
+
+
+def phase_txm(timing):
+    """Phase 29: the TXM voxel volume of examples/18_txm.py."""
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    f32, f64 = torch.float32, torch.float64
+    n, reps = OE_NRAYS, OE_REPEATS
+    src, plate, det, _ = txm_line(n, f32)
+
+    def process(rng):
+        return {'screen': det.expose(plate.double_refract(src.shine(rng))[0])}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='um', limits=(-40, 40)),
+                       dict(label='z', unit='um', limits=(-40, 40)),
+                       dict(label='energy', unit='eV',
+                            limits=(TXM_E0 - 1, TXM_E0 + 1)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        reps, 90)
+    route = th.plot_route((128,) * 3)
+    check(launches == {f'hist_plot:{route}': reps},
+          f'TXM: not one hist_plot launch a pass: {launches}')
+    with _Timed(plate.material, 'volume_integrals') as tv:
+        ms, (beam, glo, img, hists) = step_split([
+            lambda: src.shine(rng), lambda b: plate.double_refract(b)[0],
+            lambda g: det.expose(g),
+            lambda i: runner.histogram_plot(plot, {'screen': i})])
+    v_ms = tv.ms()
+    nk = profiled_kernel_count(lambda: plate.double_refract(beam))
+    I = (glo.Jss + glo.Jpp).double()
+    good = glo.state == 1
+    dark = float((good & (I < 0.1)).double().sum() / good.sum())
+    print(f'phase 29 TXM ({TXM_N}^3 voxels, water with a gold cross, a '
+          f'{TXM_SIZE * 1e3:.0f} um plate): {n} rays/pass, float32, {reps} '
+          f'passes + calibration: {", ".join(f"{v:.1f}" for v in pass_ms)} '
+          f'ms, median {med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; split '
+          f'(CUDA events): source {ms[0]:.1f} ms, double_refract '
+          f'{ms[1]:.1f} ms (the chord integrals over {TXM_N} slabs '
+          f'{v_ms:.1f} ms; {nk} kernel launches a double_refract, '
+          f'torch.profiler), expose {ms[2]:.1f} ms, histograms {ms[3]:.2f} '
+          f'ms; flux {plot.intensity:.6g}, nGood {plot.nRaysGood}, the gold '
+          f'cross\'s shadow (J < 0.1) {dark:.4f} of the good rays; peak '
+          f'device memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+          flush=True)
+    check(0.05 < dark < 0.5, f'TXM shadow {dark}')
+    args = oe_hist_plot_check(29, 'TXM', plot, {'screen': img})
+    timing['txm'] = dict(launches=launches, plot_args=args)
+    del beam, glo, img, hists
+    s_, p_, _, plain = txm_line(OE_CROSS_NRAYS, f32, uniform=True)
+    b_ = s_.shine(torch.Generator().manual_seed(91))
+    tv_, tp_ = mean_flux(p_.double_refract(b_)[0]), \
+        mean_flux(plain.double_refract(b_)[0])
+    print(f'phase 29 a uniform water grid against the plain water plate, '
+          f'{OE_CROSS_NRAYS} rays, float32: transmission {tv_:.7f} / '
+          f'{tp_:.7f} ({abs(tv_ / tp_ - 1):.2e}; limit 1e-3)', flush=True)
+    check(abs(tv_ / tp_ - 1) < 1e-3, f'TXM uniform {tv_} vs plain {tp_}')
+    res = {}
+    for dt in (f32, f64):
+        s_, p_, _, _ = txm_line(OE_CROSS_NRAYS, dt)
+        res[dt] = mean_flux(p_.double_refract(
+            s_.shine(torch.Generator().manual_seed(92)))[0])
+    e = abs(res[f32] / res[f64] - 1)
+    print(f'phase 29 TXM float32 vs float64, {OE_CROSS_NRAYS} rays: mean '
+          f'transmission {res[f32]:.7f} / {res[f64]:.7f} ({e:.2e}; limit '
+          f'1e-4)', flush=True)
+    check(e < 1e-4, f'TXM float32 vs float64 {e}')
+
+
+#: the ray paths of phases 21-25 and 27-29, by their keys in ``timing``
+OE_HIST_KEYS = ('laue', 'crl', 'multilayer', 'powder', 'fe:waviness',
+                'fe:roughness', 'fe:bump', 'capillary', 'mesh:quad',
+                'mesh:spline', 'txm')
+
+
 def oe_physics_rows(timing):
-    """``hist_plot``'s rows on the paths of phases 21-24."""
+    """``hist_plot``'s rows on the paths of phases 21-25 and 27-29."""
     import torch
     from xrt_tpu_torch import histogram as th
     rows = []
-    for key in ('laue', 'crl', 'multilayer', 'powder'):
+    for key in OE_HIST_KEYS:
         args = timing[key]['plot_args']
         bins = args[6]
         route = th.plot_route(bins)
@@ -4171,10 +5114,15 @@ def main():
         phase_crl(timing)
         phase_multilayer(timing)
         phase_powder(timing)
+        phase_figure_errors(timing)
+        phase_fe_wave(timing)
+        phase_capillary(timing)
+        phase_mesh(timing)
+        phase_txm(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + coherence_rows(timing) + \
-            oe_physics_rows(timing)
+            oe_physics_rows(timing) + fe_wave_rows(timing)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -29,6 +29,13 @@ check).  On the card:
   total against ``hist_plot_plain`` with float64 sums to the same limits,
   two launches and both routes bit-identical, float64 to 1e-12;
   ``runner.histogram_plot`` on CUDA beams is one such launch;
+* float32 weights over thirty decades (1e-30 to 1 of the largest), in
+  bins that only faint rays fill (some only rays below 1e-20, beneath any
+  fixed unit of the largest weight), for ``hist2d_kernel`` (k = 1, 3) and
+  ``hist_plot`` on both routes: the non-empty bins of float64 sums, each
+  bin within 1e-5 of its float64 value (the fine words at each sum's own
+  scale, ``csrc/hist_ray.cuh``), and the same bits over two launches and
+  a permutation of the rays;
 * the adjoint kernels (B3: recentred mono / narrowband / poly, per-pair
   double-float 'fast' / 'exact') against the plain blocked backward on the
   same CUDA tensors, row by row: every key row and every scalar to 1e-4
@@ -685,6 +692,84 @@ def test_histogram_plot_is_one_launch_on_the_card(cuda):
     for k in th.PLOT_HISTS + ('intensity',):
         g, r = res['cuda'][k].cpu(), res['cpu'][k]
         assert float((g - r).abs().max()) <= 1e-5 * float(r.abs().max()), k
+
+
+def _faint(rng, n, bins):
+    """Weights from 1e-30 to 1 of the largest; the rays of the upper half
+    of the bins (by x) only below the coarse word's half unit (2e-9), those
+    of the upper quarter only below 1e-20."""
+    x = rng.uniform(-1.0, 1.3, n)
+    w = 10.0 ** np.where(x > 0.725, rng.uniform(-30, -20, n),
+                         np.where(x > 0.15, rng.uniform(-15, -9, n),
+                                  rng.uniform(-30, 0, n)))
+    w[0], x[0] = 1.0, -0.9
+    return x, w
+
+
+def _per_bin(got, ref):
+    """(same non-empty bins, the largest relative error of a bin)."""
+    fin = torch.isfinite(ref) & (ref != 0)
+    g, r = got.double(), ref
+    return (torch.equal(got != 0, ref != 0),
+            float(((g[fin] - r[fin]) / r[fin]).abs().max()))
+
+
+@pytest.mark.parametrize('k', [1, 3])
+@pytest.mark.parametrize('route', ['shared', 'global'])
+def test_hist2d_faint_bins_and_permutations(cuda, route, k):
+    """Weights over thirty decades, bins that only faint rays fill: the
+    same non-empty bins as float64 sums, each bin within 1e-5 of its
+    float64 value; two launches and a permutation of the rays give the same
+    bits."""
+    rng = np.random.RandomState(7)
+    n = 1_000_003
+    x, w = _faint(rng, n, 64)
+    y = rng.uniform(-0.5, 1.7, n)
+    W = np.stack([w * rng.uniform(0.5, 1.0, n) for _ in range(k)], -1)
+    F = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(cuda)  # noqa
+    x, y, W = F(x), F(y), F(W)
+    got = th.hist2d_kernel(x, y, W, 64, 64, XLIM, YLIM, route=route)
+    ref = th.hist2d_plain(x, y, W, 64, 64, XLIM, YLIM,
+                          sum_dtype=torch.float64)
+    same, rel = _per_bin(got, ref)
+    assert same and rel < 1e-5, rel
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    for o in (th.hist2d_kernel(x, y, W, 64, 64, XLIM, YLIM, route=route),
+              th.hist2d_kernel(x[perm], y[perm], W[perm], 64, 64, XLIM,
+                               YLIM, route=route)):
+        assert torch.equal(got.view(torch.int32), o.view(torch.int32))
+
+
+@pytest.mark.parametrize('route', ['shared', 'global'])
+def test_hist_plot_faint_bins_and_permutations(cuda, route):
+    """hist_plot with |flux| and w2d over thirty decades: every histogram
+    has the non-empty bins of float64 sums, each bin within 1e-5 of its
+    float64 value, and two launches and a permutation of the rays give the
+    same bits."""
+    rng = np.random.RandomState(8)
+    n, bins = 1_000_003, 64
+    x, f = _faint(rng, n, bins)
+    y = rng.uniform(-0.5, 1.7, n)
+    c = rng.uniform(8890, 9110, n)
+    m = rng.uniform(size=n) < 0.9
+    m[0] = True
+    F = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(cuda)  # noqa
+    rays = [F(x), F(y), F(c), F(f), F(f * rng.uniform(0.5, 1.0, n)),
+            torch.from_numpy(m).to(cuda)]
+    spec = ((bins,) * 3, (XLIM, YLIM, CLIM), 0.85, 1.0)
+    got = th.hist_plot_kernel(*rays, *spec, route=route)
+    ref = th.hist_plot_plain(*rays, *spec, sum_dtype=torch.float64)
+    for k in th.PLOT_HISTS + ('intensity',):
+        same, rel = _per_bin(got[k], ref[k])
+        assert same and rel < 1e-5, (k, rel)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    outs = [th.hist_plot_kernel(*rays, *spec, route=route),
+            th.hist_plot_kernel(*[v[perm] for v in rays], *spec,
+                                route=route)]
+    for o in outs:
+        for k in th.PLOT_HISTS + ('intensity',):
+            assert torch.equal(got[k].view(torch.int32),
+                               o[k].view(torch.int32)), k
 
 
 def test_hist_plot_refuses_what_the_kernel_does_not_take(cuda):

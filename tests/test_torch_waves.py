@@ -226,13 +226,8 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     chain = WaveChain(src, nrays=10).through_aperture(slit)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         chain.build(mesh=object(), device='cpu')
-    # the second crystal of a DCM (is2ndXtal), gratings, zone plates,
-    # plates and lenses are ported; a figure error and a voxel-volume
-    # (TXM) material are not
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ToroidMirror.create(figure_error=object())
-    txm = Material.create('Au', rho=19.3, kind='plate', dtype=torch.float64,
-                          device='cpu')
-    txm.needsSpatialAmplitude = True
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        tor.replace(material=txm).reflect(s0)
+    # figure errors and voxel-volume (TXM) materials are ported too
+    # (tests/test_torch_figure_error.py, tests/test_torch_txm.py): an OE
+    # takes a figure error
+    fe = object()
+    assert ToroidMirror.create(figure_error=fe).figure_error is fe

@@ -60,6 +60,43 @@ class Beam:
         return dataclasses.replace(self, **updates)
 
     @property
+    def nrays(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def good(self) -> Tensor:
+        """The rays with state 1."""
+        return self.state == STATE_GOOD
+
+    @property
+    def alive(self) -> Tensor:
+        """The rays that carry flux (good or outside the optical
+        limits)."""
+        return self.state > 0
+
+    @property
+    def intensity(self) -> Tensor:
+        return self.Jss + self.Jpp
+
+    @property
+    def flux_good(self) -> Tensor:
+        """The total intensity of the good rays."""
+        return torch.sum(torch.where(self.good, self.intensity, 0.0))
+
+    def with_amplitudes(self) -> "Beam":
+        """The beam with zero field amplitudes if it has none."""
+        if self.Es is not None:
+            return self
+        zeros = torch.zeros_like(self.x, dtype=self.Jsp.dtype)
+        return self.replace(Es=zeros, Ep=zeros)
+
+    def masked_replace(self, mask, **fields) -> "Beam":
+        """The beam with the listed fields replaced where *mask*."""
+        return self.replace(**{name: torch.where(mask, val,
+                                                 getattr(self, name))
+                                for name, val in fields.items()})
+
+    @property
     def degree_of_polarization(self) -> Tensor:
         from .ops.dd import sqrt_rn
         I = self.Jss + self.Jpp
@@ -111,3 +148,100 @@ def propagated_amplitudes(beam: Beam, path) -> dict:
     arg = 1e7 * (beam.E / CHBAR) * path
     propPhase = torch.complex(torch.cos(arg), torch.sin(arg))
     return dict(Es=beam.Es * propPhase, Ep=beam.Ep * propPhase)
+
+
+def _map(fn, beam: Beam, *others: Beam) -> Beam:
+    """*fn* over the per-ray fields (the scalars pass as they are)."""
+    out = {}
+    for f in dataclasses.fields(Beam):
+        v = getattr(beam, f.name)
+        if v is None:
+            out[f.name] = None
+        elif v.ndim == 0:
+            out[f.name] = v
+        else:
+            out[f.name] = fn(v, *(getattr(o, f.name) for o in others))
+    return Beam(**out)
+
+
+def concatenate(b1: Beam, b2: Beam) -> Beam:
+    """The rays of *b1* and then those of *b2*; scalar fields add."""
+    out = {}
+    for f in dataclasses.fields(Beam):
+        u, v = getattr(b1, f.name), getattr(b2, f.name)
+        if u is None or v is None:
+            out[f.name] = None
+        elif u.ndim == 0:
+            out[f.name] = u + v
+        else:
+            out[f.name] = torch.cat([u, v])
+    return Beam(**out)
+
+
+def filter_by_index(beam: Beam, indarr) -> Beam:
+    """Only the rays that *indarr* (indices or a boolean mask) selects."""
+    indarr = torch.as_tensor(indarr, device=beam.x.device)
+    return _map(lambda v: v[indarr], beam)
+
+
+def filter_good(beam: Beam) -> Beam:
+    """Only the rays with state 1."""
+    return filter_by_index(beam, beam.state == 1)
+
+
+def replace_by_index(beam: Beam, indarr, source: Beam) -> Beam:
+    """The rays at *indarr* (a boolean mask or indices) taken from
+    *source*."""
+    indarr = torch.as_tensor(indarr, device=beam.x.device)
+    if indarr.dtype == torch.bool:
+        return _map(lambda a, b: torch.where(indarr, b, a), beam, source)
+
+    def put(a, b):
+        a = a.clone()
+        a[indarr] = b[indarr]
+        return a
+    return _map(put, beam, source)
+
+
+def copy_beam(beam: Beam) -> Beam:
+    """An independent copy of a beam (its tensors cloned)."""
+    return _map(torch.clone, beam)
+
+
+def absorb_intensity(outBeam: Beam, inBeam: Beam, sign=1.0) -> Beam:
+    """The coherency matrix of the power absorbed at an element: the
+    incoming less the outgoing."""
+    return outBeam.replace(
+        Jss=(inBeam.Jss - outBeam.Jss) * sign,
+        Jpp=(inBeam.Jpp - outBeam.Jpp) * sign,
+        Jsp=(inBeam.Jsp - outBeam.Jsp) * sign)
+
+
+def project_energy_to_band(beam: Beam, EnewMin, EnewMax) -> Beam:
+    """The energies mapped linearly onto [EnewMin, EnewMax]."""
+    EoldMin = torch.min(beam.E)
+    EoldMax = torch.max(beam.E)
+    scale = torch.where(EoldMax > EoldMin, (EnewMax - EnewMin) /
+                        torch.clamp(EoldMax - EoldMin, min=1e-300), 0.0)
+    return beam.replace(E=EnewMin + (beam.E - EoldMin) * scale)
+
+
+def make_uniform_energy_band(beam: Beam, generator, EnewMin, EnewMax,
+                             draws=None) -> Beam:
+    """Energies drawn uniformly from [EnewMin, EnewMax); *draws*, uniforms
+    in [0, 1), replaces the draws from *generator*."""
+    if draws is None:
+        draws = torch.rand(beam.E.shape, generator=generator,
+                           dtype=beam.E.dtype,
+                           device=generator.device).to(beam.E.device)
+    return beam.replace(E=EnewMin + draws * (EnewMax - EnewMin))
+
+
+def add_wave(beam: Beam, wave: Beam, sign=1.0) -> Beam:
+    """The wave's amplitudes added, the coherency matrix made anew."""
+    Es = beam.Es + sign * wave.Es
+    Ep = beam.Ep + sign * wave.Ep
+    return beam.replace(
+        Es=Es, Ep=Ep,
+        Jss=(Es * Es.conj()).real, Jpp=(Ep * Ep.conj()).real,
+        Jsp=Es * Ep.conj())

@@ -13,9 +13,14 @@
 // both routes, give the same bits.  The table lives where its size lets it
 // (route): a private copy of its low words in every CTA's shared memory
 // (128 x 128 x 3: 192 KB), else device memory (1024 x 1024 x 3), where the
-// rays of a warp that share a bin are summed by shuffles first.  A scale pass before it finds the largest finite |w| on
-// the device, a conversion pass after it writes the sums in the weights'
-// dtype.
+// rays of a warp that share a bin are summed by shuffles first.  A scale
+// pass before it finds the largest finite |w| on the device, a conversion
+// pass after it writes the sums in the weights' dtype.  Float32 weights
+// far below the largest (with a rounding residual) also add a fine word
+// at their sum's own scale (hist_ray.cuh) to a second table in device
+// memory, summed over a warp's lanes first, in the warps that hold one; a
+// pass between the scale pass and the sums finds each sum's largest such
+// weight.
 //
 // Bin index (hist_ray.cuh: axis_bin), the same expression as the plain
 // PyTorch version (histogram._bin_index): floor((v - lo) / span * bins)
@@ -55,7 +60,10 @@ struct HistArgs {
   int xbins, ybins;
   u64* mbits;        // the largest finite |w|, a double's bits
   long long* acc;    // [bins][1] (k = 1) or [bins][4] (k = 3, padded)
+  long long* fine;   // float32: the fine words, laid out as acc
   unsigned* flags;   // [bins]: bits 3 col + (NaN, +inf, -inf)
+  unsigned* fmax;    // float32: the largest faint |w| of each sum
+                     // (faint_max), laid out as acc
 };
 
 // columns a bin of the device-memory sums (a sector for k = 3)
@@ -80,6 +88,46 @@ hist2d_scale_kernel(HistArgs<T> a) {
   block_max_into(m, a.mbits);
 }
 
+// float32: each sum's largest faint |w| (hist_accum.cuh: faint_max)
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+hist2d_faint_kernel(HistArgs<float> a) {
+  const double scale =
+      ldexp(1.0, fixed_exp(max_of(a.mbits), scale_count<float>(a.n)));
+  const bool has_y = a.y != nullptr;
+  const bool vec = aligned16(a.x) && (!has_y || aligned16(a.y)) &&
+                   aligned16(a.w);
+  const long long groups = (a.n + RAYS - 1) / RAYS;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < groups; g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = g * RAYS;
+    float xv[RAYS], yv[RAYS] = {}, wv[RAYS * K];
+    load_run<float, RAYS>(a.x, i, a.n, vec, xv);
+    if (has_y) load_run<float, RAYS>(a.y, i, a.n, vec, yv);
+    load_run<float, RAYS * K>(a.w, i * K, a.n * K, vec, wv);
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r) {
+      float m[K];
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        m[c] = faint_of(wv[r * K + c], scale);
+        any |= m[c] > 0.0f;
+      }
+      if (any && i + r < a.n) {
+        const int ix = axis_bin(xv[r], a.xlo, a.xspan, a.xb);
+        const int iy = has_y ? axis_bin(yv[r], a.ylo, a.yspan, a.yb) : 0;
+        if (ix >= 0 && iy >= 0) {
+          unsigned* slot = a.fmax + kPadded<K> * (iy * a.xbins + ix);
+#pragma unroll
+          for (int c = 0; c < K; ++c) faint_max(slot + c, m[c]);
+        }
+      }
+    }
+  }
+}
+
 template <typename T, int K, int ROUTE>
 __global__ void __launch_bounds__(THREADS)
 hist2d_kernel(HistArgs<T> a) {
@@ -89,8 +137,8 @@ hist2d_kernel(HistArgs<T> a) {
     for (int j = threadIdx.x; j < K * bins; j += blockDim.x) smem[j] = 0u;
     __syncthreads();
   }
-  const double scale =
-      ldexp(1.0, fixed_exp(max_of(a.mbits), scale_count<T>(a.n)));
+  const int e = fixed_exp(max_of(a.mbits), scale_count<T>(a.n));
+  const double scale = ldexp(1.0, e);
   const bool has_y = a.y != nullptr;
   const bool vec = aligned16(a.x) && (!has_y || aligned16(a.y)) &&
                    aligned16(a.w);
@@ -114,14 +162,32 @@ hist2d_kernel(HistArgs<T> a) {
         key = ix >= 0 && iy >= 0 ? iy * a.xbins + ix : -1;
       }
       long long q[K];
+      double res[K];
       unsigned bad = 0u;
+      bool faint = false;
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         const unsigned f = nonfinite(wv[r * K + c]);
         bad |= f << (3 * c);
         q[c] = key < 0 || f ? 0 : to_fixed(wv[r * K + c], scale);
+        res[c] = 0.0;
+        if constexpr (sizeof(T) == 4)
+          if (key >= 0 && !f) res[c] = residual(wv[r * K + c], q[c], scale);
+        faint |= res[c] != 0.0;
       }
       if (key >= 0 && bad) atomicOr(a.flags + key, bad);  // rare
+      const unsigned lanes =
+          sizeof(T) == 4 ? __ballot_sync(0xffffffffu, faint) : 0u;
+      if (lanes != 0u) {
+        const bool many = __popc(lanes) > FINE_WARP_LANES;
+        long long qf[K];
+#pragma unroll
+        for (int c = 0; c < K; ++c)
+          qf[c] = faint ? fine_at(res[c], a.fmax + kPadded<K> * key + c, e,
+                                  a.n)
+                        : 0;
+        if (many || faint) fine_add<K>(a.fine, faint ? key : -1, qf, many);
+      }
       if constexpr (ROUTE == kGlobal) {
         const bool lead = warp_sum<K>(key, q);
         global_add<K>(a.acc, lead ? key : -1, q);
@@ -146,8 +212,14 @@ __global__ void hist2d_out_kernel(HistArgs<T> a, T* out) {
        j < count; j += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long bin = j / K;
     const int col = static_cast<int>(j - bin * K);
-    out[j] = with_flags(from_fixed(a.acc[kPadded<K> * bin + col], e, T(0)),
-                        (a.flags[bin] >> (3 * col)) & 7u);
+    const long long s = a.acc[kPadded<K> * bin + col];
+    T v;
+    if constexpr (sizeof(T) == 4)
+      v = from_fixed2(s, a.fine[kPadded<K> * bin + col], e,
+                      faint_exp(a.fmax + kPadded<K> * bin + col, a.n));
+    else
+      v = from_fixed(s, e, T(0));
+    out[j] = with_flags(v, (a.flags[bin] >> (3 * col)) & 7u);
   }
 }
 
@@ -164,6 +236,11 @@ int launch(const HistArgs<T>& a, int route, void* out, cudaStream_t s) {
     hist2d_scale_kernel<T, K><<<blocks, THREADS, 0, s>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
+    if constexpr (sizeof(T) == 4) {
+      hist2d_faint_kernel<K><<<blocks, THREADS, 0, s>>>(a);
+      err = static_cast<int>(cudaGetLastError());
+      if (err) return err;
+    }
     const int b = static_cast<int>(smem);
     err = route == kShared
         ? launch_kernel(hist2d_kernel<T, K, kShared>, groups, b, s, a)
@@ -318,19 +395,21 @@ int launch_bwd(const void* x, const void* y, const void* g, long long n,
 }  // namespace
 
 // int64 entries of the work buffer of hist2d_launch for a (ybins, xbins,
-// k) histogram: the sums, the scale pass's maximum (two entries) and the
-// flags (32 bits a bin).
-extern "C" long long hist2d_work(int k, int xbins, int ybins) {
+// k) histogram: the sums, the scale pass's maximum (two entries), the
+// flags (32 bits a bin) and, for float32 weights, the fine words and
+// their largest faint weights (32 bits each).
+extern "C" long long hist2d_work(int is_double, int k, int xbins, int ybins) {
   const long long nb = static_cast<long long>(xbins) * ybins;
-  return nb * (k == 1 ? 1 : 4) + 2 + (nb + 1) / 2;
+  const long long sums = nb * (k == 1 ? 1 : 4);
+  return sums + 2 + (nb + 1) / 2 + (is_double ? 0 : sums + (sums + 1) / 2);
 }
 
 // x, y: (n,) of float (is_double 0) or double (1), y may be null for a 1D
 // histogram (ybins must then be 1); w: (n, k) row-major, k 1 or 3; out:
 // (ybins, xbins, k), written in full.  xspan = xhi - xlo.  route: 0 a
 // private copy of the table in each CTA's shared memory (a table too
-// large for it is refused), 1 device memory.  work: hist2d_work(k, xbins, ybins)
-// int64 zeros.  Returns the first failed launch's cudaError_t, or 0.
+// large for it is refused), 1 device memory.  work: hist2d_work(is_double,
+// k, xbins, ybins) int64 zeros.  Returns the first failed launch's cudaError_t, or 0.
 extern "C" int hist2d_launch(int is_double, int k, const void* x,
                              const void* y, const void* w, long long n,
                              double xlo, double xspan, int xbins, double ylo,
@@ -343,13 +422,15 @@ extern "C" int hist2d_launch(int is_double, int k, const void* x,
   long long* acc = static_cast<long long*>(work);
   u64* mbits = reinterpret_cast<u64*>(acc + nb * (k == 1 ? 1 : 4));
   unsigned* flags = reinterpret_cast<unsigned*>(mbits + 2);
+  long long* fine = reinterpret_cast<long long*>(mbits + 2) + (nb + 1) / 2;
+  unsigned* fmax = reinterpret_cast<unsigned*>(fine + nb * (k == 1 ? 1 : 4));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define XRT_HIST_CASE(T, K)                                                 \
   return launch<T, K>(                                                      \
       HistArgs<T>{static_cast<const T*>(x), static_cast<const T*>(y),       \
                   static_cast<const T*>(w), n, T(xlo), T(xspan), T(xbins),  \
                   T(ylo), T(yspan), T(ybins), xbins, ybins, mbits, acc,     \
-                  flags},                                                   \
+                  fine, flags, fmax},                                       \
       route, out, s)
   if (!is_double && k == 1) XRT_HIST_CASE(float, 1);
   if (!is_double && k == 3) XRT_HIST_CASE(float, 3);

@@ -129,6 +129,31 @@ __device__ __forceinline__ void global_add(long long* tab, int key,
   }
 }
 
+// The fine words v of bin `key` (-1: nothing) into a device-memory table
+// laid out as global_add's.  When many lanes of the warp hold fine words
+// (`many`, the same in every lane; all 32 lanes must then call it) they
+// are summed over the warp first, else each lane adds its own: a main-path
+// beam has a few faint colour weights in most warps, a powder's are
+// nearly all faint.  Integer adds: the same sums either way.
+template <int NC>
+__device__ __forceinline__ void fine_add(long long* tab, int key,
+                                         long long (&v)[NC], bool many) {
+  if (many) {
+    const bool lead = warp_sum<NC>(key, v);
+    global_add<NC>(tab, lead ? key : -1, v);
+    return;
+  }
+  if (key < 0) return;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    if (v[c] != 0)
+      atomicAdd(reinterpret_cast<u64*>(tab + (NC == 1 ? key : 4 * key + c)),
+                static_cast<u64>(v[c]));
+}
+
+// lanes of a warp with fine words above which fine_add sums over the warp
+constexpr int FINE_WARP_LANES = 8;
+
 // Adds the low words of a shared-memory table of `bins` bins and NC
 // columns to dst, whose bin b column c is dst[KP b + c]; the non-zero ones.
 template <int NC, int KP>
@@ -209,6 +234,40 @@ __device__ __forceinline__ void block_sum_into(long long v, long long* out) {
 
 __device__ __forceinline__ double max_of(const u64* bits) {
   return __longlong_as_double(static_cast<long long>(*bits));
+}
+
+// Faint float32 weights (hist_ray.cuh: residual): |w| of a weight w below
+// 2^17 units of scale 2^e that has a rounding residual, else 0
+__device__ __forceinline__ float faint_of(float w, double scale) {
+  if (!isfinite(w)) return 0.0f;
+  return residual(w, to_fixed(w, scale), scale) != 0.0 ? fabsf(w) : 0.0f;
+}
+
+// a bin's largest faint |w| into *slot, kept as a float's bits
+// (non-negative floats order as their bits do)
+__device__ __forceinline__ void faint_max(unsigned* slot, float v) {
+  if (v > 0.0f) atomicMax(slot, __float_as_uint(v));
+}
+
+// the fine exponent of a sum whose largest faint |w| is *slot (0: none),
+// for n weights: 28 bits a weight, as the coarse word's (scale_count), so
+// that a fine word too fits a shared low word but for one add in 16
+__device__ __forceinline__ int faint_exp(const unsigned* slot, long long n) {
+  return fixed_exp(static_cast<double>(__uint_as_float(*slot)),
+                   scale_count<float>(n));
+}
+
+// the fine word of residual r (0: none) at the fine exponent of *slot
+__device__ __forceinline__ long long fine_at(double r, const unsigned* slot,
+                                             int e, long long n) {
+  return r == 0.0 ? 0 : fine_fixed(r, faint_exp(slot, n), e);
+}
+
+// the largest of v over the block's threads into *slot (faint_max)
+__device__ __forceinline__ void block_faint_max(float v, unsigned* slot) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) faint_max(slot, v);
 }
 
 // Blocks for a grid-stride kernel of `threads` threads a block over

@@ -12,12 +12,19 @@
 // a bin) live in every CTA's shared memory (csrc/hist_accum.cuh), and so do
 // those of the 2D table's colour columns where they fit (route kShared:
 // 128 x 128 bins, 192 KB); else (1024 x 1024 bins) the colour columns add
-// to device memory.  The 2D intensity column always does.
+// to device memory.  The 2D intensity column always does.  Float32 weights
+// far below the largest (with a rounding residual) also carry a fine word
+// at their sum's own scale (hist_ray.cuh), added to a second set of tables:
+// the 1D tables' low words in shared memory beside the coarse ones (so a
+// plot of 128 bins takes 204 KB a CTA), the 2D table's in device memory.
+// A bin of faint rays keeps their sum, as a float sum does.
 //
-// Three launches on the stream, no host read between them: the scale pass
-// (the largest finite |flux * mask| and |w2d * mask|: the fixed-point
-// scales, hist_ray.cuh), the main kernel, and the conversion of the integer
-// sums and flags into the output's dtype.  The per-ray arithmetic
+// Launches on the stream, no host read between them: the scale pass (the
+// largest finite |flux * mask| and |w2d * mask|: the fixed-point scales,
+// hist_ray.cuh), for float32 the faint pass (each sum's largest faint
+// weight),
+// the main kernel, and the conversion of the integer sums and flags into
+// the output's dtype.  The per-ray arithmetic
 // (hist_ray.cuh: plot_ray) is the plain version's operation for operation.
 #include "hist_accum.cuh"
 
@@ -34,7 +41,10 @@ struct PlotArgs {
   int xb, yb, cb;
   u64* mbits;        // [max |flux m|, max |w2d m|] as doubles' bits
   long long* acc;    // x [xb][4], y [yb][4], c [cb][4], xy [yb*xb][4], total
+  long long* fine;   // float32: the fine words, laid out as acc
   unsigned* flags;   // x [xb], y [yb], c [cb], xy [yb*xb], total
+  unsigned* fmax;    // float32: the largest faint |w| (faint_max) of each
+                     // sum, laid out as acc
 };
 
 // the fixed-point exponents of the |flux| and colour columns (ea) and of
@@ -75,6 +85,72 @@ plot_scale_kernel(PlotArgs<T> a) {
   block_max_into(m2, a.mbits + 1);
 }
 
+// float32: each sum's largest faint weight; those of the 1D tables in
+// every CTA's shared memory first (a few bins take many rays), the 2D
+// table's in device memory
+__global__ void __launch_bounds__(THREADS)
+plot_faint_kernel(PlotArgs<float> a) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int n1 = a.xb + a.yb + a.cb;
+  for (int j = threadIdx.x; j < 4 * n1; j += blockDim.x) smem[j] = 0u;
+  __syncthreads();
+  int ea, eb;
+  plot_exps(a.mbits, a.ax.s, a.n, &ea, &eb);
+  const double sa = ldexp(1.0, ea), sb = ldexp(1.0, eb);
+  const int o1[3] = {0, a.xb, a.xb + a.yb};
+  const long long nb = n1 + static_cast<long long>(a.xb) * a.yb;
+  const bool vec = aligned16(a.x) && aligned16(a.y) && aligned16(a.c) &&
+                   aligned16(a.flux) && aligned16(a.w2d) &&
+                   reinterpret_cast<u64>(a.mask) % 4 == 0;
+  const long long groups = (a.n + RAYS - 1) / RAYS;
+  float total = 0.0f;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       g < groups; g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long i = g * RAYS;
+    float xv[RAYS], yv[RAYS], cv[RAYS], fv[RAYS], wv[RAYS];
+    bool mv[RAYS];
+    load_run<float, RAYS>(a.x, i, a.n, vec, xv);
+    load_run<float, RAYS>(a.y, i, a.n, vec, yv);
+    load_run<float, RAYS>(a.c, i, a.n, vec, cv);
+    load_run<float, RAYS>(a.flux, i, a.n, vec, fv);
+    load_run<float, RAYS>(a.w2d, i, a.n, vec, wv);
+    load_mask(a.mask, i, a.n, vec, mv);
+#pragma unroll
+    for (int r = 0; r < RAYS; ++r) {
+      if (i + r >= a.n) continue;
+      const PlotRay<float> p = plot_ray(xv[r], yv[r], cv[r], fv[r], wv[r],
+                                        mv[r], a.ax);
+      const float fa = faint_of(p.af, sa), fw = faint_of(p.w2, sb);
+      const float fc[3] = {faint_of(p.rgb[0], sa), faint_of(p.rgb[1], sa),
+                           faint_of(p.rgb[2], sa)};
+      total = fmaxf(total, fa);
+      if (fa == 0.0f && fw == 0.0f && fc[0] == 0.0f && fc[1] == 0.0f &&
+          fc[2] == 0.0f)
+        continue;
+      const int keys[3] = {p.ix, p.iy, p.ic};
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        if (keys[t] < 0) continue;
+        unsigned* slot = smem + 4 * (o1[t] + keys[t]);
+        faint_max(slot, fa);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) faint_max(slot + 1 + c, fc[c]);
+      }
+      if (p.ix >= 0 && p.iy >= 0) {
+        unsigned* slot = a.fmax + 4 * (n1 + p.iy * a.xb + p.ix);
+        faint_max(slot, fw);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) faint_max(slot + 1 + c, fc[c]);
+      }
+    }
+  }
+  block_faint_max(total, a.fmax + 4 * nb);
+  __syncthreads();
+  for (int j = threadIdx.x; j < 4 * n1; j += blockDim.x)
+    if (smem[j] != 0u) atomicMax(a.fmax + j, smem[j]);
+}
+
 template <typename T, int ROUTE>
 __global__ void __launch_bounds__(THREADS)
 plot_kernel(PlotArgs<T> a) {
@@ -85,7 +161,10 @@ plot_kernel(PlotArgs<T> a) {
   const int o1[3] = {0, a.xb, a.xb + a.yb};
   const int bins2 = a.xb * a.yb;
   const int words = 4 * n1 + (ROUTE == kGlobal ? 0 : 3 * bins2);
-  for (int j = threadIdx.x; j < words; j += blockDim.x) smem[j] = 0u;
+  unsigned* fine1 = smem + words;              // float32: the 1D fine words
+  const int fine_words = sizeof(T) == 4 ? 4 * n1 : 0;
+  for (int j = threadIdx.x; j < words + fine_words; j += blockDim.x)
+    smem[j] = 0u;
   __syncthreads();
   int ea, eb;
   plot_exps(a.mbits, a.ax.s, a.n, &ea, &eb);
@@ -97,7 +176,7 @@ plot_kernel(PlotArgs<T> a) {
                    reinterpret_cast<u64>(a.mask) % 4 == 0;
   const int lane = threadIdx.x & 31;
   const long long groups = (a.n + RAYS - 1) / RAYS;
-  long long total = 0;
+  long long total = 0, total_f = 0;
   // every lane of a warp takes the same number of steps (warp_sum)
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -126,6 +205,20 @@ plot_kernel(PlotArgs<T> a) {
       qc[1] = fg || !valid ? 0 : to_fixed(p.rgb[1], sa);
       qc[2] = fb || !valid ? 0 : to_fixed(p.rgb[2], sa);
       total += qa;
+      // the rounding residuals (float32): zero for a weight on the coarse
+      // grid
+      double ra = 0.0, rw = 0.0, rc[3] = {0.0, 0.0, 0.0};
+      if constexpr (sizeof(T) == 4) {
+        if (valid) {
+          if (!fa) ra = residual(p.af, qa, sa);
+          if (!fw) rw = residual(p.w2, qw, sb);
+          if (!fr) rc[0] = residual(p.rgb[0], qc[0], sa);
+          if (!fg) rc[1] = residual(p.rgb[1], qc[1], sa);
+          if (!fb) rc[2] = residual(p.rgb[2], qc[2], sa);
+        }
+      }
+      const bool faint = ra != 0.0 || rw != 0.0 || rc[0] != 0.0 ||
+                         rc[1] != 0.0 || rc[2] != 0.0;
       const int k2 = p.ix >= 0 && p.iy >= 0 ? p.iy * a.xb + p.ix : -1;
       if (valid && (fa | fw | fr | fg | fb)) {  // rare: non-finite weights
         const unsigned c3 = fr << 3 | fg << 6 | fb << 9;
@@ -157,13 +250,49 @@ plot_kernel(PlotArgs<T> a) {
                     static_cast<u64>(w[0]));
         if (k2 >= 0) smem_add<3>(tab2, bins2, k2, qc, a.acc + o2 + 4 * k2 + 1);
       }
+      // the fine words at each sum's fine exponent (float32)
+      const unsigned lanes =
+          sizeof(T) == 4 ? __ballot_sync(0xffffffffu, faint) : 0u;
+      if (lanes != 0u) {
+        const bool many = __popc(lanes) > FINE_WARP_LANES;
+        const unsigned* fm = a.fmax;
+        if (faint) {
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            if (keys[t] < 0) continue;
+            const unsigned* slot = fm + 4 * (o1[t] + keys[t]);
+            long long v[4];
+            v[0] = fine_at(ra, slot, ea, a.n);
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              v[c + 1] = fine_at(rc[c], slot + 1 + c, ea, a.n);
+            smem_add<4>(fine1 + 4 * o1[t], b1[t], keys[t], v,
+                        a.fine + 4 * (o1[t] + keys[t]));
+          }
+        }
+        long long v[4] = {0, 0, 0, 0};
+        if (faint && k2 >= 0) {
+          const unsigned* slot = fm + 4 * (n1 + k2);
+          v[0] = fine_at(rw, slot, eb, a.n);
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            v[c + 1] = fine_at(rc[c], slot + 1 + c, ea, a.n);
+        }
+        if (many || faint)
+          fine_add<4>(a.fine + o2, faint ? k2 : -1, v, many);
+        total_f += fine_at(ra, fm + 4 * (n1 + bins2), ea, a.n);
+      }
     }
   }
   block_sum_into(total, a.acc + ot);
+  if constexpr (sizeof(T) == 4) block_sum_into(total_f, a.fine + ot);
   __syncthreads();
   for (int t = 0; t < 3; ++t)
     merge_table<4, 4>(smem + 4 * o1[t], b1[t], a.acc + 4 * o1[t]);
   if constexpr (ROUTE == kShared) merge_table<3, 4>(tab2, bins2, a.acc + o2 + 1);
+  if constexpr (sizeof(T) == 4)
+    for (int t = 0; t < 3; ++t)
+      merge_table<4, 4>(fine1 + 4 * o1[t], b1[t], a.fine + 4 * o1[t]);
 }
 
 // The integer sums and flags into the output, laid out as xh [xb],
@@ -174,13 +303,20 @@ template <typename T>
 __global__ void plot_out_kernel(PlotArgs<T> a, T* out) {
   int ea, eb;
   plot_exps(a.mbits, a.ax.s, a.n, &ea, &eb);
+  // the sum j in T: the coarse and, for float32, the fine word
+  auto value = [&](long long j, int e) {
+    if constexpr (sizeof(T) == 4)
+      return from_fixed2(a.acc[j], a.fine[j], e, faint_exp(a.fmax + j, a.n));
+    else
+      return from_fixed(a.acc[j], e, T(0));
+  };
   const int n1 = a.xb + a.yb + a.cb;
   const long long nb = n1 + static_cast<long long>(a.xb) * a.yb;
   for (long long j = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        j <= 4 * nb; j += static_cast<long long>(gridDim.x) * blockDim.x) {
     if (j == 4 * nb) {  // the total
-      out[j] = with_flags(from_fixed(a.acc[j], ea, T(0)), a.flags[nb] & 7u);
+      out[j] = with_flags(value(j, ea), a.flags[nb] & 7u);
       continue;
     }
     const long long bin = j >> 2;
@@ -191,8 +327,7 @@ __global__ void plot_out_kernel(PlotArgs<T> a, T* out) {
     else if (bin < n1) { start = a.xb + a.yb; size = a.cb; }
     else { start = n1; size = nb - n1; }
     const int e = start == n1 && col == 0 ? eb : ea;
-    const T v = with_flags(from_fixed(a.acc[j], e, T(0)),
-                           (a.flags[bin] >> (3 * col)) & 7u);
+    const T v = with_flags(value(j, e), (a.flags[bin] >> (3 * col)) & 7u);
     const long long b = bin - start;
     out[4 * start + (col == 0 ? b : size + 3 * b + col - 1)] = v;
   }
@@ -202,8 +337,8 @@ template <typename T>
 int launch(const PlotArgs<T>& a, int route, void* out, cudaStream_t s) {
   const long long groups = (a.n + RAYS - 1) / RAYS;
   const int n1 = a.xb + a.yb + a.cb;
-  const long long smem =
-      16LL * n1 + (route == kGlobal ? 0 : 12LL * a.xb * a.yb);
+  const long long smem = 16LL * n1 * (sizeof(T) == 4 ? 2 : 1) +
+                         (route == kGlobal ? 0 : 12LL * a.xb * a.yb);
   if (smem > MAX_SHARED_BYTES) return static_cast<int>(cudaErrorInvalidValue);
   int blocks = 0, err = 0;
   if (a.n > 0) {  // with no rays only the conversion runs: zeros
@@ -212,6 +347,10 @@ int launch(const PlotArgs<T>& a, int route, void* out, cudaStream_t s) {
     plot_scale_kernel<T><<<blocks, THREADS, 0, s>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
+    if constexpr (sizeof(T) == 4) {
+      err = launch_kernel(plot_faint_kernel, groups, 16 * n1, s, a);
+      if (err) return err;
+    }
     const int b = static_cast<int>(smem);
     err = route == kShared
         ? launch_kernel(plot_kernel<T, kShared>, groups, b, s, a)
@@ -229,17 +368,20 @@ int launch(const PlotArgs<T>& a, int route, void* out, cudaStream_t s) {
 
 // int64 entries of the work buffer of hist_plot_launch: the sums and the
 // total, the scale pass's two maxima, the flags (32 bits a bin and the
-// total).
-extern "C" long long hist_plot_work(int xb, int yb, int cb) {
+// total) and, for float32 rays, the fine words of the sums and the total
+// and their largest faint weights (32 bits each).
+extern "C" long long hist_plot_work(int is_double, int xb, int yb, int cb) {
   const long long nb = xb + yb + cb + static_cast<long long>(xb) * yb;
-  return 4 * nb + 1 + 2 + (nb + 2) / 2;
+  return 4 * nb + 1 + 2 + (nb + 2) / 2 +
+         (is_double ? 0 : 4 * nb + 1 + (4 * nb + 2) / 2);
 }
 
 // One plot's histograms.  x, y, c (cData), flux, w2d: (n,) of float
 // (is_double 0) or double (1); mask: (n,) bool.  Axes: lo and span (hi -
 // lo) and bins of x, y and c; cf, cs: colorFactor, colorSaturation.  route:
 // 0 shared, 1 global (the 2D colour columns'; the 1D tables are always in
-// shared memory, the 2D intensity column in device memory).  work: hist_plot_work(xb, yb, cb) int64 zeros.  out:
+// shared memory, the 2D intensity column in device memory).  work:
+// hist_plot_work(is_double, xb, yb, cb) int64 zeros.  out:
 // 4 nb + 1 values of the dtype, nb = xb + yb + cb + xb yb (see
 // plot_out_kernel).  Returns the first failed launch's cudaError_t, or 0.
 extern "C" int hist_plot_launch(int is_double, const void* x, const void* y,
@@ -256,6 +398,8 @@ extern "C" int hist_plot_launch(int is_double, const void* x, const void* y,
   long long* acc = static_cast<long long*>(work);
   u64* mbits = reinterpret_cast<u64*>(acc + 4 * nb + 1);
   unsigned* flags = reinterpret_cast<unsigned*>(mbits + 2);
+  long long* fine = reinterpret_cast<long long*>(mbits + 2) + (nb + 2) / 2;
+  unsigned* fmax = reinterpret_cast<unsigned*>(fine + 4 * nb + 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
     PlotArgs<double> a{static_cast<const double*>(x),
@@ -266,7 +410,7 @@ extern "C" int hist_plot_launch(int is_double, const void* x, const void* y,
                        static_cast<const bool*>(mask), n,
                        {xlo, xspan, double(xb), ylo, yspan, double(yb), clo,
                         cspan, double(cb), cf, cs},
-                       xb, yb, cb, mbits, acc, flags};
+                       xb, yb, cb, mbits, acc, fine, flags, fmax};
     return launch(a, route, out, s);
   }
   PlotArgs<float> a{static_cast<const float*>(x),
@@ -278,6 +422,6 @@ extern "C" int hist_plot_launch(int is_double, const void* x, const void* y,
                     {float(xlo), float(xspan), float(xb), float(ylo),
                      float(yspan), float(yb), float(clo), float(cspan),
                      float(cb), float(cf), float(cs)},
-                    xb, yb, cb, mbits, acc, flags};
+                    xb, yb, cb, mbits, acc, fine, flags, fmax};
   return launch(a, route, out, s);
 }

@@ -100,6 +100,21 @@ __device__ __forceinline__ PlotRay<T> plot_ray(
 // 2^34 for float32: scale_count): no partial sum can exceed 2^62 + n / 2
 // < 2^63, and integer adds give the same bits in any order.  The one
 // rounding is per weight, 2^-e / 2 <= n m 2^-63.
+//
+// A float32 weight far below m would round to 0 there (its unit is
+// m 2^-28), and a bin that only such rays fill would come out empty where
+// a float sum keeps it.  So a faint float32 weight, one below 2^17 units
+// (about m 2^-11: a weight above it is rounded to 2^-18 of itself), also
+// carries its rounding residual r = w 2^e - q (|r| <= 1/2 and |r 2^-e| <=
+// |w|, exact in double) as a fine word at a scale of its sum's own: rint(r
+// 2^(f - e)), f = fixed_exp(M, scale_count(n)) for M the largest faint |w|
+// that enters that sum (one column of one bin; a pass before the sums takes
+// it).  The fine sums stay within 2^62 + n / 2, a weight is rounded once
+// more, by at most M 2^-29, and a sum that only faint rays enter keeps them
+// to that, however faint they are against m (a float sum keeps them to its
+// own ulp, 2^-24 of it).  The conversion combines the two sums in double
+// and rounds once to float32.  Float64 weights keep the one word at their
+// true count.
 // Non-finite weights are carried apart as flags (kNaN, kPosInf, kNegInf).
 // ---------------------------------------------------------------------------
 
@@ -114,11 +129,10 @@ __device__ __forceinline__ int fixed_exp(double m, long long n) {
   return e > 1000 ? 1000 : (e < -1000 ? -1000 : e);
 }
 
-// The count the scale of T weights is taken for.  A float32 sum needs no
-// more than 28 bits a weight (2^-29 m is far below a float32 ulp of any
-// sum m enters), and a weight of 28 bits makes at most one add in 16 to
-// a low word carry into device memory (add_low).  A float64 sum takes the
-// full 62 bits.
+// The count the scale of T weights is taken for.  A float32 weight's
+// coarse word takes 28 bits (what it lacks, the fine word carries), so at
+// most one add in 16 to a low word carries into device memory (add_low).
+// A float64 sum takes the full 62 bits.
 template <typename T>
 __device__ __forceinline__ long long scale_count(long long n) {
   return sizeof(T) == 4 && n < (1LL << 34) ? (1LL << 34) : n;
@@ -131,6 +145,22 @@ __device__ __forceinline__ long long to_fixed(T w, double scale) {
   return __double2ll_rn(static_cast<double>(w) * scale);
 }
 
+// the rounding residual w 2^e - q of a faint float32 weight w whose word is
+// q = to_fixed(w, scale), scale = 2^e (exact: both are doubles within 1/2
+// of each other on the grid of w's last bit), 0 for a weight of 2^17 units
+// or more
+__device__ __forceinline__ double residual(float w, long long q,
+                                           double scale) {
+  const double u = static_cast<double>(w) * scale;
+  return fabs(u) < 131072.0 ? u - static_cast<double>(q) : 0.0;
+}
+
+// the fine word of residual r (in units of 2^-e) at the fine exponent f:
+// r 2^(f - e) to the nearest integer
+__device__ __forceinline__ long long fine_fixed(double r, int f, int e) {
+  return __double2ll_rn(r * ldexp(1.0, f - e));
+}
+
 // the sum back in T, rounded once: s to T, then times 2^-e (exact outside
 // the subnormal range)
 __device__ __forceinline__ float from_fixed(long long s, int e,
@@ -140,6 +170,14 @@ __device__ __forceinline__ float from_fixed(long long s, int e,
 __device__ __forceinline__ double from_fixed(long long s, int e,
                                                       double) {
   return ldexp(__ll2double_rn(s), -e);
+}
+
+// a float32 sum from its coarse sum s at exponent e and its fine sum g at
+// exponent f: s 2^-e + g 2^-f in double, rounded once to float
+__device__ __forceinline__ float from_fixed2(long long s, long long g, int e,
+                                             int f) {
+  return static_cast<float>(ldexp(__ll2double_rn(s), -e) +
+                            ldexp(__ll2double_rn(g), -f));
 }
 
 enum : unsigned { kNaN = 1u, kPosInf = 2u, kNegInf = 4u };

@@ -22,8 +22,13 @@ on CUDA tensors: one read of the rays for all eight.
 
 The kernels add fixed-point integers (``csrc/hist_accum.cuh``): two
 launches, and both routes of a table (:data:`ROUTES`), give the same bits.
-Their only rounding is one a weight, of at most 2^-29 m for float32
-weights of magnitude at most m (2^-63 n m for n float64 weights).
+Their only rounding is one a weight: for n float32 weights of magnitude at
+most m, a coarse word of unit about m 2^-28 (2^-18 of a weight above
+about m 2^-11) and, for a weight below that, a fine word for its residual
+at its sum's own scale (a bin's column), of at most M 2^-29 for M the
+largest such weight of that sum, so a bin that only faint rays fill keeps
+their sum as a float sum does, however faint; 2^-63 n m for n float64
+weights (one word).
 
 Histograms are differentiable with respect to the weights (the
 coordinates and the limits get no gradient: ``floor``).  The adjoint is a
@@ -91,9 +96,10 @@ def hist_route(xbins, ybins, k):
 
 def plot_route(bins):
     """Where :func:`hist_plot_kernel` keeps the 2D colour columns of a plot
-    of *bins* (x, y, c) by default."""
+    of *bins* (x, y, c) by default, beside the 1D tables' coarse and fine
+    low words."""
     xb, yb, cb = bins
-    return _route(3 * xb * yb, 4 * (xb + yb + cb))
+    return _route(3 * xb * yb, 8 * (xb + yb + cb))
 
 
 def _check_route(route):
@@ -181,10 +187,11 @@ def hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits=None,
     ylo, yhi = (0.0, 1.0) if y is None else \
         (float(ylimits[0]), float(ylimits[1]))
     lib = _cuda.load('hist2d')
-    lib.hist2d_work.argtypes = [ctypes.c_int] * 3
+    lib.hist2d_work.argtypes = [ctypes.c_int] * 4
     lib.hist2d_work.restype = ctypes.c_longlong
-    work = torch.zeros(lib.hist2d_work(k, xbins, ybins), dtype=torch.int64,
-                       device=x.device)
+    work = torch.zeros(lib.hist2d_work(int(x.dtype == torch.float64), k,
+                                       xbins, ybins),
+                       dtype=torch.int64, device=x.device)
     out = torch.empty((ybins, xbins, k), dtype=W.dtype, device=W.device)
     fn = _cuda.entry('hist2d', 'hist2d_launch', _ARGTYPES)
     with torch.cuda.device(x.device):
@@ -377,7 +384,7 @@ def hist_plot_kernel(x, y, cData, flux, w2d, mask, bins, limits,
     if any(v.shape != (n,) for v in rays + (mask,)):
         raise ValueError('hist_plot_kernel takes (N,) rays and mask')
     if min(xb, yb, cb) < 1 or xb * yb * 4 >= 2 ** 31 or \
-            16 * (xb + yb + cb) > MAX_SHARED_BYTES:
+            32 * (xb + yb + cb) > MAX_SHARED_BYTES:
         raise ValueError('plot bins out of the kernel\'s range: '
                          f'{(xb, yb, cb)}')
     route = route or plot_route(bins)
@@ -385,10 +392,11 @@ def hist_plot_kernel(x, y, cData, flux, w2d, mask, bins, limits,
     rays = [v.detach().contiguous() for v in rays]
     mask = mask.contiguous()
     lib = _cuda.load('hist_plot')
-    lib.hist_plot_work.argtypes = [ctypes.c_int] * 3
+    lib.hist_plot_work.argtypes = [ctypes.c_int] * 4
     lib.hist_plot_work.restype = ctypes.c_longlong
-    work = torch.zeros(lib.hist_plot_work(xb, yb, cb), dtype=torch.int64,
-                       device=x.device)
+    work = torch.zeros(lib.hist_plot_work(int(x.dtype == torch.float64), xb,
+                                          yb, cb),
+                       dtype=torch.int64, device=x.device)
     nb = xb + yb + cb + xb * yb
     out = torch.empty(4 * nb + 1, dtype=x.dtype, device=x.device)
     axes = []

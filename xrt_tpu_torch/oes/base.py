@@ -36,8 +36,12 @@ lenses (with absorption along the path inside), reflects off multilayers,
 gives bent crystals their Takagi-Taupin amplitudes (``useTT``), diffracts
 a volumetric crystal at a random depth with the lattice orientation there
 (``local_n_depth``), and scatters off powders, monocrystals and crystal
-harmonics.  Figure errors and voxel-volume (TXM) materials come with
-ROADMAP A8 and raise ``NotImplementedError``.
+harmonics, and takes a voxel-volume (TXM) material's refractive index at
+the intersection and its attenuation and phase along the chord through
+the volume.  A *figure_error* (``figure_error.FigureError``) adds its
+height to the surface the search finds (in (s, phi) on a parametric
+surface) and turns the normal by its slopes.  ``multiple_reflect``
+bounces rays on one surface up to a fixed number of times (capillaries).
 """
 from __future__ import annotations
 
@@ -250,8 +254,9 @@ class OE(config.Replaceable):
                  material=None, shape='rect', rotationSequence='RzRyRx',
                  extraRotationSequence='RzRyRx', order=1, curSurface=0,
                  overEdge='ymax', auto_material_kind='mirror',
-                 gratingDensity=None, grooveAxis='y'):
+                 gratingDensity=None, grooveAxis='y', figure_error=None):
         self.name = name
+        self.figure_error = figure_error
         self.center = tuple(config.number(c) for c in center)
         self.pitch, self.roll, self.yaw = pitch, roll, yaw
         self.positionRoll = positionRoll
@@ -285,10 +290,8 @@ class OE(config.Replaceable):
         pitch: an angle, or an alignment energy ('8000 eV') whose Bragg
         angle (less the refraction correction) the material gives, in the
         material's dtype; 'auto' leaves it out.  *gratingDensity* is the
-        reference's [axis, rho0, P0, P1, ...]."""
-        if figure_error is not None:
-            raise NotImplementedError(
-                'figure errors are not ported yet (ROADMAP A8)')
+        reference's [axis, rho0, P0, P1, ...]; *figure_error* a
+        ``figure_error.FigureError``."""
         if gratingDensity is not None:
             kwargs['grooveAxis'] = str(gratingDensity[0])
             kwargs['gratingDensity'] = tuple(float(v)
@@ -328,7 +331,8 @@ class OE(config.Replaceable):
                    alpha=ang(alpha), material=material, shape=shape,
                    rotationSequence=rotationSequence,
                    extraRotationSequence=extraRotationSequence, order=order,
-                   curSurface=curSurface, overEdge=overEdge, **kwargs)
+                   curSurface=curSurface, overEdge=overEdge,
+                   figure_error=figure_error, **kwargs)
 
     # ---- surface --------------------------------------------------------
     def local_z(self, x, y):
@@ -369,6 +373,33 @@ class OE(config.Replaceable):
         """The Bragg-plane and surface normals at depth *z* inside a
         crystal, for volumetric diffraction; None: no depth dependence."""
         return None
+
+    # ---- figure errors ---------------------------------------------------
+    def local_r_distorted(self, s, phi):
+        """The figure error's radial distortion of a parametric OE at
+        (s, phi), or None."""
+        if self.figure_error is not None:
+            return self.figure_error.local_r_distorted(s, phi)
+        return None
+
+    def local_z_distorted(self, x, y):
+        """The figure error's height at (x, y), mm, or None."""
+        if self.figure_error is not None:
+            return self.figure_error.local_z_distorted(x, y)
+        return None
+
+    def local_n_distorted(self, x, y):
+        """The figure error's turn of the normal: None, (d_pitch, d_roll)
+        angles, or a 3-vector added to the normal."""
+        if self.figure_error is not None:
+            return self.figure_error.local_n_distorted(x, y)
+        return None
+
+    def _surface_with_distortion(self, x, y):
+        """local_z plus the figure error's height."""
+        surf = self.local_z(x, y)
+        dist = self.local_z_distorted(x, y)
+        return surf if dist is None else surf + dist
 
     def propagate_wave(self, wave=None, nrays='auto', generator=None,
                        fixedEnergy=None, prevOE=None, **kw):
@@ -435,10 +466,14 @@ class OE(config.Replaceable):
 
     def _radial_distance(self, invertNormal):
         """dz(x, y, z) of the intersection search on a parametric surface:
-        the radial distance local_r(s, phi) - r of the point inside it."""
+        the radial distance local_r(s, phi) - r of the point inside it,
+        with the figure error's distortion in (s, phi)."""
         def dz_fn(xx, yy, zz):
             s_, phi_, r_ = self.xyz_to_param(xx, yy, zz)
             surf = self.local_r(s_, phi_)
+            dist = self.local_r_distorted(s_, phi_)
+            if dist is not None:
+                surf = surf + dist
             surf = torch.where(torch.isnan(surf), torch.zeros_like(surf),
                                surf)
             return (surf - r_) * invertNormal
@@ -477,6 +512,47 @@ class OE(config.Replaceable):
         tMin = torch.clamp(tMin, min=-1e6 * _z_eps(x.dtype))
         tMax = torch.maximum(tMax, tMin)
         return tMin, tMax
+
+    def multiple_reflect(self, beam: Beam, generator=None, maxReflections=20,
+                         draws=None):
+        """Up to *maxReflections* bounces on this one (closed or strongly
+        curved) surface: capillaries and whispering-gallery optics.  The
+        first bounce searches forward from the ray as ``reflect`` does,
+        every later one from past the ray's tangent point (``isMulti``);
+        a ray that flies over keeps its coordinates from before that
+        bounce, and converged rays pass through masked.  The loop has its
+        fixed length.  *generator* draws for the bounces; *draws*, one
+        ``draws`` dict (or None) a bounce, replaces them (the reference
+        draws bounce i from its key folded with i).  Returns (beamGlobal
+        with ``nRefl`` per ray, the true-local beam of each ray's last
+        bounce)."""
+        good_in = beam.state > 0
+        lb = global_to_virgin_local(beam, self.center)
+        pitch, roll, yaw, dx, dy, dz = self._placement()
+        nRefl = torch.zeros_like(beam.state)
+        good = good_in
+        out_local = None
+        for i in range(maxReflections):
+            vlb, loc = self._reflect_local(
+                lb, good, pitch, roll, yaw, dx, dy, dz, generator=generator,
+                draws=None if draws is None else draws[i], isMulti=i > 0)
+            flew = good & (vlb.state == 3)
+            vlb = vlb.replace(**{k: torch.where(flew, getattr(lb, k),
+                                                getattr(vlb, k))
+                                 for k in 'xyz'})
+            newGood = good & ((vlb.state == 1) | (vlb.state == 2))
+            nRefl = nRefl + newGood.to(nRefl.dtype)
+            lb = _merge_by_mask(lb, vlb, good)
+            out_local = loc if out_local is None else \
+                _merge_by_mask(out_local, loc, newGood)
+            good = newGood
+        hit = good_in & (nRefl > 0)
+        merged = _merge_by_mask(beam, virgin_local_to_global(lb, self.center),
+                                hit)
+        merged = merged.replace(
+            state=torch.where(hit, torch.ones_like(beam.state), beam.state),
+            nRefl=nRefl)
+        return merged, out_local
 
     # ---- frames ---------------------------------------------------------
     def local_to_global(self, lb: Beam, is2ndXtal=False) -> Beam:
@@ -559,13 +635,17 @@ class OE(config.Replaceable):
                        dz=None, fromVacuum=True, is2ndXtal=False,
                        noIntersectionSearch=False, surfacePoints=None,
                        local_z=None, local_n=None, material=None,
-                       limits=None, generator=None, draws=None):
+                       limits=None, generator=None, draws=None,
+                       isMulti=False):
         """The virgin-local part of reflect.  *dx, dy, dz* are the
         element's offsets in its own frame; the second crystal of a DCM
         (*is2ndXtal*) is turned by pi in roll before and after and takes
         the extra angles mirrored.  *local_z*, *local_n*, *material* and
         *limits* (limPhysX, limPhysY, limOptX, limOptY) replace the
-        element's own.  Returns (virgin-local beam, true-local beam)."""
+        element's own.  *isMulti* (a bounce after the first on one
+        surface) starts the search past the ray's tangent point: the root
+        of the search function's derivative along the ray.  Returns
+        (virgin-local beam, true-local beam)."""
         if material is None:
             material = self.material
         if local_z is None:
@@ -597,18 +677,28 @@ class OE(config.Replaceable):
             tMin, tMax = self._bracket(lb.x, lb.y, lb.z, lb.a, lb.b, lb.c,
                                        limits[0], limits[1])
             ray = (lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
-            inv = 1 if fromVacuum else -1
+            inv = getattr(self, 'invertNormal', None)
+            if inv is None:   # a hyperboloid's outer surface sets -1
+                inv = 1 if fromVacuum else -1
+            if param:
+                dz_fn = self._radial_distance(inv)
+            else:
+                def dz_fn(xx, yy, zz):
+                    surf = local_z(xx, yy)
+                    dist = self.local_z_distorted(xx, yy)
+                    if dist is not None:
+                        surf = surf + dist
+                    surf = torch.where(torch.isnan(surf),
+                                       torch.zeros_like(surf), surf)
+                    return (zz - surf) * inv
+            if isMulti:
+                tMin = _tangent_point(dz_fn, tMax, ray, good) + 1e-6
             if hasattr(self, 'analytic_intersect'):
                 t, xx, yy, zz, lost = self.analytic_intersect(tMin, tMax,
                                                               *ray)
-            elif param:
-                t, xx, yy, zz, lost = find_intersection_dz(
-                    self._radial_distance(inv), tMin, tMax, *ray,
-                    active=good)
             else:
-                t, xx, yy, zz, lost = find_intersection(
-                    local_z, tMin, tMax, *ray, invertNormal=inv,
-                    active=good)
+                t, xx, yy, zz, lost = find_intersection_dz(
+                    dz_fn, tMin, tMax, *ray, active=good)
             lb = lb.replace(x=torch.where(good, xx, lb.x),
                             y=torch.where(good, yy, lb.y),
                             z=torch.where(good, zz, lb.z))
@@ -630,7 +720,8 @@ class OE(config.Replaceable):
         goodN = state == 1
         lb = lb.replace(path=torch.where(goodN, lb.path + t, lb.path))
         lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
-                                       material, local_n, generator, draws)
+                                       material, local_n, generator, draws,
+                                       is2ndXtal=is2ndXtal)
         if param:
             # back to cartesian, keeping the parametric impact coordinates
             xC, yC, zC = self.param_to_xyz(lb.x, lb.y, lb.z)
@@ -695,7 +786,8 @@ class OE(config.Replaceable):
         return a_out / norm, b_out / norm, c_out / norm, locOrder
 
     def _interact(self, lb, goodN, roll, fromVacuum, tMax, material,
-                  local_n=None, generator=None, draws=None):
+                  local_n=None, generator=None, draws=None,
+                  is2ndXtal=False):
         """Direction update, amplitudes and polarization bookkeeping for
         rays with state == 1: the mirror kinds, gratings and zone plates,
         Bragg and Laue crystals (flat, mosaic, bent by Takagi-Taupin
@@ -704,7 +796,10 @@ class OE(config.Replaceable):
         (powder, monocrystal, crystal harmonics).  *draws* (a dict of
         tensors: 'orientation', a pair of uniforms, 'depth', uniforms, and
         'gumbel', one (N, 16) tensor a reflex chunk) replaces the draws
-        from *generator*."""
+        from *generator*.  A voxel-volume material (TXM) refracts with its
+        index at the point and, on the exit surface (*is2ndXtal* for the
+        second surface of a plate), attenuates by the chord's integrals
+        through the volume.  A figure error turns the normal first."""
         if local_n is None:
             local_n = self.local_n
         draws = {} if draws is None else draws
@@ -713,12 +808,25 @@ class OE(config.Replaceable):
             if isinstance(material, (list, tuple)) else material
         kind = 'mirror' if matSur is None else \
             matSur.resolved_kind(self.auto_material_kind)
-        if getattr(matSur, 'needsSpatialAmplitude', False):
-            raise NotImplementedError(
-                'voxel-volume materials (TXM) need materials/volume.py, '
-                'which is not ported yet: ROADMAP A8')
+        volume = getattr(matSur, 'needsSpatialAmplitude', False)
         crystal = kind == 'crystal'
         normal = list(local_n(lb.x, lb.y))
+        n_dist = self.local_n_distorted(lb.x, lb.y)
+        if n_dist is not None:
+            if len(n_dist) == 2:
+                normal[-2], normal[-1] = rotate_x(
+                    normal[-2], normal[-1], torch.cos(n_dist[0]),
+                    torch.sin(n_dist[0]))
+                normal[-3], normal[-1] = rotate_y(
+                    normal[-3], normal[-1], torch.cos(n_dist[1]),
+                    torch.sin(n_dist[1]))
+            else:
+                nx = normal[-3] + n_dist[0]
+                ny = normal[-2] + n_dist[1]
+                nz = normal[-1] + n_dist[2]
+                nn = sqrt_rn(nx ** 2 + ny ** 2 + nz ** 2)
+                normal[-3], normal[-2], normal[-1] = nx / nn, ny / nn, \
+                    nz / nn
         ones = torch.ones_like(lb.x)
         nbx, nby, nbz = (normal[0] * ones, normal[1] * ones,
                          normal[2] * ones)
@@ -815,7 +923,10 @@ class OE(config.Replaceable):
                     generator, lb.a, lb.b, lb.c, lb.E, (gx, gy, gz), normal,
                     beamInDotSurfaceNormal, 1, sg)
         elif kind in ('plate', 'lens'):
-            n = matSur.get_refractive_index(lb.E).real
+            if volume:   # the voxel's index at the intersection point
+                n = matSur.get_refractive_index(lb.E, lb.x, lb.y, lb.z).real
+            else:
+                n = matSur.get_refractive_index(lb.E).real
             n1overn2 = _over(1.0, n) if fromVacuum else n
             signN = torch.sign(-beamInDotNormal)
             n1overn2cosTheta1 = -n1overn2 * beamInDotNormal
@@ -860,6 +971,25 @@ class OE(config.Replaceable):
                                             lb.x, lb.y)[0:2]
         elif kind == 'grating' and getattr(matSur, 'efficiency_orders', ()):
             ras, rap = matSur.get_grating_efficiency(lb.E, order_arr)
+        elif volume:
+            # the volume's frame: the entry surface at z = 0, the beam
+            # along +z, samples in z in [0, t]; a plate's exit (second
+            # surface) frame relates to it by (x, y, z) -> (-x, y, z + t)
+            tm = getattr(self, 't', None)
+            if tm is None:
+                tm = getattr(matSur, 't', None)
+            tshift = 0.0 if (tm is None or not is2ndXtal) else tm
+            sx = -1.0 if is2ndXtal else 1.0
+            if fromVacuum:
+                ras, rap, mu, nreal = matSur.get_amplitude(
+                    lb.E, beamInDotNormal, fromVacuum, sx * lb.x, lb.y,
+                    lb.z + tshift)
+            else:
+                ras, rap, mu, nreal = matSur.get_amplitude(
+                    lb.E, beamInDotNormal, fromVacuum,
+                    sx * (lb.x - lb.a * tMax), lb.y - lb.b * tMax,
+                    (lb.z - lb.c * tMax) + tshift, sx * lb.a, lb.b, lb.c,
+                    tMax)
         else:
             ras, rap, mu, nreal = matSur.get_amplitude(
                 lb.E, beamInDotNormal, fromVacuum)
@@ -912,6 +1042,22 @@ class OE(config.Replaceable):
         Rx = getattr(self, 'Rs', None)
         return (None if Ry is None else config.host_float(Ry),
                 None if Rx is None else config.host_float(Rx))
+
+
+def _tangent_point(dz_fn, tMax, ray, good):
+    """The t of each ray's tangent point on the surface of *dz_fn*: the
+    root of d dz / dt along the ray (*ray* = x, y, z, a, b, c) in
+    [0, tMax], by the same search."""
+    x, y, z, a, b, c = ray
+
+    def ddz_fn(xx, yy, zz):
+        def g(t):
+            return dz_fn(xx + a * t, yy + b * t, zz + c * t)
+        zero = torch.zeros_like(xx)
+        return torch.func.jvp(g, (zero,), (torch.ones_like(xx),))[1]
+    with torch.no_grad():
+        return find_intersection_dz(ddz_fn, torch.zeros_like(tMax), tMax,
+                                    *ray, active=good)[0]
 
 
 def _uniform_draw(rng, draws, name, like):

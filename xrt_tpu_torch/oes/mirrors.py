@@ -195,3 +195,64 @@ class ConicalMirror(OE):
         norm = sqrt_rn(a ** 2 + b ** 2 + 1)
         return [a / norm, b / norm, 1.0 / norm]
 
+
+
+class DualVFM(OE):
+    """A vertically focusing mirror with two sagittal cylinders side by
+    side on a meridionally bent (parabolic, fixed-end) substrate;
+    ``select_surface`` centres one in the beam.  *xCylinder1/2* are the
+    cylinders' axes in x, *hCylinder1/2* their depths under the flat
+    reference."""
+
+    def __init__(self, R=5.0e6, r1=70.0, xCylinder1=23.5, hCylinder1=3.7035,
+                 r2=35.98, xCylinder2=-25.0, hCylinder2=6.9504, **kwargs):
+        super().__init__(**kwargs)
+        self.R, self.r1, self.r2 = float(R), float(r1), float(r2)
+        self.xCylinder1, self.hCylinder1 = float(xCylinder1), \
+            float(hCylinder1)
+        self.xCylinder2, self.hCylinder2 = float(xCylinder2), \
+            float(hCylinder2)
+
+    @classmethod
+    def create(cls, R=5.0e6, r1=70.0, xCylinder1=23.5, hCylinder1=3.7035,
+               r2=35.98, xCylinder2=-25.0, hCylinder2=6.9504, **kwargs):
+        return super(DualVFM, cls).create(
+            R=R, r1=r1, xCylinder1=xCylinder1, hCylinder1=hCylinder1, r2=r2,
+            xCylinder2=xCylinder2, hCylinder2=hCylinder2, **kwargs)
+
+    def _cyl(self, x):
+        """(z, -dz/dx) of the two-cylinder cross profile, clipped to
+        z <= 0."""
+        t2 = self.r2 ** 2 - (x - self.xCylinder2) ** 2
+        t1 = self.r1 ** 2 - (x - self.xCylinder1) ** 2
+        s2 = sqrt_rn(torch.clamp(t2, min=1e-30))
+        s1 = sqrt_rn(torch.clamp(t1, min=1e-30))
+        zero = torch.zeros_like(x)
+        z2 = torch.where(t2 > 0, self.r2 - self.hCylinder2 - s2, zero)
+        z1 = torch.where(t1 > 0, self.r1 - self.hCylinder1 - s1, zero)
+        a2 = torch.where(t2 > 0, -(x - self.xCylinder2) / s2, zero)
+        a1 = torch.where(t1 > 0, -(x - self.xCylinder1) / s1, zero)
+        neg = x < 0
+        z = torch.where(neg, z2, z1)
+        a = torch.where(neg, a2, a1)
+        a = torch.where(z > 0, zero, a)
+        return torch.clamp(z, max=0.0), a
+
+    def local_z(self, x, y):
+        z, _ = self._cyl(x)
+        return z + (y ** 2 - self.limPhysY[0] ** 2) / 2.0 / self.R
+
+    def local_n(self, x, y):
+        _, a = self._cyl(x)
+        b = -y / self.R
+        norm = sqrt_rn(a ** 2 + b ** 2 + 1.0)
+        return [a / norm, b / norm, 1.0 / norm]
+
+    def select_surface(self, surfaceName_or_index):
+        """(the OE with *curSurface* set, the dx that centres that
+        cylinder in the beam)."""
+        idx = surfaceName_or_index
+        if not isinstance(idx, int):
+            idx = 0 if str(idx).endswith('1') else 1
+        dx = -self.xCylinder1 if idx == 0 else -self.xCylinder2
+        return self.replace(curSurface=idx), dx

@@ -23,3 +23,26 @@ def fast_interp(x, xp, fp):
     out = y0 + w * (y1 - y0)
     out = torch.where(xf >= xp[-1], fp[-1], out)
     return out.reshape(x.shape)
+
+
+def map_coordinates(arr, coords):
+    """Bilinear interpolation of the 2D map *arr* (ny, nx) at the
+    fractional indices *coords* = (rows, columns), edges clamped: the
+    reference's ``map_coordinates(arr, coords, order=1, mode='nearest')``
+    in its arithmetic (lower index floor(c), weight c - floor(c), indices
+    clamped, the four corners summed in (lo, lo), (lo, hi), (hi, lo),
+    (hi, hi) order with the weights' product first).  Differentiable in
+    the map values and in the coordinates."""
+    nodes = []
+    for c, size in zip(coords, arr.shape):
+        lo = torch.floor(c)
+        w_hi = c - lo
+        i = lo.long()
+        nodes.append(((torch.clamp(i, 0, size - 1), 1 - w_hi),
+                      (torch.clamp(i + 1, 0, size - 1), w_hi)))
+    out = None
+    for iy, wy in nodes[0]:
+        for ix, wx in nodes[1]:
+            term = (wy * wx) * arr[iy, ix]
+            out = term if out is None else out + term
+    return out

@@ -1,17 +1,22 @@
 """Analytic coherent beams: Gaussian, with Laguerre-Gaussian (``vortex=``)
-and Hermite-Gaussian (``TEM=``) modes.
+and Hermite-Gaussian (``TEM=``) modes; mesh sources.
 
-Port of the reference package's ``sources/gaussian.py`` (``GaussianBeam``
-and its ``shine``): the complex field is evaluated on the wave samples of
-a downstream element prepared by ``prepare_wave_on_*``.
+Port of the reference package's ``sources/gaussian.py``: ``GaussianBeam``
+and its ``shine`` (the complex field on the wave samples of a downstream
+element prepared by ``prepare_wave_on_*``), ``LaguerreGaussianBeam``,
+``HermiteGaussianBeam``, the deterministic ray meshes ``MeshSource``,
+``NESWSource`` and ``CollimatedMeshSource``, and ``shrink_source``.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import config
+from ..beam import Beam
+from ..ops.dd import sqrt_rn
 from ..physconsts import CHBAR
 from ..transforms import rotate_xyz, virgin_local_to_global
 from .geometric import make_energy, polarization_matrix
@@ -191,3 +196,201 @@ class GaussianBeam(config.Replaceable):
             out = out.replace(x=x2, y=y2, z=z2, a=a2, b=b2, c=c2)
             out = virgin_local_to_global(out, self.center)
         return out
+
+
+def LaguerreGaussianBeam(vortex=(1, 0), **kwargs):
+    """A Laguerre-Gaussian beam: vortex=(l, p)."""
+    return GaussianBeam.create(vortex=vortex, **kwargs)
+
+
+def HermiteGaussianBeam(TEM=(0, 0), **kwargs):
+    """A Hermite-Gaussian beam of order TEM=(m, n)."""
+    return GaussianBeam.create(TEM=TEM, **kwargs)
+
+
+def _flat_beam(x, z, a, c, E, polarization, flux, dtype, device):
+    """A Beam from its (n,) positions x, z (y = 0) and directions a, c."""
+    n = a.shape[0]
+    cdt = config.cdtype(dtype)
+    Jss0, Jpp0, Jsp0, _, _ = polarization_matrix(polarization)
+    return Beam(x=x, y=torch.zeros(n, dtype=dtype, device=device), z=z,
+                a=a, b=sqrt_rn(torch.clamp(1 - a ** 2 - c ** 2, min=0.0)),
+                c=c, E=E,
+                state=torch.ones(n, dtype=torch.int32, device=device),
+                path=torch.zeros(n, dtype=dtype, device=device),
+                Jss=flux * Jss0, Jpp=flux * Jpp0, Jsp=(flux * Jsp0).to(cdt))
+
+
+class MeshSource(config.Replaceable):
+    """A point source of a rectangular angular mesh of rays (*nx* x *nz*
+    directions from (minxprime, minzprime) to (maxxprime, maxzprime));
+    *withCentralRay* puts an axial ray first; *compass* gives the four
+    rays N, E, S, W instead (``NESWSource``); *fluxes* a flux a node."""
+
+    def __init__(self, name='', center=(0, 0, 0), minxprime=-1e-4,
+                 maxxprime=1e-4, minzprime=-1e-4, maxzprime=1e-4, nx=11,
+                 nz=11, distE='lines', energies=(config.DEFAULT_ENERGY,),
+                 energyWeights=None, polarization='horizontal',
+                 withCentralRay=True, fluxes=None, compass=False,
+                 dtype=None, device=None):
+        self.name = name
+        self.center = tuple(float(c) for c in center)
+        self.minxprime, self.maxxprime = float(minxprime), float(maxxprime)
+        self.minzprime, self.maxzprime = float(minzprime), float(maxzprime)
+        self.nx, self.nz = int(nx), int(nz)
+        self.distE = distE
+        self.energies = tuple(float(e) for e in energies)
+        self.energyWeights = energyWeights
+        self.polarization = polarization
+        self.withCentralRay, self.compass = withCentralRay, compass
+        self.fluxes = fluxes
+        self.dtype = config.resolve_dtype(dtype)
+        self.device = config.resolve_device(device)
+
+    @classmethod
+    def create(cls, name='', center=(0, 0, 0), minxprime=-1e-4,
+               maxxprime=1e-4, minzprime=-1e-4, maxzprime=1e-4, nx=11,
+               nz=11, distE='lines', energies=(config.DEFAULT_ENERGY,),
+               energyWeights=None, polarization='horizontal',
+               withCentralRay=True, fluxes=None, compass=False, dtype=None,
+               device=None):
+        if distE == 'lines' and isinstance(energies, (int, float)):
+            energies = (energies,)
+        return cls(name, center, minxprime, maxxprime, minzprime, maxzprime,
+                   nx, nz, distE, energies, energyWeights, polarization,
+                   withCentralRay, fluxes, compass, dtype, device)
+
+    @property
+    def nrays(self):
+        if self.compass:
+            return 4 + int(self.withCentralRay)
+        return self.nx * self.nz + int(self.withCentralRay)
+
+    def shine(self, generator=None, toGlobal=True) -> Beam:
+        dt, dev = self.dtype, self.device
+        if self.compass:
+            a = [0.0, self.maxxprime, 0.0, self.minxprime]
+            c = [self.maxzprime, 0.0, self.minzprime, 0.0]
+        else:
+            XP, ZP = np.meshgrid(
+                np.linspace(self.minxprime, self.maxxprime, self.nx),
+                np.linspace(self.minzprime, self.maxzprime, self.nz))
+            a, c = list(XP.ravel()), list(ZP.ravel())
+        if self.withCentralRay:
+            a, c = [0.0] + a, [0.0] + c
+        a = torch.tensor(a, dtype=dt, device=dev)
+        c = torch.tensor(c, dtype=dt, device=dev)
+        n = a.shape[0]
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        E = make_energy(generator, self.distE, self.energies, n,
+                        self.energyWeights, dt, dev) if self.distE else \
+            torch.full((n,), config.DEFAULT_ENERGY, dtype=dt, device=dev)
+        flux = torch.ones(n, dtype=dt, device=dev) if self.fluxes is None \
+            else torch.as_tensor(self.fluxes, dtype=dt, device=dev)
+        zero = torch.zeros(n, dtype=dt, device=dev)
+        beam = _flat_beam(zero, zero, a, c, E, self.polarization, flux, dt,
+                          dev)
+        return virgin_local_to_global(beam, self.center) if toGlobal \
+            else beam
+
+
+def NESWSource(name='', center=(0, 0, 0), dxprime=1e-4, dzprime=1e-4,
+               **kwargs):
+    """Four rays: north (up), east (right), south (down), west (left)."""
+    return MeshSource.create(
+        name=name, center=center, minxprime=-dxprime, maxxprime=dxprime,
+        minzprime=-dzprime, maxzprime=dzprime, nx=2, nz=2,
+        withCentralRay=False, compass=True, **kwargs)
+
+
+class CollimatedMeshSource(config.Replaceable):
+    """A collimated source: a rectangular positional mesh (*nx* x *nz*
+    over *dx* x *dz* mm) of parallel rays."""
+
+    def __init__(self, name='', center=(0, 0, 0), dx=1.0, dz=1.0, nx=11,
+                 nz=11, distE='lines', energies=(config.DEFAULT_ENERGY,),
+                 polarization='horizontal', dtype=None, device=None):
+        self.name = name
+        self.center = tuple(float(c) for c in center)
+        self.dx, self.dz = float(dx), float(dz)
+        self.nx, self.nz = int(nx), int(nz)
+        self.distE = distE
+        self.energies = tuple(float(e) for e in energies)
+        self.polarization = polarization
+        self.dtype = config.resolve_dtype(dtype)
+        self.device = config.resolve_device(device)
+
+    @classmethod
+    def create(cls, name='', center=(0, 0, 0), dx=1.0, dz=1.0, nx=11,
+               nz=11, distE='lines', energies=(config.DEFAULT_ENERGY,),
+               polarization='horizontal', dtype=None, device=None):
+        if distE == 'lines' and isinstance(energies, (int, float)):
+            energies = (energies,)
+        return cls(name, center, dx, dz, nx, nz, distE, energies,
+                   polarization, dtype, device)
+
+    def shine(self, generator=None, toGlobal=True) -> Beam:
+        dt, dev = self.dtype, self.device
+        X, Z = np.meshgrid(np.linspace(-self.dx / 2, self.dx / 2, self.nx),
+                           np.linspace(-self.dz / 2, self.dz / 2, self.nz))
+        x = torch.tensor(X.ravel(), dtype=dt, device=dev)
+        z = torch.tensor(Z.ravel(), dtype=dt, device=dev)
+        n = x.shape[0]
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        E = make_energy(generator, self.distE, self.energies, n, None, dt,
+                        dev)
+        zero = torch.zeros(n, dtype=dt, device=dev)
+        beam = _flat_beam(x, z, zero, zero, E, self.polarization,
+                          torch.ones(n, dtype=dt, device=dev), dt, dev)
+        return virgin_local_to_global(beam, self.center) if toGlobal \
+            else beam
+
+
+def shrink_source(trace_fn, beams, minxprime, maxxprime, minzprime,
+                  maxzprime, nx, nz, center=(0, 0, 0), dtype=None,
+                  device=None):
+    """The :class:`MeshSource` whose divergence window, shrunk from the
+    one given, puts every ray of the footprint(s) *beams* on the optical
+    surfaces.  *trace_fn(source) -> {name: Beam}* traces the beamline with
+    the probe source.  The four compass rays must land first; then the
+    mesh's edge rows and columns with the largest share of lost rays are
+    peeled until none is lost, with one more step of margin."""
+    if not isinstance(beams, (tuple, list)):
+        beams = (beams,)
+    kw = dict(dtype=dtype, device=device)
+    mesh = None
+    for ibeam in beams:
+        nesw = NESWSource(center=center, dxprime=maxxprime * 0.1,
+                          dzprime=maxzprime * 0.1, **kw)
+        if (trace_fn(nesw)[ibeam].state != 1).any():
+            raise ValueError('cannot shrink the source: the NESW probe '
+                             'rays miss the surface')
+        mesh = MeshSource.create(
+            center=center, minxprime=minxprime, maxxprime=maxxprime,
+            minzprime=minzprime, maxzprime=maxzprime, nx=nx, nz=nz, **kw)
+        state = trace_fn(mesh)[ibeam].state.cpu().numpy()
+        view = (state[1:] if mesh.withCentralRay else state) \
+            .reshape(nz, nx) != 1
+        dxp = (maxxprime - minxprime) / (nx - 1)
+        dzp = (maxzprime - minzprime) / (nz - 1)
+        cut = dict(zlo=0, zhi=0, xlo=0, xhi=0)
+        while view.size and view.sum() > 0:
+            share = {'zlo': view[0].sum() / view.shape[1],
+                     'zhi': view[-1].sum() / view.shape[1],
+                     'xlo': view[:, 0].sum() / view.shape[0],
+                     'xhi': view[:, -1].sum() / view.shape[0]}
+            side = max(share, key=share.get)
+            cut[side] += 1
+            view = {'zlo': view[1:], 'zhi': view[:-1], 'xlo': view[:, 1:],
+                    'xhi': view[:, :-1]}[side]
+        cut = {k: v + 1 if v > 1 else v for k, v in cut.items()}
+        minxprime += cut['xlo'] * dxp
+        maxxprime -= cut['xhi'] * dxp
+        minzprime += cut['zlo'] * dzp
+        maxzprime -= cut['zhi'] * dzp
+        mesh = MeshSource.create(
+            center=center, minxprime=minxprime, maxxprime=maxxprime,
+            minzprime=minzprime, maxzprime=maxzprime, nx=nx, nz=nz, **kw)
+    return mesh

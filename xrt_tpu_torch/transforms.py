@@ -59,6 +59,13 @@ def rotate_xyz(x, y, z, rotationSequence='RzRyRx', pitch=0., roll=0., yaw=0.):
     return x, y, z
 
 
+def rotate_point(point, rotationSequence='RzRyRx', pitch=0., roll=0.,
+                 yaw=0.):
+    """A point (x, y, z) rotated as :func:`rotate_xyz`; returns a list."""
+    return list(rotate_xyz(point[0], point[1], point[2], rotationSequence,
+                           pitch, roll, yaw))
+
+
 def rotate_beam(beam, rotationSequence='RzRyRx', pitch=0., roll=0., yaw=0.):
     """Rotate the position and direction tensors of a Beam; returns a
     new Beam."""
@@ -69,21 +76,42 @@ def rotate_beam(beam, rotationSequence='RzRyRx', pitch=0., roll=0., yaw=0.):
     return beam.replace(x=x, y=y, z=z, a=a, b=b, c=c)
 
 
-def global_to_virgin_local(beam, center=None):
-    """Global frame -> virgin-local frame of an element at *center*
-    (beamline azimuth 0; cf. beamline.py:52-87)."""
-    if center is None:
-        return beam
-    return beam.replace(x=beam.x - center[0], y=beam.y - center[1],
-                        z=beam.z - center[2])
+def _turned(sinAzimuth):
+    return not (isinstance(sinAzimuth, float) and sinAzimuth == 0.0)
 
 
-def virgin_local_to_global(beam, center=None):
-    """Inverse of :func:`global_to_virgin_local` (cf. beamline.py:89-117)."""
-    if center is None:
+def global_to_virgin_local(beam, center=None, sinAzimuth=0.0,
+                           cosAzimuth=1.0):
+    """Global frame -> virgin-local frame of an element at *center* in a
+    beamline of the given azimuth (cf. beamline.py:52-87)."""
+    x, y, z, a, b = beam.x, beam.y, beam.z, beam.a, beam.b
+    if center is not None:
+        x, y, z = x - center[0], y - center[1], z - center[2]
+    if _turned(sinAzimuth):
+        x, y = rotate_z(x, y, cosAzimuth, sinAzimuth)
+        a, b = rotate_z(a, b, cosAzimuth, sinAzimuth)
+    elif center is None:
         return beam
-    return beam.replace(x=beam.x + center[0], y=beam.y + center[1],
-                        z=beam.z + center[2])
+    return beam.replace(x=x, y=y, z=z, a=a, b=b)
+
+
+def virgin_local_to_global(beam, center=None, sinAzimuth=0.0,
+                           cosAzimuth=1.0, skip_xyz=False, skip_abc=False):
+    """Inverse of :func:`global_to_virgin_local` (cf. beamline.py:89-117);
+    *skip_xyz* / *skip_abc* leave the positions / directions."""
+    updates = {}
+    x, y, z = beam.x, beam.y, beam.z
+    if _turned(sinAzimuth):
+        if not skip_abc:
+            a, b = rotate_z(beam.a, beam.b, cosAzimuth, -sinAzimuth)
+            updates.update(a=a, b=b)
+        if not skip_xyz:
+            x, y = rotate_z(x, y, cosAzimuth, -sinAzimuth)
+    if center is not None and not skip_xyz:
+        x, y, z = x + center[0], y + center[1], z + center[2]
+    if not skip_xyz:
+        updates.update(x=x, y=y, z=z)
+    return beam.replace(**updates) if updates else beam
 
 
 def to_local_frame(beam, center, ex, ey, ez):
