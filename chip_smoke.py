@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs twenty-nine phases and exits
+process per source, in parallel), then runs thirty-three phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -291,6 +291,47 @@ non-zero if any fails:
     a uniform water grid against the plain water plate (1e-3), float32
     against float64 (1e-4).
 
+30. BASELINE configuration 3 as named: ``tests/test_baseline_configs.py``'s
+    undulator (gNodes 64) in the near field at the DCM's 30 m (111
+    periods of the integral) -> Si(111) DCM -> screen, 1e5 rays a pass
+    (at 2e5 a pass took 5.1 s), float32, 4 passes through
+    ``run_ray_tracing``; its far-field twin on
+    the same draws (4 passes) and the tapered source (taper (1.09, 11), 2
+    passes): pass times, rays/s, the integral's time (CUDA events), the
+    kernel launches of a ``build_I_map`` call of one ray block
+    (torch.profiler), the device's busy share (near field), the
+    transmitted band, ``hist_plot`` against its plain version (as in 21);
+    in float64 at 2e4 rays the reference test's limits (band < 10 eV, the fixed
+    exit parallel to 1e-9); float32 against float64 on the same draws
+    (flux per ray 1e-3 and mean energy 0.01 eV on the rays both resample
+    alike, the near-field map 1e-3 of its peak); the taper and near-field
+    maps of ``tests/golden/ref_undulator.npz`` in float64 at
+    ``tests/test_undulator.py``'s limits (read with numpy; the file must
+    be in the tree);
+31. the quadrature search (``gNodes=None``) on
+    ``examples/02_undulator_dcm_kb.py``'s undulator: the node count, its
+    probes (each a host read) and time on the card against the port's own
+    CPU float64 search (equal), then one configuration-4 pass at 1e6 rays
+    on that grid beside phase 17's, ``hist_plot`` against its plain
+    version;
+32. custom fields (``SourceFromField``): example 22's infrared edge
+    radiation at its sizes (101^2 pixels, R0 2500 mm, 3000 nodes x 6
+    intervals) in float64 and float32, the map's time and the example's
+    own checks (s/p > 3, p ratio > 10), the float32 map's distance from
+    float64; ``tests/golden/ref_customfield.npz`` and
+    ``ref_customfield_nf.npz`` in float64 (rtol 2e-4); the periodic test
+    field's ray-mode shine (``tests/test_customfield.py``'s source) into
+    a screen at 1e6 rays a pass, 2 passes, ``hist_plot`` against its
+    plain version;
+33. layouts, catalogs and stages: phase 31's beamline written to JSON and
+    to XML, each loaded (``load_from_json`` / ``load_from_xml``) and traced
+    one pass through ``propagate_flow`` with the same generator seed:
+    histograms bit-identical to the original's; a DCM of
+    ``catalogs.crystal('Ge', hkl=(1, 1, 1))`` against the catalog's Si at
+    1e6 rays a pass (the mean energy within 1 eV, Ge's band > 1.5 x Si's,
+    ``hist_plot`` against its plain version); ``DCMOnTripodWithOneXStage``
+    at nominal jacks against the DCM in float64 (1e-9).
+
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
 pass (phase 16's); B1's at configuration 5's two hop shapes, 2e5 x 1e5
@@ -299,7 +340,8 @@ the full shape), ``hist_plot`` on a configuration-2 pass (phase
 19's), ``hist_plot`` on a pass of each of phases 21-25 and 27-29, and
 B1 and B3 at phase 26's two differentiated hops (M1 -> M2, 2e5 x 2e5;
 M2 -> the screen, 16641 x 2e5; B3 held to the plain blocked backward on
-slices, as in 5, its plain time from phase 26's reference step).
+slices, as in 5, its plain time from phase 26's reference step), and
+``hist_plot`` on a pass of each ray path of phases 30-33.
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -2550,9 +2592,10 @@ def phase_dcm(timing):
           abs(s32 / s64 - 1) < 2e-3, 'DCM float32 vs float64')
 
 
-def config4_line(nrays, dtype):
+def config4_line(nrays, dtype, gNodes=64):
     """BASELINE configuration 4 as examples/02_undulator_dcm_kb.py builds
-    it with BeamLine.place (the undulator at gNodes 64)."""
+    it with BeamLine.place (the undulator at *gNodes*; None: the
+    quadrature search)."""
     from xrt_tpu_torch.beamline import BeamLine
     from xrt_tpu_torch.materials import CrystalSi, Material
     from xrt_tpu_torch.oes import DCM, EllipticalMirrorParam
@@ -2565,7 +2608,7 @@ def config4_line(nrays, dtype):
         nrays=nrays, eE=3.0, eI=0.5, period=18.0, n=111, targetE=(E0, 7),
         eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0, betaZ=2.0,
         eMin=E0 - 40, eMax=E0 + 40, xPrimeMax=0.02, zPrimeMax=0.02,
-        gNodes=64, **dk))
+        gNodes=gNodes, **dk))
     bl.place('dcm', DCM, distance=30000.0,
              material=CrystalSi.create(hkl=(1, 1, 1), **dk), alignE=E0,
              fixedOffset=20.0, limPhysX=(-50, 50), limPhysY=(-500, 500))
@@ -5021,18 +5064,582 @@ def phase_txm(timing):
     check(e < 1e-4, f'TXM float32 vs float64 {e}')
 
 
+# ---------------------------------------------------------------------------
+# the source integrals, the quadrature search, layouts, catalogs, stages
+# ---------------------------------------------------------------------------
+
+#: BASELINE configuration 3's undulator (tests/test_baseline_configs.py:24),
+#: also examples/02_undulator_dcm_kb.py's without gNodes
+C3_UND = dict(eE=3.0, eI=0.5, period=18.0, n=111, targetE=(DCM_E0, 7),
+              eEpsilonX=0.263, eEpsilonZ=0.008, betaX=9.0, betaZ=2.0,
+              xPrimeMax=0.02, zPrimeMax=0.02, eMin=DCM_E0 - 40,
+              eMax=DCM_E0 + 40)
+#: 1e5 rays a pass: at 2e5 a near-field pass took 5.1 s on an H100 (the
+#: integral runs 111 periods where the far field runs one)
+C3_NRAYS, C3_REPEATS, C3_CROSS_NRAYS = 100_000, 4, 20_000
+C3_TAPER = (1.09, 11.0)
+#: float32 against float64 on the rays both resample alike: the flux per
+#: ray (relative), the weighted mean energy (eV); and the candidates'
+#: intensities on the same candidates (of the largest)
+C3_F32_FLUX, C3_F32_E, C3_F32_MAP = 1e-3, 0.01, 1e-3
+UND_GOLDEN = 'tests/golden/ref_undulator.npz'
+#: tests/test_undulator.py's source, cut to 10 periods for its taper and
+#: near-field goldens
+UND_GOLDEN_ARGS = dict(nrays=1000, eE=6.0, eI=0.1, eEpsilonX=0.0,
+                       eEpsilonZ=0.0, period=33.0, n=10, K=1.5, eMin=9000,
+                       eMax=9600, xPrimeMax=0.02, zPrimeMax=0.02,
+                       gNodes=120, gIntervals=2)
+CF_GOLDEN = 'tests/golden/ref_customfield.npz'
+CF_NF_GOLDEN = 'tests/golden/ref_customfield_nf.npz'
+#: tests/test_customfield.py's periodic field source (make_sff)
+CF_ARGS = dict(eE=6.0, eI=0.1, eEpsilonX=0.0, eEpsilonZ=0.0, eMin=5000,
+               eMax=6500, xPrimeMax=0.05, zPrimeMax=0.05, gNodes=3000,
+               gIntervals=2)
+CF_NRAYS, CF_REPEATS, CF_P = 1_000_000, 2, 20000.0
+#: examples/22_edge_radiation.py at its own sizes
+ER_NPT, ER_GNODES, ER_R0 = 101, 3000, 2500.0
+
+
+def repo_file(path):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+
+
+def allclose(got, want, rtol, atol):
+    """numpy's assert_allclose condition, as a bool."""
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+
+def config3_line(nrays, dtype, **kw):
+    """BASELINE configuration 3: the undulator (gNodes 64; *kw*: R0 or
+    taper) -> the Si(111) DCM at 30 m (fixed exit 20 mm) -> a screen 1 m
+    after it."""
+    from xrt_tpu_torch.materials import CrystalSi
+    from xrt_tpu_torch.oes import DCM
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import Undulator
+    dk = dict(dtype=dtype, device='cuda')
+    und = Undulator.create(nrays=nrays, gNodes=64, **C3_UND, **kw, **dk)
+    dcm = DCM.create(center=(0, DCM_P, 0),
+                     material=CrystalSi.create(hkl=(1, 1, 1), **dk),
+                     alignE=DCM_E0, fixedOffset=20.0, limPhysX=(-50, 50),
+                     limPhysY=(-500, 500))
+    scr = Screen.create(center=(0, DCM_P + 1000.0, 20.0))
+    return und, dcm, scr
+
+
+def c3_plot():
+    return oe_plot(dict(label='x', unit='mm', limits=(-1, 1)),
+                   dict(label='z', unit='mm', limits=(-1, 1)),
+                   dict(label='energy', unit='eV',
+                        limits=(DCM_E0 - 10, DCM_E0 + 10)))
+
+
+def transmitted(mono):
+    """The intensities of a DCM's exit beam (0 for rays it lost) and the
+    mask of the rays above 1e-3 of the largest, float64."""
+    import torch
+    I = torch.where(mono.state == 1, mono.Jss + mono.Jpp,
+                    torch.zeros_like(mono.Jss)).double()
+    return I, I > 1e-3 * I.max()
+
+
+def weighted_band(mono):
+    """(weighted mean, weighted std) of the energy of the transmitted rays
+    above 1e-3 of the peak, eV."""
+    I, good = transmitted(mono)
+    w, E = I[good], mono.E.double()[good]
+    m = float((w * E).sum() / w.sum())
+    return m, math.sqrt(float((w * (E - m) ** 2).sum() / w.sum()))
+
+
+def phase_config3(timing):
+    """Phase 30: BASELINE configuration 3 as named: the undulator in the
+    near field at the DCM's 30 m, its far-field twin on the same draws and
+    the tapered source, each through run_ray_tracing; the reference test's
+    limits in float64; float32 against float64; the goldens' taper and
+    near-field maps in float64."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.sources import Undulator
+    from xrt_tpu_torch.sources.undulator import RAY_BLOCK
+    f32, f64 = torch.float32, torch.float64
+    n = C3_NRAYS
+    route = th.plot_route((128,) * 3)
+    # the far-field twin draws what the near field draws; the tapered
+    # source runs two passes without a warm-up
+    for key, kw, reps, warm in (
+            ('config3:near', dict(R0=DCM_P), C3_REPEATS, True),
+            ('config3:far', {}, C3_REPEATS, True),
+            ('config3:taper', dict(taper=C3_TAPER), 2, False)):
+        und, dcm, scr = config3_line(n, f32, **kw)
+
+        def process(rng, und=und, dcm=dcm, scr=scr):
+            return {'screen': scr.expose(dcm.double_reflect(
+                und.shine(rng), rng)[0])}
+        plot, pass_ms, med, launches, peak, rng = oe_passes(
+            process, c3_plot, reps, 30, warm=warm)
+        check(launches == {f'hist_plot:{route}': reps},
+              f'{key}: not one hist_plot launch a pass: {launches}')
+        with _Timed(und, '_integrate') as ti:
+            ms, (beam, mono, img, hists) = step_split([
+                lambda: und.shine(rng),
+                lambda b: dcm.double_reflect(b, rng)[0],
+                lambda g: scr.expose(g),
+                lambda i: runner.histogram_plot(plot, {'screen': i})])
+        i_ms = ti.ms()
+        g = torch.Generator('cuda').manual_seed(3)
+        u = [torch.rand(RAY_BLOCK, generator=g, device='cuda')
+             for _ in range(3)]
+        cand = (u[0] * (und.eMax - und.eMin) + und.eMin,
+                u[1] * (und.Theta_max - und.Theta_min) + und.Theta_min,
+                u[2] * (und.Psi_max - und.Psi_min) + und.Psi_min)
+        nk = profiled_kernel_count(lambda: und.build_I_map(g, *cand))
+        busy = ''
+        if key == 'config3:near':
+            # the busy share of a pass of one ray block's candidates (a
+            # pass is seven such blocks; the profiler's records of all
+            # seven take longer to read than the pass)
+            und1 = und.replace(nrays=RAY_BLOCK // und.oversample)
+            host_ms = [0.0]
+
+            def one_pass():
+                t0 = time.perf_counter()
+                scr.expose(dcm.double_reflect(und1.shine(rng), rng)[0])
+                torch.cuda.synchronize()
+                host_ms[0] = 1e3 * (time.perf_counter() - t0)
+            dev_ms = profiled_device_ms(one_pass)
+            busy = (f'; device busy {dev_ms:.1f} ms of a {host_ms[0]:.1f} '
+                    f'ms pass of {und1.nrays} rays ({RAY_BLOCK} candidates) '
+                    f'under the profiler ({dev_ms / host_ms[0]:.1%})')
+        Em, band = weighted_band(mono)
+        steps = (und.Np if key != 'config3:far' else 1) * \
+            und.tg.shape[0] // 64
+        print(f'phase 30 {key}: {n} rays/pass ({n * und.oversample} '
+              f'undulator candidates, gNodes 64, {steps} node steps a ray '
+              f'block), float32, {reps} passes (the first calibrates): '
+              f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median of the '
+              f'others {med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; split '
+              f'(CUDA events): shine {ms[0]:.1f} ms (the integral '
+              f'{i_ms:.1f} ms), double_reflect {ms[1]:.1f} ms, expose '
+              f'{ms[2]:.1f} ms, histograms {ms[3]:.2f} ms; {nk} kernel '
+              f'launches a build_I_map call of {RAY_BLOCK} rays '
+              f'(torch.profiler){busy}; transmitted band {band:.3f} eV '
+              f'about {Em:.3f} eV; peak device memory '
+              f'{peak / 2 ** 30:.2f} GiB; launches {launches}', flush=True)
+        check(0 < band < 10.0, f'{key}: band {band} eV')
+        args = oe_hist_plot_check(30, key, plot, {'screen': img})
+        timing[key] = dict(launches=launches, plot_args=args,
+                           pass_ms=pass_ms, integral_ms=i_ms, kernels=nk)
+        del beam, mono, img, hists
+    # the reference test's limits in float64, and float32 against float64
+    # on the same draws (a CPU generator: float64 draws cast to each dtype)
+    res = {}
+    for dt in (f32, f64):
+        und, dcm, _ = config3_line(C3_CROSS_NRAYS, dt, R0=DCM_P)
+        beam = und.shine(torch.Generator().manual_seed(31))
+        res[dt] = (und, beam, dcm.double_reflect(beam)[0])
+    und64, beam64, mono64 = res[f64]
+    Em, band = weighted_band(mono64)
+    I64, good = transmitted(mono64)
+    par = float((mono64.b - beam64.b)[good].abs().max())
+    print(f'phase 30 configuration 3 float64, {C3_CROSS_NRAYS} rays: band '
+          f'{band:.4f} eV (limit 10), fixed exit parallel to {par:.2e} '
+          f'(limit 1e-9), {int(good.sum())} rays above 1e-3 of the peak',
+          flush=True)
+    check(band < 10.0 and par < 1e-9 and int(good.sum()) > 100,
+          f'configuration 3 float64: band {band}, parallel {par}')
+    _, beam32, mono32 = res[f32]
+    same = (beam32.E.double() - beam64.E).abs() < 1e-3
+    I32, _ = transmitted(mono32)
+    flux = float(I32[same].sum() / I64[same].sum() - 1)
+    Ew = [float((I * m.E.double())[same].sum() / I[same].sum())
+          for I, m in ((I32, mono32), (I64, mono64))]
+    gcpu = torch.Generator().manual_seed(32)
+    cand64 = [torch.rand(RAY_BLOCK, generator=gcpu, dtype=f64)
+              for _ in range(3)]
+    cand64 = (cand64[0] * 80 + DCM_E0 - 40,
+              (cand64[1] - 0.5) * 2 * und64.Theta_max,
+              (cand64[2] - 0.5) * 2 * und64.Psi_max)
+    maps = {dt: res[dt][0].build_I_map(None, *(c.to(dt).to('cuda')
+                                                for c in cand64))[0]
+            for dt in (f32, f64)}
+    map_err = float((maps[f32].double() - maps[f64]).abs().max() /
+                    maps[f64].abs().max())
+    print(f'phase 30 configuration 3 float32 vs float64 on the same draws: '
+          f'{int((~same).sum())} of {C3_CROSS_NRAYS} rays resampled '
+          f'otherwise (the float32 cumulative sum); on the others flux per '
+          f'ray {flux:+.2e} (limit {C3_F32_FLUX}), weighted mean energy '
+          f'{Ew[0] - Ew[1]:+.2e} eV (limit {C3_F32_E}); the near-field map '
+          f'on {RAY_BLOCK} candidates max |dI| / max I {map_err:.2e} (limit '
+          f'{C3_F32_MAP})', flush=True)
+    check(abs(flux) < C3_F32_FLUX and abs(Ew[0] - Ew[1]) < C3_F32_E and
+          map_err < C3_F32_MAP,
+          f'configuration 3 float32: {flux}, {Ew}, {map_err}')
+    # the goldens' taper and near-field maps, float64 on the card
+    gold = np.load(repo_file(UND_GOLDEN))
+    E, thg, psg = (torch.as_tensor(gold[k], device='cuda')
+                   for k in ('und_E', 'und_theta', 'und_psi'))
+    for tag, kw in (('undt', dict(taper=(1.09, 11.0))),
+                    ('undn', dict(R0=5000.0))):
+        src = Undulator.create(**UND_GOLDEN_ARGS, **kw, dtype=f64,
+                               device='cuda')
+        I, Es, Ep = (v.cpu().numpy() for v in src.build_I_map(None, E, thg,
+                                                               psg))
+        if tag == 'undt':
+            ok = allclose(I, gold['undt_I'], 1e-6, 1e-3) and \
+                allclose(Es, gold['undt_Es'], 1e-6, 1e-8) and \
+                allclose(Ep, gold['undt_Ep'], 1e-6, 1e-8)
+        else:
+            Eh = gold['und_E']
+            phase = np.ones_like(Es)
+            for e in np.unique(Eh):
+                sel = Eh == e
+                zr = gold['undn_Es'][sel][0] / Es[sel][0]
+                phase[sel] = zr / abs(zr)
+            ok = allclose(I, gold['undn_I'], 1e-5, 1e-3) and \
+                allclose(Es * phase, gold['undn_Es'], 1e-5, 1e4) and \
+                allclose(Ep * phase, gold['undn_Ep'], 1e-5, 1e4)
+        rel = float(np.abs(I - gold[tag + '_I']).max() /
+                    np.abs(gold[tag + '_I']).max())
+        print(f'phase 30 {UND_GOLDEN} {tag}_* float64: I max rel '
+              f'{rel:.2e}, within tests/test_undulator.py\'s limits {ok}',
+              flush=True)
+        check(ok, f'{tag} golden')
+    print(f'phase 30 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def phase_search(timing):
+    """Phase 31: the quadrature search on examples/02_undulator_dcm_kb.py's
+    undulator (gNodes=None), against the port's own CPU float64 search,
+    then one configuration-4 pass at 1e6 rays on its grid."""
+    t_phase = time.perf_counter()
+    import torch
+    from xrt_tpu_torch import histogram as th
+    from xrt_tpu_torch.sources import Undulator
+    probes = []
+    orig = Undulator._intensity_probe
+
+    def counted(self):
+        probes.append(1)
+        return orig(self)
+    Undulator._intensity_probe = counted
+    try:
+        out = {}
+        for dev, dt in (('cuda', torch.float32), ('cpu', torch.float64)):
+            probes.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            und = Undulator.create(nrays=C4_NRAYS, **C3_UND, dtype=dt,
+                                   device=dev)
+            torch.cuda.synchronize()
+            out[dev] = (und.quadm, len(probes),
+                        time.perf_counter() - t0)
+    finally:
+        Undulator._intensity_probe = orig
+    (qc, pc, tc), (qh, ph, thh) = out['cuda'], out['cpu']
+    print(f'phase 31 the quadrature search (gp 1e-6, probes in float64): '
+          f'on the card quadm {qc} after {pc} probes, {pc} host reads, '
+          f'{tc:.3f} s; on the CPU quadm {qh} after {ph} probes, '
+          f'{thh:.3f} s', flush=True)
+    check(qc == qh, f'search: card {qc} vs CPU {qh}')
+    bl = config4_line(C4_NRAYS, torch.float32, gNodes=None)
+    check(bl['source'].quadm == qc, 'configuration 4 search')
+
+    def process(rng):
+        beam = bl['source'].shine(rng)
+        mono = bl['dcm'].double_reflect(beam, rng)[0]
+        b2 = bl['hfm'].reflect(bl['vfm'].reflect(mono, rng)[0], rng)[0]
+        return {'screen': bl['focus'].expose(b2)}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='um', limits=(-20, 20),
+                            factor=1e3),
+                       dict(label='z', unit='um', limits=(-20, 20),
+                            factor=1e3),
+                       dict(label='energy', unit='eV',
+                            limits=(DCM_E0 - 3, DCM_E0 + 3)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        2, 17)
+    c4 = timing['config4']['pass_ms']
+    print(f'phase 31 configuration 4 on the searched grid (quadm {qc}, '
+          f'{bl["source"].tg.shape[0]} nodes): {C4_NRAYS} rays, the '
+          f'calibrating pass and one more '
+          f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms (phase 17 at '
+          f'gNodes 64: {", ".join(f"{v:.1f}" for v in c4)} ms); flux '
+          f'{plot.intensity:.6g}, FWHM x {plot.dx:.3f} um, z '
+          f'{plot.dy:.3f} um; launches {launches}', flush=True)
+    check(plot.intensity > 0 and launches == {
+        f'hist_plot:{th.plot_route((128,) * 3)}': 2},
+        f'search pass: {plot.intensity}, {launches}')
+    img = process(rng)['screen']
+    args = oe_hist_plot_check(31, 'configuration 4 (searched grid)', plot,
+                              {'screen': img})
+    timing['config4:search'] = dict(launches=launches, plot_args=args,
+                                    quadm=qc, probes=pc, search_s=tc)
+    timing['search_line'] = bl
+    print(f'phase 31 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def two_dipole_field():
+    """examples/22_edge_radiation.py's field: two dipoles' four edges."""
+    import numpy as np
+    B0, LBM, LS, W = 1.4, 600.0, 300.0, 20.0
+    y = np.linspace(-(LS / 2 + LBM + 150), LS / 2 + LBM + 150, 8000)
+
+    def edge(y0):
+        return 0.5 * (1 + np.tanh((y - y0) / W))
+    By = B0 * (edge(-LS / 2 - LBM) - edge(-LS / 2) + edge(LS / 2) -
+               edge(LS / 2 + LBM))
+    return np.vstack([y, By]).T
+
+
+def periodic_field():
+    """tests/test_customfield.py's field: K 4.4, 53.96 mm, 41 periods."""
+    import numpy as np
+    from xrt_tpu_torch.physconsts import K2B
+    K, L0, Np = 4.4, 53.96, 41
+    zg = np.linspace(-L0 * Np * 0.5, L0 * Np * 0.5, 1000 * Np)
+    return np.vstack([zg, K2B * K / L0 * np.sin(2 * np.pi * zg / L0)]).T
+
+
+def phase_customfield(timing):
+    """Phase 32: example 22's edge radiation at its own sizes in float64
+    and float32, the custom-field goldens in float64, and the periodic
+    test field's ray-mode shine through run_ray_tracing."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th
+    from xrt_tpu_torch.physconsts import CH
+    from xrt_tpu_torch.screens import Screen
+    from xrt_tpu_torch.sources import SourceFromField
+    f32, f64 = torch.float32, torch.float64
+    E0 = CH / 1e5
+    t0 = time.perf_counter()
+    er = SourceFromField.create(
+        nrays=100, eE=2.75, eI=0.5, eEpsilonX=0.0, eEpsilonZ=0.0,
+        customField=two_dipole_field(), eMin=E0 * 0.98, eMax=E0 * 1.02,
+        xPrimeMax=15.0, zPrimeMax=15.0, gNodes=ER_GNODES, gIntervals=6,
+        R0=ER_R0, dtype=f64, device='cuda')
+    create_s = time.perf_counter() - t0
+    xs = np.linspace(-20.0, 20.0, ER_NPT)
+    th_, ps_ = np.meshgrid(np.arctan(xs / ER_R0), np.arctan(xs / ER_R0),
+                           indexing='ij')
+    maps, map_ms = {}, {}
+    for dt in (f64, f32):
+        args = [torch.as_tensor(v, dtype=dt, device='cuda') for v in
+                (np.full(th_.size, E0), th_.ravel(), ps_.ravel())]
+        er.build_I_map(None, *args)
+        ms, (out,) = step_split([lambda: er.build_I_map(None, *args)])
+        map_ms[dt] = ms[0]
+        Is = (out[1].abs() ** 2).double().reshape(ER_NPT, ER_NPT)
+        Ip = (out[2].abs() ** 2).double().reshape(ER_NPT, ER_NPT)
+        maps[dt] = (out[0].double(), Is, Ip)
+        c = ER_NPT // 2
+        ih = float(Is[:, c].sum() / Ip[:, c].sum().clamp(min=1e-30))
+        pv = float(Ip[c, :].sum() / Ip[:, c].sum().clamp(min=1e-30))
+        print(f'phase 32 example 22 edge radiation ({ER_NPT}^2 pixels, '
+              f'R0 {ER_R0} mm, {er.tg.shape[0]} nodes, {dt}): the map '
+              f'{map_ms[dt]:.1f} ms (CUDA events; the field and trajectory '
+              f'on the host {create_s:.2f} s); s/p along the horizontal '
+              f'axis {ih:.3g} (> 3), p vertical / horizontal {pv:.3g} '
+              f'(> 10)', flush=True)
+        check(ih > 3 and pv > 10, f'edge radiation {dt}: {ih}, {pv}')
+    d = float((maps[f32][0] - maps[f64][0]).abs().max() /
+              maps[f64][0].abs().max())
+    print(f'phase 32 example 22 float32 against float64: max |dI| / max I '
+          f'{d:.3e} (the node phase wc (tg - trajz) keeps ulp(tg) x wc in '
+          f'float32: ROADMAP C22)', flush=True)
+    timing['edge_f32'] = d
+    # the goldens, float64 on the card
+    sff = SourceFromField.create(customField=periodic_field(), nrays=100,
+                                 **CF_ARGS, dtype=f64, device='cuda')
+    for path, R0 in ((CF_GOLDEN, None), (CF_NF_GOLDEN, 'golden')):
+        g = np.load(repo_file(path))
+        src = sff.replace(R0=None if R0 is None else float(g['R0']))
+        I, Es, Ep = (v.cpu().numpy() for v in src.build_I_map(
+            None, *(torch.as_tensor(g[k], device='cuda')
+                    for k in ('sff_E', 'sff_theta', 'sff_psi'))))
+        ok = allclose(I, g['sff_I'], 2e-4, 0) and \
+            allclose(Es, g['sff_Es'], 2e-4, 1e-8) and \
+            allclose(Ep, g['sff_Ep'], 2e-4, 1e-8)
+        rel = float(np.abs(I - g['sff_I']).max() / np.abs(g['sff_I']).max())
+        print(f'phase 32 {path} float64: I max rel {rel:.2e}, within rtol '
+              f'2e-4 {ok}', flush=True)
+        check(ok, f'{path}')
+    # the periodic field's ray-mode shine into a screen
+    src = sff.replace(nrays=CF_NRAYS, oversample=2, dtype=f32,
+                      device='cuda')
+    scr = Screen.create(center=(0, CF_P, 0))
+
+    def process(rng):
+        return {'screen': scr.expose(src.shine(rng))}
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='mm', limits=(-1.5, 1.5)),
+                       dict(label='z', unit='mm', limits=(-1.5, 1.5)),
+                       dict(label='energy', unit='eV', limits=(5000, 6500)))
+    plot, pass_ms, med, launches, peak, rng = oe_passes(process, plot_fn,
+                                                        CF_REPEATS, 32)
+    with _Timed(src, 'build_I_map') as tb:
+        ms, (img,) = step_split([lambda: process(rng)['screen']])
+    print(f'phase 32 the periodic field\'s shine ({src.tg.shape[0]} nodes, '
+          f'{CF_NRAYS} rays from {CF_NRAYS * 2} candidates) into a screen '
+          f'at {CF_P:.0f} mm, float32, {CF_REPEATS} passes (the first '
+          f'calibrates): {", ".join(f"{v:.1f}" for v in pass_ms)} ms, '
+          f'{CF_NRAYS / (med * 1e-3):.3e} rays/s; the integral '
+          f'{tb.ms():.1f} ms of a {ms[0]:.1f} ms shine + expose; flux '
+          f'{plot.intensity:.6g}, nGood {plot.nRaysGood}; peak device '
+          f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+          flush=True)
+    check(plot.intensity > 0 and launches == {
+        f'hist_plot:{th.plot_route((128,) * 3)}': CF_REPEATS},
+        f'custom field shine: {plot.intensity}, {launches}')
+    args = oe_hist_plot_check(32, 'custom-field', plot, {'screen': img})
+    timing['customfield'] = dict(launches=launches, plot_args=args)
+    print(f'phase 32 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def layout_pass(bl, seed, plot_fn):
+    """One run_ray_tracing pass of *bl*'s flow (``propagate_flow``) with a
+    generator of *seed*: the plot."""
+    import torch
+    from xrt_tpu_torch import runner
+    plot = plot_fn()
+    runner.run_ray_tracing(
+        plot, repeats=1, rng=torch.Generator('cuda').manual_seed(seed),
+        run_process=lambda b_, rng: {
+            'screen': bl.propagate_flow(rng)['focus']})
+    return plot
+
+
+def phase_layouts(timing):
+    """Phase 33: phase 31's beamline written to JSON and XML, loaded and
+    traced bit-identically; a catalog Ge(111) DCM; the DCM on a tripod at
+    nominal jacks against the DCM."""
+    t_phase = time.perf_counter()
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th
+    from xrt_tpu_torch.beamline import BeamLine
+    from xrt_tpu_torch.materials import catalogs
+    from xrt_tpu_torch.oes import DCM, DCMOnTripodWithOneXStage
+    from xrt_tpu_torch.stages import Tripod
+    f32, f64 = torch.float32, torch.float64
+    bl = timing['search_line']
+
+    def plot_fn():
+        return oe_plot(dict(label='x', unit='um', limits=(-20, 20),
+                            factor=1e3),
+                       dict(label='z', unit='um', limits=(-20, 20),
+                            factor=1e3),
+                       dict(label='energy', unit='eV',
+                            limits=(DCM_E0 - 3, DCM_E0 + 3)))
+    ref = layout_pass(bl, 33, plot_fn)
+    keys = ('total1D_x', 'total1D_y', 'total1D_c', 'total2D',
+            'total2D_RGB')
+    for fmt in ('json', 'xml'):
+        t0 = time.perf_counter()
+        text = getattr(bl, 'export_to_' + fmt)()
+        back = getattr(BeamLine, 'load_from_' + fmt)(text, dtype=f32,
+                                                     device='cuda')
+        load_s = time.perf_counter() - t0
+        got = layout_pass(back, 33, plot_fn)
+        same = all(np.array_equal(np.asarray(getattr(got, k)),
+                                  np.asarray(getattr(ref, k))) for k in keys)
+        print(f'phase 33 the configuration-4 beamline as {fmt.upper()} '
+              f'({len(text)} characters; written and loaded in '
+              f'{load_s:.2f} s, the undulator\'s search again): one pass of '
+              f'{C4_NRAYS} rays, histograms bit-identical to the original '
+              f'beamline\'s {same} (flux {got.intensity:.6g} / '
+              f'{ref.intensity:.6g})', flush=True)
+        check(same and ref.intensity > 0, f'{fmt} layout trace')
+    # a catalog crystal in the DCM: Ge(111) against Si(111) on the same rays
+    bands = {}
+    for name in ('Si', 'Ge'):
+        src, dcm, scr, _ = dcm_trace_line(OE_NRAYS, f32)
+        cr = catalogs.crystal(name, hkl=(1, 1, 1), dtype=f32, device='cuda')
+        dcm = DCM.create(center=(0, DCM_P, 0), material=cr, alignE=DCM_E0,
+                         fixedOffset=20.0, limPhysX=(-50, 50),
+                         limPhysY=(-500, 500))
+
+        def process(rng, src=src, dcm=dcm, scr=scr):
+            return {'screen': scr.expose(dcm.double_reflect(
+                src.shine(rng), rng)[0])}
+        plot, pass_ms, med, launches, peak, rng = oe_passes(
+            process, lambda: dcm_plot(), 2, 34)
+        mono = dcm.double_reflect(src.shine(rng), rng)[0]
+        Em, band = weighted_band(mono)
+        bands[name] = band
+        print(f'phase 33 catalogs.crystal({name!r}, hkl=(1, 1, 1)) in the '
+              f'DCM (d {float(cr.d):.5f} A), {OE_NRAYS} rays/pass, float32: '
+              f'pass {", ".join(f"{v:.1f}" for v in pass_ms)} ms; '
+              f'transmitted band {band:.4f} eV about {Em:.3f} eV; flux '
+              f'{plot.intensity:.6g}; launches {launches}', flush=True)
+        check(abs(Em - DCM_E0) < 1.0 and plot.intensity > 0 and
+              launches == {f'hist_plot:{th.plot_route((128,) * 3)}': 2},
+              f'{name} DCM: {Em}, {plot.intensity}, {launches}')
+        if name == 'Ge':
+            img = process(rng)['screen']
+            args = oe_hist_plot_check(33, 'Ge DCM', plot, {'screen': img})
+            timing['catalog:Ge'] = dict(launches=launches, plot_args=args)
+    print(f'phase 33 Ge(111) / Si(111) transmitted band '
+          f'{bands["Ge"] / bands["Si"]:.3f} (limit > 1.5: Ge\'s Darwin '
+          f'width is the wider)', flush=True)
+    check(bands['Ge'] > 1.5 * bands['Si'], f'Ge vs Si bands {bands}')
+    # the DCM on a tripod and one x stage at nominal jacks, float64
+    jacks = [[-100.0, -100.0, 0.0], [100.0, -100.0, 0.0], [0.0, 100.0, 0.0]]
+    center = [0.0, DCM_P, 0.0]
+    tp = Tripod(*[list(j) for j in jacks], center=list(center), height=0.0)
+    tp.set_jacks(pitch=0.0, roll=0.0)
+    src, _, _, _ = dcm_trace_line(OE_CROSS_NRAYS, f64)
+    cr = catalogs.crystal('Si', hkl=(1, 1, 1), dtype=f64, device='cuda')
+    kw = dict(material=cr, alignE=DCM_E0, fixedOffset=20.0,
+              limPhysX=(-50, 50), limPhysY=(-500, 500))
+    tri = DCMOnTripodWithOneXStage(jack1=tp.jack1, jack2=tp.jack2,
+                                   jack3=tp.jack3, dx=0.0, center=center,
+                                   height=0.0, **kw)
+    dcm = DCM.create(center=tuple(center), **kw)
+    beam = src.shine(torch.Generator('cuda').manual_seed(35))
+    a, b = tri.double_reflect(beam)[0], dcm.double_reflect(beam)[0]
+    diff = max(float((getattr(a, f) - getattr(b, f)).abs().max())
+               for f in ('x', 'z', 'a', 'b', 'c', 'Jss', 'Jpp'))
+    states = bool(torch.equal(a.state, b.state))
+    print(f'phase 33 DCMOnTripodWithOneXStage at nominal jacks against the '
+          f'DCM, float64, {OE_CROSS_NRAYS} rays: max difference {diff:.2e} '
+          f'(limit 1e-9), states equal {states}, '
+          f'{int((a.state == 1).sum())} rays through', flush=True)
+    check(diff < 1e-9 and states, f'tripod DCM: {diff}, {states}')
+    print(f'phase 33 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
 #: the ray paths of phases 21-25 and 27-29, by their keys in ``timing``
 OE_HIST_KEYS = ('laue', 'crl', 'multilayer', 'powder', 'fe:waviness',
                 'fe:roughness', 'fe:bump', 'capillary', 'mesh:quad',
                 'mesh:spline', 'txm')
 
 
-def oe_physics_rows(timing):
-    """``hist_plot``'s rows on the paths of phases 21-25 and 27-29."""
+#: the ray paths of phases 30-33
+SLICE_HIST_KEYS = ('config3:near', 'config3:far', 'config3:taper',
+                   'config4:search', 'customfield', 'catalog:Ge')
+
+
+def oe_physics_rows(timing, keys=OE_HIST_KEYS):
+    """``hist_plot``'s rows on the paths of *keys* (phases 21-25 and
+    27-29 by default)."""
     import torch
     from xrt_tpu_torch import histogram as th
     rows = []
-    for key in OE_HIST_KEYS:
+    for key in keys:
         args = timing[key]['plot_args']
         bins = args[6]
         route = th.plot_route(bins)
@@ -5119,10 +5726,15 @@ def main():
         phase_capillary(timing)
         phase_mesh(timing)
         phase_txm(timing)
+        phase_config3(timing)
+        phase_search(timing)
+        phase_customfield(timing)
+        phase_layouts(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + coherence_rows(timing) + \
-            oe_physics_rows(timing) + fe_wave_rows(timing)
+            oe_physics_rows(timing) + fe_wave_rows(timing) + \
+            oe_physics_rows(timing, SLICE_HIST_KEYS)
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

@@ -13,8 +13,10 @@ JAX package, float64.
   coherency, states) to 1e-9 and their 2D histograms to 1e-9 of the
   largest bin, and the focus under 20 um in both planes (the limit of
   ``tests/test_baseline_configs.py``).
-* What the port leaves to ROADMAP A11 raises naming it.
+* What the port leaves to ROADMAP A11 (the 3D view ``glow``) raises naming
+  it.
 """
+import json
 import math
 
 import numpy as np
@@ -169,9 +171,11 @@ def test_config4_focus_matches_jax():
 
 
 def test_host_layers_raise_naming_the_item():
+    # of the host layers only the 3D view is left to ROADMAP A11; the flow,
+    # alarms and layouts are ported (tests/test_torch_layouts.py)
     bl = tbl.BeamLine()
-    for call in (lambda: bl.propagate_flow(), lambda: bl.glow(),
-                 lambda: bl.remove('x'), lambda: bl.export_to_json(),
-                 lambda: tbl.BeamLine.load_from_xml('x')):
-        with pytest.raises(NotImplementedError, match='A11'):
-            call()
+    with pytest.raises(NotImplementedError, match='A11'):
+        bl.glow()
+    assert bl.propagate_flow() == {}
+    assert bl.check_alarms({}) == []
+    assert json.loads(bl.export_to_json())['elements'] == []

@@ -25,7 +25,8 @@ package, on the same numpy rays.
   directions (against the float64 ones).  The port's float32 errors are
   no worse than the JAX package's plus a margin: flux 1e-3 relative, mean
   energy 0.01 eV, spread 1e-3 relative, directions 1e-6.
-* ``DCMOnTripodWithOneXStage`` raises naming ROADMAP A11.
+* ``DCMOnTripodWithOneXStage`` builds a DCM (the tripod support is
+  ported).
 """
 import math
 
@@ -271,9 +272,17 @@ def test_float32_no_worse_than_jax_float32(clean_env_runner, tmp_path):
 
 
 def test_tripod_raises_naming_the_item():
-    with pytest.raises(NotImplementedError, match='A11'):
-        DCMOnTripodWithOneXStage(jack1=(0, 0, 0), jack2=(0, 0, 0),
-                                 jack3=(0, 0, 0), dx=0.0, center=(0, 0, 0))
+    # the tripod support is ported (tests/test_torch_stages.py): nothing of
+    # the DCM is left to ROADMAP A11, and flat jacks give a DCM at the
+    # centre shifted by the stage's dx
+    dcm = DCMOnTripodWithOneXStage(
+        jack1=(-100.0, -100.0, 0.0), jack2=(100.0, -100.0, 0.0),
+        jack3=(0.0, 100.0, 0.0), dx=1.5, center=(0.0, 1000.0, 0.0),
+        material=tm.CrystalSi.create(hkl=(1, 1, 1), dtype=F64,
+                                     device='cpu'), bragg=0.2)
+    assert isinstance(dcm, DCM)
+    assert dcm.center == (1.5, 1000.0, 0.0)
+    assert (float(dcm.pitch), float(dcm.roll)) == (0.0, 0.0)
 
 
 def test_mosaic_normal_and_mosaic_reflect():

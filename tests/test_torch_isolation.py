@@ -10,8 +10,9 @@
   named in comments and docstrings only (the kernels cite the TPU kernels
   they replace): no string literal of the package names it, so no path
   into ``xrt_tpu/`` can be built.
-* The atomic tables are read from ``xrt_tpu_torch/data/`` and are
-  byte-identical copies of the reference package's.
+* The atomic tables and the material catalogs are read from
+  ``xrt_tpu_torch/data/`` and are byte-identical copies of the reference
+  package's.
 * ``chip_smoke.py`` on a host without a CUDA device exits non-zero and
   prints no result.
 """
@@ -172,6 +173,13 @@ def test_the_slice_exports_its_sources_and_optics():
     assert {'CrystalSi', 'CrystalDiamond', 'CrystalFromCell'} <= \
         set(materials.__all__)
     assert hasattr(beamline.BeamLine, 'place')
+    # the source integrals, catalogs, layouts and stages
+    assert 'SourceFromField' in sources.__all__
+    assert {'DCMOnTripodWithOneXStage',
+            'MirrorOnTripodWithTwoXStages'} <= set(oes.__all__)
+    assert 'catalogs' in materials.__all__
+    from xrt_tpu_torch import stages
+    assert {'Tripod', 'OneXStage', 'TwoXStages'} <= set(vars(stages))
     # the port's tools name no path into the reference package (the
     # SoftiMAX tool reads its golden samples from tests/golden only)
     for tool in PORT_TOOLS:
@@ -182,7 +190,7 @@ def test_the_slice_exports_its_sources_and_optics():
 
 def test_data_tables_are_byte_identical_copies():
     names = ('Henke.npz', 'Chantler.npz', 'BrCo.npz', 'AtomicData.dat',
-             'f0_xop.dat')
+             'f0_xop.dat', 'catalogs.json')
     for name in names:
         with open(os.path.join(ROOT, 'xrt_tpu_torch', 'data', name),
                   'rb') as f:

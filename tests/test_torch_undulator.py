@@ -19,6 +19,9 @@ data.
   periodic factor (ROADMAP C16).
 * A run blocked into rays of ``ray_block`` equals the unblocked run bit for
   bit.
+* The options once left to ROADMAP A8 (taper, near field, the quadrature
+  search) build; the sources' entry points raise without a card unless
+  made for the CPU.
 """
 import math
 import os
@@ -246,12 +249,14 @@ def test_blocked_run_equals_unblocked(sx_ref, dtype):
 
 
 def test_unported_undulator_options_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        Undulator.create(**dict(GOLDEN_UND, taper=(1.09, 11.0)))
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        Undulator.create(**dict(GOLDEN_UND, R0=5000.0))
-    with pytest.raises(NotImplementedError, match='ROADMAP A8'):
-        Undulator.create(**dict(GOLDEN_UND, gNodes=None))
+    # nothing of the undulator is left to ROADMAP A8: the taper, the near
+    # field and the quadrature search (its probes run on the source's
+    # device) build; their parity with the JAX package:
+    # tests/test_torch_undulator_nearfield.py
+    for kw in (dict(taper=(1.09, 11.0)), dict(R0=5000.0),
+               dict(gNodes=None, gp=1e-4, device='cpu')):
+        src = Undulator.create(**dict(GOLDEN_UND, **kw))
+        assert src.tg.shape[0] % 64 == 0 and src.quadm >= 3, kw
     und = Undulator.create(**GOLDEN_UND)
     # the power is host arithmetic; the ray-mode shine and the field maps
     # on meshes are ported: they run on the card unless the source was

@@ -138,6 +138,10 @@ class RectangularAperture(_ApertureBase):
     def opening(self):
         return [self.left, self.right, self.bottom, self.top]
 
+    def _export_params(self):
+        """A layout's (drop, extra): the blades as create()'s opening."""
+        return (), {'opening': [float(v) for v in self.opening]}
+
     def _distance(self, source):
         return float(np.linalg.norm(
             np.asarray([config.host_float(c) for c in self.center]) -
@@ -241,6 +245,15 @@ class DoubleSlit(_ApertureBase):
         self.bottom, self.top = float(bottom), float(top)
         self.shadeLeft, self.shadeRight = float(shadeLeft), float(shadeRight)
 
+    def _export_params(self):
+        """A layout's (drop, extra): create()'s opening and
+        shadeFraction."""
+        le, ri = self.left, self.right
+        width = ri - le
+        return (), {'opening': [le, ri, self.bottom, self.top],
+                    'shadeFraction': [(self.shadeLeft - le) / width,
+                                      (self.shadeRight - le) / width]}
+
     @classmethod
     def create(cls, name='', center=(0, 0, 0), opening=(-1, 1, -1, 1),
                shadeFraction=(0.3, 0.7), x='auto', z='auto',
@@ -275,6 +288,11 @@ class PolygonalAperture(_ApertureBase):
     def __init__(self, center, ex, ez, vertices, **kw):
         super().__init__(center, ex, ez, **kw)
         self.vertices = np.asarray(vertices, float)
+
+    def _export_params(self):
+        """A layout's (drop, extra): the vertices as create()'s
+        opening."""
+        return (), {'opening': self.vertices.tolist()}
 
     @classmethod
     def create(cls, name='', center=(0, 0, 0), opening=None, x='auto',

@@ -513,7 +513,10 @@ class CrystalFromCell(Crystal):
                atomsFraction=None, t=None, factDW=1.0,
                geom='Bragg reflected', table='Chantler total',
                mosaicity=0.0, nu=None, useTT=False,
-               volumetricDiffraction=False, dtype=None, device=None):
+               volumetricDiffraction=False, dtype=None, device=None,
+               **derived):
+        """*derived*: what the cell determines (a layout's elements,
+        quantities, rho, d, V), accepted and ignored."""
         b = b or a
         c = c or a
         atoms_Z = tuple(Element.create(at, dtype=dtype, device=device).Z

@@ -31,7 +31,7 @@ _MIRROR_KINDS = ('mirror', 'thin mirror', 'grating')
 _TRANSMIT_KINDS = ('plate', 'lens', 'FZP')
 
 
-class Material:
+class Material(config.Replaceable):
     """A material given by chemical formula and density.
 
     *kind*: 'mirror', 'thin mirror', 'grating', 'plate', 'lens' or 'FZP'
@@ -249,7 +249,7 @@ class Material:
                 n.real * E / CHBAR * 1e8)
 
 
-class EmptyMaterial:
+class EmptyMaterial(config.Replaceable):
     """A geometry-only material (a grating whose efficiency is given
     elsewhere): unit amplitudes, refractive index 1, no absorption."""
 

@@ -36,7 +36,7 @@ def _graded_thicknesses(tHigh, tLow, nPairs, power):
     return np.ones(nPairs) * float(tHigh)
 
 
-class Multilayer:
+class Multilayer(config.Replaceable):
     """Periodic or depth-graded multilayer of (tLayer, bLayer) pairs on a
     substrate; thicknesses in Angstrom.  *geom* is 'reflected' or
     'transmitted'.  The per-pair thicknesses ``dti``, ``dbi`` and the

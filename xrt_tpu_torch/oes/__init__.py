@@ -1,7 +1,8 @@
 """Optical elements: the OE base, the stock mirrors, the gratings and zone
 plates, the parametric mirrors and capillaries, the double-crystal
 monochromators, the bent-crystal analyzers, the Laue crystals, the
-refractive plates and lenses, and the STL-mesh OE."""
+refractive plates and lenses, the STL-mesh OE, and a DCM and a mirror
+oriented by their stages."""
 from .base import OE, find_intersection, find_intersection_dz
 from .bragg import (DicedJohannToroid, DicedJohanssonToroid, DicedOE,
                     GeneralBraggToroid, JohannCylinder, JohannToroid,
@@ -10,8 +11,8 @@ from .dcm import DCM, DCMOnTripodWithOneXStage, DCMwithSagittalFocusing
 from .gratings import (BlazedGrating, GeneralFZPin0YZ, Grating,
                        LaminarGrating, NormalFZP, VLSLaminarGrating)
 from .mirrors import (BentFlatMirror, ConicalMirror, CylindricalMirror,
-                      DualVFM, FlatMirror, SimpleVCM, SimpleVFM,
-                      SphericalMirror,
+                      DualVFM, FlatMirror, MirrorOnTripodWithTwoXStages,
+                      SimpleVCM, SimpleVFM, SphericalMirror,
                       ToroidMirror, VCM, VFM, rmer_from_coddington,
                       rsag_from_coddington)
 from .laue import (BentLaue2D, BentLaueCylinder, BentLaueSphere,
@@ -28,7 +29,8 @@ from .refractive import (DoubleParabolicCylinderLens, DoubleParaboloidLens,
 __all__ = ['OE', 'find_intersection', 'find_intersection_dz', 'FlatMirror',
            'BentFlatMirror', 'SimpleVCM', 'VCM', 'SphericalMirror',
            'ToroidMirror', 'SimpleVFM', 'VFM', 'CylindricalMirror',
-           'ConicalMirror', 'DualVFM', 'rmer_from_coddington',
+           'ConicalMirror', 'DualVFM', 'MirrorOnTripodWithTwoXStages',
+           'rmer_from_coddington',
            'rsag_from_coddington',
            'BlazedGrating', 'Grating', 'NormalFZP', 'GeneralFZPin0YZ',
            'LaminarGrating', 'VLSLaminarGrating', 'EllipticalMirrorParam',

@@ -246,6 +246,9 @@ class OE(config.Replaceable):
     3 P2 t^2 + ...) lines/mm."""
 
     isParametric = False
+    #: the creation arguments of a class whose fields derive from them (the
+    #: parametric conics): (name, value) pairs a layout records
+    createArgs = None
 
     def __init__(self, name='', center=(0, 0, 0), pitch=0.0, roll=0.0,
                  yaw=0.0, positionRoll=0.0, bragg_=None, extraPitch=None,
@@ -333,6 +336,15 @@ class OE(config.Replaceable):
                    extraRotationSequence=extraRotationSequence, order=order,
                    curSurface=curSurface, overEdge=overEdge,
                    figure_error=figure_error, **kwargs)
+
+    def _export_params(self):
+        """A layout's (drop, extra): the grating density in the
+        reference's [axis, rho0, P0, ...] form."""
+        if self.gratingDensity is None:
+            return (), {}
+        return (('gratingDensity',),
+                {'gratingDensity': [self.grooveAxis] +
+                 [float(v) for v in self.gratingDensity]})
 
     # ---- surface --------------------------------------------------------
     def local_z(self, x, y):

@@ -5,8 +5,8 @@ traced one after the other in the same virgin-local frame
 (``double_reflect``), the fixed-exit geometry through *fixedOffset*, and
 the misalignments cryst1roll, cryst2roll, cryst2pitch, cryst2finePitch,
 cryst2longTransl and cryst2perpTransl; ``DCMwithSagittalFocusing`` bends
-the second crystal sagittally.  ``DCMOnTripodWithOneXStage`` needs the
-tripod support (``stages.Tripod``) and comes with ROADMAP A11.
+the second crystal sagittally.  ``DCMOnTripodWithOneXStage`` reads the
+orientation off a tripod and one x stage (``stages``).
 """
 from __future__ import annotations
 
@@ -157,7 +157,20 @@ class DCMwithSagittalFocusing(DCM):
         return [a / norm, torch.zeros_like(y), 1.0 / norm]
 
 
-def DCMOnTripodWithOneXStage(*args, **kwargs):
-    raise NotImplementedError(
-        'a DCM on a tripod with one x stage needs the tripod support '
-        '(stages.Tripod), which is not ported yet: ROADMAP A11')
+def DCMOnTripodWithOneXStage(dcm_cls=DCM, *, jack1, jack2, jack3, dx,
+                             center, height=0.0, positionRoll=0.0,
+                             **kwargs):
+    """A DCM (or *dcm_cls*) oriented by a tripod and one x stage: the
+    stage gives the lateral shift *dx*, the measured jack z's give (pitch,
+    roll, centre z).  The tripod is defined horizontal (every jack at z =
+    0), so the jack z's are motor readbacks.  Keep the ``stages`` objects
+    for motor readouts."""
+    from ..stages import Tripod
+    tp = Tripod([jack1[0], jack1[1], 0.0], [jack2[0], jack2[1], 0.0],
+                [jack3[0], jack3[1], 0.0], center=list(center),
+                height=height)
+    tp.jack1[2], tp.jack2[2], tp.jack3[2] = jack1[2], jack2[2], jack3[2]
+    pitch, roll, cz = tp.get_orientation(positionRoll)
+    return dcm_cls.create(center=(center[0] + dx, center[1], cz),
+                          pitch=pitch, roll=roll,
+                          positionRoll=positionRoll, **kwargs)

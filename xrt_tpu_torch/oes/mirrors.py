@@ -1,9 +1,10 @@
 """Stock mirrors: flat, bent-flat (cylindrical), spherical, toroidal,
-sagittally cylindrical and conical, with the Coddington helpers.
+sagittally cylindrical, conical and ``DualVFM``, with the Coddington
+helpers, and ``MirrorOnTripodWithTwoXStages`` (a mirror oriented by a
+tripod and two x stages).
 
 Port of the reference package's ``oes/mirrors.py``.  Radii and angles are
-Python floats, or the tensors that were passed in.  ``DualVFM`` comes
-with ROADMAP A8, the tripod support with A11.
+Python floats, or the tensors that were passed in.
 """
 from __future__ import annotations
 
@@ -75,6 +76,27 @@ class BentFlatMirror(OE):
 
 SimpleVCM = BentFlatMirror
 VCM = BentFlatMirror
+
+
+def MirrorOnTripodWithTwoXStages(oe_cls=FlatMirror, *, jack1, jack2, jack3,
+                                 tx1, tx2, center, height=0.0,
+                                 positionRoll=0.0, **kwargs):
+    """An *oe_cls* mirror oriented by a tripod and two x stages: the stage
+    x's give (dx, yaw), the jack z's give (pitch, roll, centre z).  The
+    tripod is defined horizontal (every jack at z = 0), so the jack z's
+    are motor readbacks.  Keep the ``stages`` objects for motor
+    readouts."""
+    from ..stages import Tripod, TwoXStages
+    dx, yaw = TwoXStages(tx1=list(tx1), tx2=list(tx2)).get_orientation(
+        positionRoll)
+    tp = Tripod([jack1[0], jack1[1], 0.0], [jack2[0], jack2[1], 0.0],
+                [jack3[0], jack3[1], 0.0], center=list(center),
+                height=height)
+    tp.jack1[2], tp.jack2[2], tp.jack3[2] = jack1[2], jack2[2], jack3[2]
+    pitch, roll, cz = tp.get_orientation(positionRoll)
+    return oe_cls.create(center=(center[0] + dx, center[1], cz),
+                         pitch=pitch, roll=roll, yaw=yaw,
+                         positionRoll=positionRoll, **kwargs)
 
 
 class SphericalMirror(OE):

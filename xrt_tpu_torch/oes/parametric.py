@@ -56,6 +56,9 @@ class EllipticalMirrorParam(_ConicParamMethods, OE):
         self.p, self.q = float(p), float(q)
         self.isCylindrical, self.isClosed = bool(isCylindrical), \
             bool(isClosed)
+        self.createArgs = (('p', self.p), ('q', self.q),
+                           ('isCylindrical', self.isCylindrical),
+                           ('isClosed', self.isClosed))
         absPitch = abs(config.host_float(self.pitch))
         p, q = self.p, self.q
         gamma = math.atan2((p - q) * math.sin(absPitch),
@@ -116,6 +119,10 @@ class ParabolicalMirrorParam(_ConicParamMethods, OE):
         self.q = None if q is None else float(q)
         self.isCylindrical, self.isClosed = bool(isCylindrical), \
             bool(isClosed)
+        self.createArgs = ((('q', self.q),) if p is None else
+                           (('p', self.p),)) + (
+            ('isCylindrical', self.isCylindrical),
+            ('isClosed', self.isClosed))
         absPitch = abs(config.host_float(self.pitch))
         if p is None:
             self.y0 = q * math.cos(absPitch)
@@ -178,6 +185,10 @@ class HyperbolicMirrorParam(_ConicParamMethods, OE):
         self.isCylindrical, self.isClosed = bool(isCylindrical), \
             bool(isClosed)
         self.invertNormal = 1 if useInnerSurface else -1
+        self.createArgs = (('p', self.p), ('q', self.q),
+                           ('isCylindrical', self.isCylindrical),
+                           ('isClosed', self.isClosed),
+                           ('useInnerSurface', bool(useInnerSurface)))
         absPitch = abs(config.host_float(self.pitch))
         p, q = self.p, self.q
         gamma = math.atan2((p + q) * math.sin(absPitch),

@@ -15,8 +15,9 @@ batch of ``nrays * oversample`` candidates (E, theta, psi) drawn uniformly
 in the acceptance window is evaluated once by ``build_I_map``, then exactly
 ``nrays`` rays are drawn with probability proportional to the intensity.
 The draw is an inverse CDF, as the reference's ``choice`` with ``p`` is: a
-cumulative sum of the intensities in the beam's dtype, uniforms scaled by
-its last value, and a sorted search.  Each draw can be injected
+cumulative sum of the intensities in the beam's dtype (on the card in rows,
+so that a seed gives the same rays on every run: ``cumsum_rows``), uniforms
+scaled by its last value, and a sorted search.  Each draw can be injected
 (``draws=``), so the port can be held to the reference on the same numbers.
 
 The field maps evaluate ``build_I_map`` on the mesh on the source's
@@ -56,6 +57,27 @@ DRAWS = ('E', 'theta', 'psi', 'gamma', 'choice', 'dtheta', 'smear', 'dpsi',
 #: rays per block of ``build_I_map`` above two blocks (the bending
 #: magnet's Bessel series hold (rays, 40) float64 temporaries)
 RAY_BLOCK = 1 << 20
+#: the row length of the card's reproducible cumulative sum
+SCAN_ROW = 1024
+
+
+def cumsum_rows(p):
+    """The cumulative sum of the 1D tensor *p*, with the same bits on every
+    run.  On the CPU it is torch's sequential scan.  On the card torch's 1D
+    scan adds its tiles' partial sums in the order the tiles finish, so its
+    last bits, and with them a resampled ray here and there, change from
+    run to run; here each row of :data:`SCAN_ROW` values is scanned by one
+    block, then the rows' totals the same way, and each row gets the sum of
+    the rows before it."""
+    n = p.shape[0]
+    if p.device.type == 'cpu' or n <= SCAN_ROW:
+        return torch.cumsum(p, dim=0)
+    rows = torch.cat([p, p.new_zeros((-n) % SCAN_ROW)]).reshape(-1,
+                                                                SCAN_ROW)
+    inner = torch.cumsum(rows, dim=1)
+    before = cumsum_rows(inner[:, -1])
+    before = torch.cat([before.new_zeros(1), before[:-1]])
+    return (inner + before[:, None]).reshape(-1)[:n]
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,6 +129,25 @@ def _nonzero(v):
     return config.host_float(v) > 0
 
 
+def _create_args(args):
+    """A source's ``create()`` arguments as the (name, value) pairs a layout
+    records (``beamline._element_params``): its fields hold derived values
+    in other units (the acceptance in rad, the e-beam sizes from the
+    emittances), which ``create()`` would read wrongly.  The dtype and
+    device are left out, and None values."""
+    args = dict(args)
+    args.update(args.pop('kwargs', None) or {})
+    out = []
+    for k, v in args.items():
+        if k in ('cls', 'dtype', 'device') or k.startswith('_') or \
+                v is None:
+            continue
+        if hasattr(v, 'tolist'):
+            v = v.tolist()
+        out.append((k, list(v) if isinstance(v, tuple) else v))
+    return tuple(out)
+
+
 def _scalar(v):
     """A parameter as a Python float, or the tensor itself where a gradient
     is recorded through it."""
@@ -121,6 +162,8 @@ class _SynchrotronBase(config.Replaceable):
     or the tensors that were passed in."""
 
     isMPW = False
+    #: the create() arguments a layout records (:func:`_create_args`)
+    createArgs = None
 
     def __init__(self, name='', center=(0, 0, 0), eE=6.0, eI=0.1,
                  eEspread=0.0, dx=0.0, dz=0.0, dxprime=0.0, dzprime=0.0,
@@ -148,6 +191,15 @@ class _SynchrotronBase(config.Replaceable):
     @property
     def gamma(self):
         return self.eE * 1e9 * EV2ERG / (M0 * C ** 2)
+
+    def _export_params(self):
+        """A layout's (drop, extra): the create() arguments in place of the
+        fields, which hold derived values in other units (ROADMAP C23)."""
+        if self.createArgs is None:
+            return (), {}
+        from ..beamline import _create_signature_names
+        return (tuple(_create_signature_names(type(self))),
+                dict(self.createArgs))
 
     @property
     def gamma2(self):
@@ -451,7 +503,7 @@ class _SynchrotronBase(config.Replaceable):
         # resample ~ Intensity: the inverse CDF of the reference's choice
         sumI = torch.sum(Intensity)
         p = Intensity / torch.clamp(sumI, min=1e-300)
-        p_cuml = torch.cumsum(p, dim=0)
+        p_cuml = cumsum_rows(p)
         idx = torch.searchsorted(p_cuml, p_cuml[-1] * (1 - r['choice']))
         idx = torch.clamp(idx, max=M - 1)
         rE = rE[idx]
@@ -546,18 +598,21 @@ class BendingMagnet(_SynchrotronBase):
         e-beam emittances in nm rad, sizes in um; *rho*, the orbit radius in
         m, in place of *B0*).  *dtype* and *device* are those of the beams
         ``shine`` makes."""
+        createArgs = _create_args(locals())
         gamma = eE * 1e9 * EV2ERG / (M0 * C ** 2)
         if rho is not None and not B0:
             B0 = M0 * C ** 2 * gamma / rho / E0 / 1e6
         dx, dz, dxprime, dzprime = _ebeam_sizes(
             eSigmaX, eSigmaZ, eEpsilonX, eEpsilonZ, betaX, betaZ)
-        return cls(name=name, center=center, eE=eE, eI=eI,
-                   eEspread=eEspread, dx=dx, dz=dz, dxprime=dxprime,
-                   dzprime=dzprime, eMin=eMin, eMax=eMax,
-                   xPrimeMax=xPrimeMax * 1e-3, zPrimeMax=zPrimeMax * 1e-3,
-                   distE=distE, nrays=nrays, oversample=oversample,
-                   pitch=pitch, yaw=yaw, B0=B0, dtype=dtype, device=device,
-                   **kwargs)
+        src = cls(name=name, center=center, eE=eE, eI=eI,
+                  eEspread=eEspread, dx=dx, dz=dz, dxprime=dxprime,
+                  dzprime=dzprime, eMin=eMin, eMax=eMax,
+                  xPrimeMax=xPrimeMax * 1e-3, zPrimeMax=zPrimeMax * 1e-3,
+                  distE=distE, nrays=nrays, oversample=oversample,
+                  pitch=pitch, yaw=yaw, B0=B0, dtype=dtype, device=device,
+                  **kwargs)
+        src.createArgs = createArgs
+        return src
 
     @property
     def ro(self):
@@ -631,14 +686,15 @@ class Wiggler(BendingMagnet):
         """*K* (or the peak field *B0*, T), *period* (mm), *n*; the other
         arguments are the bending magnet's, with xPrimeMax 1 mrad by
         default, reduced to K / gamma."""
+        kwargs.setdefault('xPrimeMax', 1.0)
+        createArgs = _create_args(locals())
         if B0 is not None:
             K = B0 * period / K2B
         B = K2B * K / period
-        kwargs.setdefault('xPrimeMax', 1.0)
         src = super(Wiggler, cls).create(name=name, B0=B, K=K, L0=period,
                                          n=n, **kwargs)
         xpm = min(src.xPrimeMax, (K if K > 0 else 2.0) / src.gamma)
-        return src.replace(xPrimeMax=xpm)
+        return src.replace(xPrimeMax=xpm, createArgs=createArgs)
 
     @property
     def Np(self):

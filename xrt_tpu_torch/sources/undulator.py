@@ -1,25 +1,33 @@
-"""Undulator source: the far-field radiation integral of one filament.
+"""Undulator source: the far-field, tapered and near-field radiation
+integrals of one filament.
 
-Port of the reference package's ``sources/undulator.py`` for the wave
-chain: ``Undulator.create`` (auto-K from ``targetE``, the e-beam sizes, the
-acceptance reduction), the Clenshaw-Curtis node grid padded to a multiple of
-:data:`NODE_CHUNK`, the far-field integral over one period (the periodic sum
-through the sin(pi Np w)/sin(pi w) factor), ``build_I_map`` with the energy
-spread, ``shine_wave``: the coherent field of one macro-electron at the
-samples of a prepared wave, with its spherical propagation phase, and the
-ray-mode ``shine`` (importance resampling of ``_SynchrotronBase``, ray
-origins from the Tanaka-Kitamura source sizes, unit amplitudes).
+Port of the reference package's ``sources/undulator.py``: ``Undulator.create``
+(auto-K from ``targetE``, the e-beam sizes, the acceptance reduction, a
+linear taper, a near-field distance ``R0``), the Clenshaw-Curtis node grid
+padded to a multiple of :data:`NODE_CHUNK`, the quadrature convergence
+search (``gNodes=None``: an exponential search, then bisection on the MAD
+statistic of an intensity probe), the radiation integral over one period
+(the far field: the periodic sum through the sin(pi Np w)/sin(pi w) factor)
+or over all Np periods (tapered or near field, with the near-field
+geometry and its wrapped phases), ``build_I_map`` with the energy spread,
+``shine_wave``: the coherent field of one macro-electron at the samples of
+a prepared wave, with its spherical propagation phase, and the ray-mode
+``shine`` (importance resampling of ``_SynchrotronBase``, ray origins from
+the Tanaka-Kitamura source sizes, unit amplitudes).
 
-The integral is a loop over chunks of :data:`NODE_CHUNK` nodes with per-ray
-complex accumulators, so the temporaries stay O(rays x chunk).  It is plain
-PyTorch: the reference evaluates it in its array library, not in a kernel
-of its own.  Above ``2 * RAY_BLOCK`` rays ``shine`` and ``shine_wave``
-walk the rays in blocks of ``RAY_BLOCK``.
+The integral walks a list of (period, node) entries in steps of
+:data:`NODE_CHUNK` nodes with per-ray complex accumulators, so the
+temporaries stay O(rays x chunk).  The list is made once a call, as the
+reference tiles it: Np copies of the node grid with each period's offset
+(one copy in the far field), and the sines and cosines of the nodes'
+trajectory phases are taken once over the whole list, so a step derives
+no per-node term again.  It is plain PyTorch: the reference evaluates it
+in its array library, not in a kernel of its own.  Above ``2 * RAY_BLOCK``
+rays ``shine`` and ``shine_wave`` walk the rays in blocks of
+``RAY_BLOCK``.
 
 ``power_vs_K``, ``tuning_curves`` and ``power_vs_K_through_aperture`` are
-host products of ``intensities_on_mesh`` (``_SynchrotronBase``).  The
-tapered and near-field integrals and the quadrature convergence search
-(``gNodes=None``) come with ROADMAP A8 and raise ``NotImplementedError``.
+host products of ``intensities_on_mesh`` (``_SynchrotronBase``).
 """
 from __future__ import annotations
 
@@ -34,18 +42,12 @@ from ..ops.dd import sqrt_rn
 from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, K2B, M0,
                           PI, PI2, SIE0, SQ2, SQPI)
 from ..transforms import virgin_local_to_global
-from .synchrotron import _SynchrotronBase, _ebeam_sizes
+from .synchrotron import _SynchrotronBase, _create_args, _ebeam_sizes
 
 #: quadrature nodes per step of the integral
 NODE_CHUNK = 64
 #: rays per block of ``shine_wave`` above 2 * RAY_BLOCK samples
 RAY_BLOCK = 131072
-
-_A8 = 'ROADMAP A8'
-_TAPER_TODO = f'the tapered undulator integral is not ported yet: {_A8}'
-_NEAR_TODO = f'the near-field undulator integral (R0) is not ported yet: {_A8}'
-_CONVERGE_TODO = ('the quadrature convergence search of the undulator '
-                  f'(gNodes=None) is not ported yet: {_A8}; pass gNodes')
 
 #: 1e7 / CHBAR as a double-float constant (k [1/mm] = E [eV] * KC)
 _KC = 1e7 / CHBAR
@@ -95,17 +97,22 @@ def _normals(generator, n):
 
 
 class Undulator(_SynchrotronBase):
-    """Planar or elliptic undulator (period *L0* mm, *n* periods).  The
-    node grid ``tg``/``ag`` is float64 numpy, cast to a ray tensor's dtype
-    and device where the integral runs."""
+    """Planar or elliptic undulator (period *L0* mm, *n* periods), with a
+    linear taper (*taper_val*, dB/B per unit length) or a near-field
+    observation distance *R0* (mm).  The node grid ``tg``/``ag`` is
+    float64 numpy, cast to a ray tensor's dtype and device where the
+    integral runs."""
 
     def __init__(self, Kx=0.0, Ky=4.4, L0=33.0, n=50, phase=0.0,
-                 quadm=0, gIntervals=2, tg=None, ag=None, **kwargs):
+                 taper_val=None, R0=None, quadm=0, gIntervals=2, tg=None,
+                 ag=None, **kwargs):
         super().__init__(**kwargs)
         self.Kx, self.Ky = config.number(Kx), config.number(Ky)
         self.L0 = float(L0)
         self.n = int(n)
         self.phase = float(phase)
+        self.taper_val = taper_val
+        self.R0 = R0
         self.quadm = int(quadm)
         self.gIntervals = int(gIntervals)
         self.tg, self.ag = tg, ag
@@ -122,14 +129,12 @@ class Undulator(_SynchrotronBase):
                targetHarmonic=None, dtype=None, device=None):
         """The reference's constructor arguments (angles of the acceptance
         in mrad, e-beam emittances in nm rad, sizes in um); all host
-        float64.  *dtype* and *device* are those of the beams ``shine``
-        makes."""
-        if taper is not None:
-            raise NotImplementedError(_TAPER_TODO)
-        if R0 is not None:
-            raise NotImplementedError(_NEAR_TODO)
-        if not gNodes:
-            raise NotImplementedError(_CONVERGE_TODO)
+        float64.  *taper*: (dgap, gap) in mm, or dB/B per unit length.
+        *R0*: the near-field distance, mm; it forces both acceptance
+        reductions.  *gNodes* None: the node count from
+        :meth:`with_converged_grid` at the precision *gp*.  *dtype* and
+        *device* are those of the beams ``shine`` makes."""
+        createArgs = _create_args(locals())
         gamma = eE * 1e9 * EV2ERG / (M0 * C ** 2)
         gamma2 = gamma ** 2
         if targetE is not None:
@@ -143,10 +148,17 @@ class Undulator(_SynchrotronBase):
             Ky = K
         if Ky is None:
             Ky = 4.4
+        taper_val = None
+        if taper is not None:
+            # (dgap, gap) in mm -> dB/B per unit length
+            taper_val = taper[0] / n / period / taper[1] \
+                if isinstance(taper, (tuple, list)) else float(taper)
         dx, dz, dxprime, dzprime = _ebeam_sizes(
             eSigmaX, eSigmaZ, eEpsilonX, eEpsilonZ, betaX, betaZ)
         xPrimeMax_ = xPrimeMax * 1e-3
         zPrimeMax_ = zPrimeMax * 1e-3
+        if R0 is not None:
+            xPrimeMaxAutoReduce = zPrimeMaxAutoReduce = True
         if xPrimeMaxAutoReduce:
             xPrimeMax_ = min(xPrimeMax_, (Ky if Ky > 0 else 2.0) / gamma)
         if zPrimeMaxAutoReduce:
@@ -156,9 +168,14 @@ class Undulator(_SynchrotronBase):
                   eMax=eMax, xPrimeMax=xPrimeMax_, zPrimeMax=zPrimeMax_,
                   distE=distE, nrays=nrays, oversample=oversample,
                   pitch=pitch, yaw=yaw, Kx=Kx, Ky=Ky, L0=period, n=n,
-                  phase=math.radians(phaseDeg), quadm=int(gNodes),
+                  phase=math.radians(phaseDeg), taper_val=taper_val,
+                  R0=None if R0 is None else float(R0),
+                  quadm=int(gNodes) if gNodes else 0,
                   gIntervals=int(gIntervals) if gIntervals else 2,
                   dtype=dtype, device=device)
+        src.createArgs = createArgs
+        if not gNodes:
+            return src.with_converged_grid(gp)
         return src.with_grid(src.quadm, src.gIntervals)
 
     @property
@@ -190,7 +207,59 @@ class Undulator(_SynchrotronBase):
                             tg=tg, ag=ag)
 
     def with_converged_grid(self, gp=1e-6):
-        raise NotImplementedError(_CONVERGE_TODO)
+        """The grid of the converged node count: an exponential search over
+        2^m nodes, then bisection to within 20 nodes, each step judged by
+        the median relative change and the relative MAD of the intensity
+        probe over six grids around it (``stat_step`` 5), either below
+        *gp*.  The probes run in float64 on the source's device whatever
+        its dtype (the statistic resolves relative changes of *gp*), one
+        host read each."""
+        def mad_at(quadm):
+            stat_step = 5
+            vals, dIs = [], []
+            Iold = None
+            for k in range(quadm - stat_step // 2,
+                           quadm - stat_step // 2 + stat_step + 1):
+                Inew = self.with_grid(max(k, 3),
+                                      self.gIntervals)._intensity_probe()
+                if Iold is not None:
+                    vals.append(Inew)
+                    dIs.append(abs(Inew - Iold) / max(abs(Inew), 1e-300))
+                Iold = Inew
+            vals = np.array(vals)
+            med = np.median(vals)
+            mad = np.median(np.abs(vals - med)) / max(abs(med), 1e-300)
+            return mad, float(np.median(dIs))
+
+        m = 3
+        while m < 20:
+            m += 1
+            quadm = 2 ** m
+            mad, dimad = mad_at(quadm)
+            if dimad < gp or mad < gp or quadm > 400000:
+                break
+        lo, hi = 2 ** (m - 1), 2 ** m
+        while hi - lo > 20:
+            mid = (lo + hi) // 2
+            mad, dimad = mad_at(mid)
+            if dimad < gp or mad < gp:
+                hi = mid
+            else:
+                lo = mid
+        return self.with_grid(hi, self.gIntervals)
+
+    def _intensity_probe(self):
+        """|I| at the acceptance corner (eMax, Theta_max, Psi_max), float64
+        on the source's device, read to the host."""
+        dev = config.resolve_device(self.device)
+
+        def one(v):
+            return torch.full((1,), float(v), dtype=torch.float64,
+                              device=dev)
+        I = self.build_I_map(torch.Generator().manual_seed(0),
+                             one(self.eMax), one(self.Theta_max),
+                             one(self.Psi_max))[0]
+        return abs(float(I[0]))
 
     def power_vs_K(self, Ks=None):
         """Total radiated power in W, P = 0.633 E^2 [GeV] B^2 [T] L [m]
@@ -241,12 +310,39 @@ class Undulator(_SynchrotronBase):
         return np.array(powers)
 
     # ------------------------------------------------------------------
+    def _node_list(self, dt, dev):
+        """The (period, node) list of the integral on *dev*: Np copies of
+        the node grid, each shifted by its period's offset, when tapered or
+        in the near field, one copy otherwise (the reference's tiling).
+        Returns the nodes' positions zloc, weights and the sines and
+        cosines of their trajectory phases, each over the whole list."""
+        nmx = self.Np if (self.R0 is not None or
+                          self.taper_val is not None) else 1
+        nn = len(self.tg)
+        offs = np.repeat(-(nmx - 1) * PI + PI2 * np.arange(nmx), nn) \
+            if nmx > 1 else np.zeros(nn)
+        tg = torch.as_tensor(np.tile(self.tg, nmx), dtype=dt, device=dev)
+        ag = torch.as_tensor(np.tile(self.ag, nmx), dtype=dt, device=dev)
+        zloc = tg + torch.as_tensor(offs, dtype=dt, device=dev)
+        sinx, cosx = torch.sin(tg), torch.cos(tg)
+        sinxph = torch.sin(tg + self.phase)
+        cosxph = torch.cos(tg + self.phase)
+        return dict(zloc=zloc, ag=ag, sinx=sinx, cosx=cosx, sinxph=sinxph,
+                    cosxph=cosxph, sin2x=2 * sinx * cosx,
+                    sin2xph=2 * sinxph * cosxph)
+
     def _integrate(self, ww1, w, wu, gamma, ddphi, ddpsi):
-        """The far-field radiation integral over one period, per ray:
-        (Is, Ip) complex.  Never forms 1 - beta: the ~1e-8 differences are
-        regrouped into products of small terms (float32-safe)."""
+        """The radiation integral per ray, (Is, Ip) complex: over one
+        period in the far field, over all Np periods when tapered or in
+        the near field.  Never forms 1 - beta: the ~1e-8 differences are
+        regrouped into products of small terms (float32-safe).  The near
+        field takes the phase by angle addition of three wrapped pieces:
+        the per-ray carrier wwu R0z, the node's wwu zloc (1 - betam) and
+        the transverse path difference."""
         dt, dev = ww1.dtype, ww1.device
         Kx, Ky = self.Kx, self.Ky
+        nearField = self.R0 is not None
+        taper = self.taper_val is not None
         revgamma = 1.0 / gamma
         revgamma2 = revgamma ** 2
         wwuS = w / wu
@@ -254,44 +350,100 @@ class Undulator(_SynchrotronBase):
         rg2 = revgamma2[:, None]
         wwu = wwuS[:, None]
         ww1_ = ww1[:, None]
+        wu_ = wu[:, None]
         dx_ = ddphi[:, None]
         dy_ = ddpsi[:, None]
         dz_ = (1. - 0.5 * (ddphi ** 2 + ddpsi ** 2))[:, None]
         # dirz = 1 - A1m exactly: 1 - dir.beta and dirz - betaz below come
         # from small well-scaled terms, not from differences of ~1 numbers
         A1m = 0.5 * (dx_ ** 2 + dy_ ** 2)
-        tg_all = torch.as_tensor(self.tg, dtype=dt, device=dev)
-        ag_all = torch.as_tensor(self.ag, dtype=dt, device=dev)
+        if nearField:
+            # 1 - betam kept on its own: ~1e-8, betam rounds to 1 in
+            # float32
+            omb = (1. + 0.5 * Kx ** 2 + 0.5 * Ky ** 2) * 0.5 * revgamma2
+            betam_ = (1. - omb)[:, None]
+            omb_ = omb[:, None]
+            R0n = self.R0 * PI2 / self.L0
+            R0x = (torch.tan(ddphi) * R0n)[:, None]
+            R0y = (torch.tan(ddpsi) * R0n)[:, None]
+            R0z = torch.ones_like(ddpsi) * R0n
+            sz = torch.sin(wwuS * R0z)[:, None]
+            cz = torch.cos(wwuS * R0z)[:, None]
+            R0z = R0z[:, None]
+        if taper:
+            alphaS = self.taper_val / E2WC
+        nodes = self._node_list(dt, dev)
         Bs = Bp = None
-        for j in range(0, tg_all.shape[0], NODE_CHUNK):
-            tg = tg_all[j:j + NODE_CHUNK]
-            ag = ag_all[j:j + NODE_CHUNK]
-            zloc = tg[None, :]
-            sinx = torch.sin(tg)[None, :]
-            cosx = torch.cos(tg)[None, :]
-            sinxph = torch.sin(tg + self.phase)[None, :]
-            cosxph = torch.cos(tg + self.phase)[None, :]
-            sin2x = 2 * sinx * cosx
-            sin2xph = 2 * sinxph * cosxph
-            ucos = ww1_ * zloc + wwu * rg * (
-                -Ky * dx_ * sinx + Kx * dy_ * sinxph +
-                0.125 * rg * (Ky ** 2 * sin2x + Kx ** 2 * sin2xph))
-            betax = Ky * rg * cosx
+        for j in range(0, nodes['zloc'].shape[0], NODE_CHUNK):
+            nd = {k: v[None, j:j + NODE_CHUNK] for k, v in nodes.items()}
+            zloc, sinx, cosx = nd['zloc'], nd['sinx'], nd['cosx']
+            sinxph, cosxph = nd['sinxph'], nd['cosxph']
+            sin2x, sin2xph = nd['sin2x'], nd['sin2xph']
+            if taper:
+                taperC = 1. - alphaS * zloc / wu_
+                ucos = ww1_ * zloc + wwu * rg * (
+                    -Ky * dx_ * (sinx + alphaS / wu_ *
+                                 (1 - cosx - zloc * sinx)) +
+                    Kx * dy_ * sinx + 0.125 * rg * (
+                        Kx ** 2 * sin2xph + Ky ** 2 *
+                        (sin2x - 2 * alphaS / wu_ *
+                         (zloc ** 2 + cosx ** 2 + zloc * sin2x))))
+                eucos = torch.complex(torch.cos(ucos), torch.sin(ucos))
+                betax = taperC * Ky * rg * cosx
+            elif nearField:
+                zterm = 0.5 * (Ky ** 2 * sin2x + Kx ** 2 * sin2xph) * rg
+                drx = R0x - Ky * sinx * rg
+                dry = R0y - Kx * sinxph * rg
+                drz = R0z - (betam_ * zloc - 0.25 * zterm * rg)
+                dist = sqrt_rn(drx ** 2 + dry ** 2 + drz ** 2)
+                drs = 0.5 * (drx ** 2 + dry ** 2) / drz
+                zph = wwu * zloc * omb_
+                sinzloc, coszloc = torch.sin(zph), torch.cos(zph)
+                dph = wwu * (drs + 0.25 * zterm * rg)
+                sindrs, cosdrs = torch.sin(dph), torch.cos(dph)
+                eucos = torch.complex(
+                    -sz * sinzloc * cosdrs - sz * coszloc * sindrs -
+                    cz * sinzloc * sindrs + cz * coszloc * cosdrs,
+                    -sz * sinzloc * sindrs + sz * coszloc * cosdrs +
+                    cz * sinzloc * cosdrs + cz * coszloc * sindrs)
+                betax = Ky * rg * cosx
+            else:
+                ucos = ww1_ * zloc + wwu * rg * (
+                    -Ky * dx_ * sinx + Kx * dy_ * sinxph +
+                    0.125 * rg * (Ky ** 2 * sin2x + Kx ** 2 * sin2xph))
+                eucos = torch.complex(torch.cos(ucos), torch.sin(ucos))
+                betax = Ky * rg * cosx
             betay = -Kx * rg * cosxph
             B1m = 0.5 * (rg2 + betax * betax + betay * betay)
-            betaPx = -Ky * sinx
-            betaPz = 0.5 * rg * (Ky ** 2 * sin2x + Kx ** 2 * sin2xph)
+            if taper:
+                betaPx = -Ky * (alphaS * cosx + taperC * sinx)
+                betaPz = 0.5 * rg * (
+                    Ky ** 2 * taperC * (alphaS * cosx ** 2 +
+                                        taperC * sin2x) +
+                    Kx ** 2 * sin2xph)
+            else:
+                betaPx = -Ky * sinx
+                betaPz = 0.5 * rg * (Ky ** 2 * sin2x + Kx ** 2 * sin2xph)
             betaPy = Kx * sinxph
-            one_minus_nb = (0.5 * (rg2 + (dx_ - betax) ** 2 +
-                                   (dy_ - betay) ** 2) - A1m * B1m)
-            bnz = B1m - A1m
+            if nearField:
+                # the node's own direction dr / dist; 1 - dirz =
+                # (drx^2 + dry^2) / (dist (dist + drz))
+                t2 = (drx ** 2 + dry ** 2) / (dist * (dist + drz))
+                one_minus_nb = (B1m + (1. - B1m) * t2 -
+                                (drx * betax + dry * betay) / dist)
+                bnz = B1m - t2
+                ndx, ndy, ndz = drx / dist, dry / dist, drz / dist
+            else:
+                one_minus_nb = (0.5 * (rg2 + (dx_ - betax) ** 2 +
+                                       (dy_ - betay) ** 2) - A1m * B1m)
+                bnz = B1m - A1m
+                ndx, ndy, ndz = dx_, dy_, dz_
             rkrel = 1. / one_minus_nb
-            amp = ag[None, :] * rkrel ** 2
-            eucos = torch.complex(torch.cos(ucos), torch.sin(ucos)) * amp
-            bnx = dx_ - betax
-            bny = dy_ - betay
-            dirDotBetaP = dx_ * betaPx + dy_ * betaPy + dz_ * betaPz
-            dirDotDmB = dx_ * bnx + dy_ * bny + dz_ * bnz
+            eucos = eucos * (nd['ag'] * rkrel ** 2)
+            bnx = ndx - betax
+            bny = ndy - betay
+            dirDotBetaP = ndx * betaPx + ndy * betaPy + ndz * betaPz
+            dirDotDmB = ndx * bnx + ndy * bny + ndz * bnz
             s = torch.sum(eucos * (bnx * dirDotBetaP - betaPx * dirDotDmB),
                           dim=1)
             p = torch.sum(eucos * (bny * dirDotBetaP - betaPy * dirDotDmB),
@@ -331,11 +483,16 @@ class Undulator(_SynchrotronBase):
         ww1 = w64 * ((1. + 0.5 * Kx ** 2 + 0.5 * Ky ** 2) + gamma2 * (
             ddtheta.to(torch.float64) ** 2 + ddpsi.to(torch.float64) ** 2)
         ) / (2. * gamma2 * wu)
-        sinw = torch.sin(PI * ww1)
-        tiny = torch.finfo(dt).tiny
-        sinw = torch.where(torch.abs(sinw) < tiny,
-                           torch.full_like(sinw, tiny), sinw)
-        ab = (1. / PI2 / wu * torch.sin(PI * self.Np * ww1) / sinw).to(dt)
+        if self.taper_val is not None or self.R0 is not None:
+            # the integral runs over all periods: no periodic factor
+            ab = (1. / PI2 / wu).to(dt)
+        else:
+            sinw = torch.sin(PI * ww1)
+            tiny = torch.finfo(dt).tiny
+            sinw = torch.where(torch.abs(sinw) < tiny,
+                               torch.full_like(sinw, tiny), sinw)
+            ab = (1. / PI2 / wu * torch.sin(PI * self.Np * ww1) /
+                  sinw).to(dt)
         wu = wu.to(dt)
 
         Is, Ip = self._integrate(ww1.to(dt), w, wu, gamma, ddtheta, ddpsi)
