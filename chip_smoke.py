@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-three phases and exits
+process per source, in parallel), then runs thirty-five phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -332,6 +332,37 @@ non-zero if any fails:
     ``hist_plot`` against its plain version); ``DCMOnTripodWithOneXStage``
     at nominal jacks against the DCM in float64 (1e-9).
 
+34. the multi-card layer (``xrt_tpu_torch.parallel``) on the one card,
+    each path beside its unsharded run in the same process
+    (``multicard_paths``): phase 3's chain split over the ranks
+    (``WaveChain.build(mesh=)``) and with the ring, phase 4's toroid ->
+    screen hop on B2 ('fast', 'exact'), phase 6's trace through
+    ``run_ray_tracing(mesh=)`` (1e7 rays a rank x 4 passes) against the
+    ordered sum of the ranks' unsharded passes with the same generators,
+    phase 12's pitch gradient data-parallel (``sharded_trace``; B4 and
+    B4-bwd) and phase 9's chain gradient through the sharded chain (B1,
+    B3); the times, launches and the bytes the collectives moved.  (a) A
+    world of 1 over NCCL (a file store in a temporary directory): every
+    path bit-identical.  (b) A world of 2 processes on card 0 over gloo
+    (NCCL refuses two ranks on one device; every collective stages its
+    buffer through the host, the kernels run on the card): the chain and
+    the hop to MC_CHAIN_LIMIT of the peak, the gradient to MC_GRAD_LIMIT,
+    the trace and the data-parallel gradient bit for bit, both ranks
+    alike.  On one card the times are the layer's cost, not scaling;
+35. the command line on the card in subprocesses: ``info`` and ``trace
+    --repeats 3`` on phase 33's JSON layout (the printed flux and good
+    rays equal the API's with the same seed), ``calc rocking --R 2000``
+    (Takagi-Taupin), ``codegen`` and the script it writes, ``qook
+    BioXAS_Main.xml`` at 1e6 rays and ``serve`` answering list / get /
+    set / acquire / shutdown from a ``BeamLineClient``; the nine reference
+    xrtQook projects (``tests/data/qook``, which must be in the tree)
+    loaded and traced in this process at 1e6 rays (pass time, good rays
+    at least ``tests/test_qook.py``'s share), their plots through
+    ``run_ray_tracing`` (``hist_plot``); and the profiler's report of a
+    verbose ``run_ray_tracing`` of phase 6's trace, its stage times within
+    10% of CUDA events around the run.  Nothing is rendered: the card's
+    machine may lack matplotlib.
+
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
 pass (phase 16's); B1's at configuration 5's two hop shapes, 2e5 x 1e5
@@ -356,6 +387,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -556,7 +588,7 @@ def beamline(dtype, device):
     return src, slit, tor, scr
 
 
-def build_chain(nrays, npix, dtype, seed=1):
+def build_chain(nrays, npix, dtype, seed=1, **kw):
     import numpy as np
     import torch
     from xrt_tpu_torch.wavechain import WaveChain
@@ -566,7 +598,7 @@ def build_chain(nrays, npix, dtype, seed=1):
              .through_aperture(slit).through_oe(tor)
              .to_screen(scr, grid, grid))
     run = chain.build(torch.Generator().manual_seed(seed), dtype=dtype,
-                      device='cuda')
+                      device='cuda', **kw)
     return run, (src, slit, tor, scr)
 
 
@@ -5549,6 +5581,7 @@ def phase_layouts(timing):
     for fmt in ('json', 'xml'):
         t0 = time.perf_counter()
         text = getattr(bl, 'export_to_' + fmt)()
+        timing[f'layout_{fmt}'] = text
         back = getattr(BeamLine, 'load_from_' + fmt)(text, dtype=f32,
                                                      device='cuda')
         load_s = time.perf_counter() - t0
@@ -5622,6 +5655,649 @@ def phase_layouts(timing):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: the multi-card layer and the command line
+# ---------------------------------------------------------------------------
+
+#: the chain's, the B2 hop's and the sharded gradient's limits in a world
+#: of 2 (per-tile recentring changes float32 rounding only)
+MC_CHAIN_LIMIT, MC_GRAD_LIMIT = 2e-5, 1e-5
+MC_TRACE_SEED, MC_DP_SEED = 41, 43
+MC_TIMEOUT = 400
+#: phase 3's chain: samples a wave, screen pixels a side
+MC_NRAYS, MC_NPIX = 200_000, 256
+
+
+def _mc_plot_totals(plot):
+    import numpy as np
+    return {k: np.asarray(getattr(plot, k)) for k in
+            ('total1D_x', 'total1D_y', 'total1D_c', 'total2D',
+             'total2D_RGB', 'total1D_x_RGB', 'total1D_y_RGB',
+             'total1D_c_RGB')} | {
+        'intensity': np.asarray(plot.intensity),
+        'nRaysAll': np.asarray(plot.nRaysAll),
+        'nRaysGood': np.asarray(plot.nRaysGood)}
+
+
+def _mc_counts(mesh):
+    mesh.bytes_moved = mesh.host_bytes = mesh.collectives = 0
+
+
+def _mc_bytes(mesh):
+    return dict(bytes=mesh.bytes_moved, host_bytes=mesh.host_bytes,
+                collectives=mesh.collectives)
+
+
+def _mc_timed(fn, reps=2):
+    """(median seconds of *reps* calls after a warm-up, last result)."""
+    import torch
+    out = fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts), out
+
+
+def multicard_paths(mesh):
+    """This slice's paths on *mesh*, each against its unsharded run on the
+    same card: phase 3's chain split over the ranks (destinations, and
+    with the ring), phase 4's toroid -> screen hop on B2, phase 6's trace
+    through ``run_ray_tracing(mesh=)``, the data-parallel pitch gradient of
+    phase 12 (``sharded_trace``) and phase 9's chain gradient through the
+    sharded chain.  Returns the numbers (times in s, errors, equality
+    flags, launches, bytes moved)."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th, parallel as par, runner
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    from xrt_tpu_torch.wavechain import WaveChain
+    W_, f32 = mesh.size, torch.float32
+    out = dict(rank=mesh.rank, world=W_, backend=mesh.backend,
+               host_staged=mesh.host_staged)
+
+    def intensity(run):
+        w, logs = run(torch.Generator().manual_seed(2))
+        return WaveChain.absolute_intensity(w, logs)
+
+    # the chain: unsharded, destinations split, and the ring
+    run, els = build_chain(MC_NRAYS, MC_NPIX, f32)
+    runs = {'single': run,
+            'mesh': build_chain(MC_NRAYS, MC_NPIX, f32, mesh=mesh)[0],
+            'ring': build_chain(MC_NRAYS, MC_NPIX, f32, mesh=mesh,
+                                ring=True)[0]}
+    I = {}
+    for how, r in runs.items():
+        out[f'chain_{how}_s'], I[how] = _mc_timed(lambda: intensity(r))
+        tk.LAUNCHES.clear()
+        _mc_counts(mesh)
+        intensity(r)
+        torch.cuda.synchronize()
+        out[f'chain_{how}_launches'] = dict(tk.LAUNCHES)
+        out[f'chain_{how}_bytes'] = _mc_bytes(mesh)
+    for how in ('mesh', 'ring'):
+        out[f'chain_{how}_err'] = float(np.max(np.abs(
+            I[how] - I['single'])) / np.max(I['single']))
+        out[f'chain_{how}_equal'] = bool(np.array_equal(I[how],
+                                                        I['single']))
+    out['chain_peak'] = float(I['single'].max())
+
+    # the toroid -> screen hop on B2, 'fast' and 'exact'
+    stages, _ = hop_inputs(run, els)
+    oeLocal, wave = stages[1]
+    for pm in ('fast', 'exact'):
+        hop = {}
+        for how, m in (('single', None), ('mesh', mesh)):
+            tk.LAUNCHES.clear()
+            o = W.diffract(oeLocal, wave, phase_mode=pm, monochromatic=True,
+                           accumulate='mxu-fast', narrowband=False, mesh=m)
+            hop[how] = (o.Jss + o.Jpp).double().cpu().numpy()
+            out[f'b2_{pm}_{how}_launches'] = dict(tk.LAUNCHES)
+        out[f'b2_{pm}_err'] = float(np.max(np.abs(
+            hop['mesh'] - hop['single'])) / np.max(hop['single']))
+        out[f'b2_{pm}_equal'] = bool(np.array_equal(hop['mesh'],
+                                                    hop['single']))
+
+    # the trace: run_ray_tracing(mesh=) against the ordered sum of the
+    # ranks' unsharded passes with the same generators
+    src, tor, scr = trace_beamline(TRACE_NRAYS, f32)
+
+    def run_process(bl, g):
+        glo, _ = tor.reflect(src.shine(g))
+        return {'screen': scr.expose(glo)}
+
+    lim = trace_plot(128)
+    runner.calibrate_limits([lim], run_process(
+        None, torch.Generator('cuda').manual_seed(40)))
+
+    def plot():
+        p = trace_plot(128)
+        for a, b in zip((p.xaxis, p.yaxis, p.caxis),
+                        (lim.xaxis, lim.yaxis, lim.caxis)):
+            a.limits = list(b.limits)
+        return p
+    pm_ = plot()
+    runner.run_ray_tracing(pm_, repeats=1, run_process=run_process,
+                           rng=torch.Generator('cuda').manual_seed(1),
+                           mesh=mesh)       # warm-up
+    pm_ = plot()
+    th.LAUNCHES.clear()
+    _mc_counts(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run_ray_tracing(
+        pm_, repeats=TRACE_REPEATS, run_process=run_process,
+        rng=torch.Generator('cuda').manual_seed(MC_TRACE_SEED), mesh=mesh)
+    torch.cuda.synchronize()
+    out['trace_pass_mesh_s'] = (time.perf_counter() - t0) / TRACE_REPEATS
+    out['trace_launches'] = dict(th.LAUNCHES)
+    out['trace_bytes'] = _mc_bytes(mesh)
+    pr = plot()
+    rng = torch.Generator('cuda').manual_seed(MC_TRACE_SEED)
+    for _ in range(TRACE_REPEATS):
+        hs = [runner.histogram_plot(pr, run_process(None, g))
+              for g in par.split_generator(rng, W_)]
+        total = hs[0]
+        for h in hs[1:]:
+            total = {k: (total[k] + h[k]) if k != 'counters' else
+                     {c: total[k][c] + h[k][c] for c in total[k]}
+                     for k in total}
+        runner._accumulate(pr, total)
+    a, b = _mc_plot_totals(pm_), _mc_plot_totals(pr)
+    out['trace_equal'] = all(np.array_equal(a[k], b[k]) for k in a)
+    out['trace_flux'] = float(pm_.intensity)
+    out['trace_nRaysAll'] = int(pm_.nRaysAll)
+    ps = plot()
+    out['trace_pass_single_s'] = _mc_timed(lambda: runner.run_ray_tracing(
+        ps, repeats=1, run_process=run_process,
+        rng=torch.Generator('cuda').manual_seed(3)), reps=3)[0]
+
+    # the data-parallel pitch gradient (sharded_trace): B4 and B4-bwd
+    def dp_step():
+        pitch = torch.tensor(TRACE_PITCH, device='cuda', requires_grad=True)
+
+        def reduce_fn(beam, m):
+            return m.all_reduce(trace_flux(src, tor, scr, beam,
+                                           m.replicate(pitch)))
+        loss = par.sharded_trace(
+            lambda bl, g: src.shine(g), None, mesh,
+            torch.Generator('cuda').manual_seed(MC_DP_SEED), reduce_fn)
+        loss.backward()
+        return float(loss.detach()), float(pitch.grad)
+    out['dp_mesh_s'], _ = _mc_timed(dp_step, reps=1)
+    th.LAUNCHES.clear()
+    _mc_counts(mesh)
+    out['dp_loss'], out['dp_grad'] = dp_step()
+    torch.cuda.synchronize()
+    out['dp_launches'] = dict(th.LAUNCHES)
+    out['dp_bytes'] = _mc_bytes(mesh)
+    losses, grads = [], []
+    t0 = time.perf_counter()
+    for g in par.split_generator(
+            torch.Generator('cuda').manual_seed(MC_DP_SEED), W_):
+        pitch = torch.tensor(TRACE_PITCH, device='cuda', requires_grad=True)
+        flux = trace_flux(src, tor, scr, src.shine(g), pitch)
+        gr, = torch.autograd.grad(flux, [pitch])
+        losses.append(flux.detach())
+        grads.append(gr)
+    torch.cuda.synchronize()
+    out['dp_single_s'] = (time.perf_counter() - t0) / W_
+    lsum, gsum = losses[0], grads[0]
+    for lo, gr in zip(losses[1:], grads[1:]):
+        lsum, gsum = lsum + lo, gsum + gr
+    out['dp_equal'] = float(lsum) == out['dp_loss'] and \
+        float(gsum) == out['dp_grad']
+    del src, tor, scr
+
+    # phase 9's chain gradient through the sharded chain: B1 and B3 per
+    # tile, the sources' cotangents summed over ranks
+    ctx = grad_context(run, els)
+    grads = {}
+    for how in ('single', 'mesh'):
+        r = runs[how]
+
+        def step(r=r):
+            leaves = grad_leaves(f32)
+            val = chain_loss(r, els, ctx, *leaves)
+            gs = torch.autograd.grad(val, leaves)
+            return [float(val.detach())] + [float(g) for g in gs]
+        out[f'grad_{how}_s'], grads[how] = _mc_timed(step, reps=1)
+        tk.LAUNCHES.clear()
+        _mc_counts(mesh)
+        step()
+        torch.cuda.synchronize()
+        out[f'grad_{how}_launches'] = dict(tk.LAUNCHES)
+        out[f'grad_{how}_bytes'] = _mc_bytes(mesh)
+    out['grad_single'], out['grad_mesh'] = grads['single'], grads['mesh']
+    out['grad_err'] = max(abs(a - b) / abs(b) for a, b in
+                          zip(grads['mesh'], grads['single']))
+    out['grad_equal'] = grads['mesh'] == grads['single']
+    return out
+
+
+def print_multicard(tag, res):
+    """The phase-34 printout of one rank's numbers."""
+    def b(d):
+        return (f'{d["bytes"]} B in {d["collectives"]} collectives'
+                + (f', {d["host_bytes"]} B staged through the host'
+                   if d['host_bytes'] else ''))
+    print(f'phase {tag} rank {res["rank"]} of {res["world"]} '
+          f'({res["backend"]}'
+          + (', gloo with CUDA tensors: every collective stages its buffer '
+             'through the host, the kernels run on the card'
+             if res['host_staged'] else '') + ')', flush=True)
+    print(f'phase {tag} chain {MC_NRAYS} samples: unsharded '
+          f'{res["chain_single_s"] * 1e3:.1f} ms, destinations split '
+          f'{res["chain_mesh_s"] * 1e3:.1f} ms ({b(res["chain_mesh_bytes"])}'
+          f'), ring {res["chain_ring_s"] * 1e3:.1f} ms '
+          f'({b(res["chain_ring_bytes"])}); against the unsharded '
+          f'{res["chain_mesh_err"]:.3e} / {res["chain_ring_err"]:.3e} of the '
+          f'peak (bit-identical {res["chain_mesh_equal"]} / '
+          f'{res["chain_ring_equal"]}); launches '
+          f'{res["chain_mesh_launches"]} / {res["chain_ring_launches"]}',
+          flush=True)
+    print(f'phase {tag} B2 toroid -> screen hop split: fast '
+          f'{res["b2_fast_err"]:.3e}, exact {res["b2_exact_err"]:.3e} of '
+          f'the peak; launches {res["b2_fast_mesh_launches"]}, '
+          f'{res["b2_exact_mesh_launches"]}', flush=True)
+    print(f'phase {tag} trace: {TRACE_NRAYS} rays a rank a pass, '
+          f'run_ray_tracing(mesh=) pass {res["trace_pass_mesh_s"] * 1e3:.1f}'
+          f' ms against an unsharded pass '
+          f'{res["trace_pass_single_s"] * 1e3:.1f} ms '
+          f'({b(res["trace_bytes"])}); the ordered sum of the ranks\' '
+          f'unsharded passes bit for bit {res["trace_equal"]}; flux '
+          f'{res["trace_flux"]:.6g}, nRaysAll {res["trace_nRaysAll"]}; '
+          f'launches {res["trace_launches"]}', flush=True)
+    print(f'phase {tag} data-parallel pitch gradient (sharded_trace): '
+          f'loss {res["dp_loss"]:.6e}, gradient {res["dp_grad"]:.6e}, '
+          f'the ordered sums bit for bit {res["dp_equal"]}; step '
+          f'{res["dp_mesh_s"] * 1e3:.1f} ms against '
+          f'{res["dp_single_s"] * 1e3:.1f} ms a rank unsharded '
+          f'({b(res["dp_bytes"])}); launches {res["dp_launches"]}',
+          flush=True)
+    print(f'phase {tag} chain gradient through the sharded chain: '
+          f'{res["grad_mesh"]} against {res["grad_single"]} (max rel '
+          f'{res["grad_err"]:.3e}); step {res["grad_mesh_s"] * 1e3:.1f} ms '
+          f'against {res["grad_single_s"] * 1e3:.1f} ms '
+          f'({b(res["grad_mesh_bytes"])}); launches '
+          f'{res["grad_mesh_launches"]}', flush=True)
+
+
+def check_multicard(tag, res):
+    """One rank's numbers of :func:`multicard_paths` held to the limits of
+    a world of several ranks: every kernel of the paths launched, the
+    chain, the B2 hop and the chain gradient within MC_CHAIN_LIMIT /
+    MC_GRAD_LIMIT of their unsharded runs, the trace and the data-parallel
+    gradient the ordered sums of the ranks' unsharded ones bit for bit.
+    Raises PhaseError."""
+    from xrt_tpu_torch import histogram as th
+    route = f'hist_plot:{th.plot_route((128,) * 3)}'
+    check(res['chain_mesh_launches'].get('kirchhoff_recentred:mono', 0) >= 2
+          and res['chain_ring_launches'].get('kirchhoff_recentred:mono', 0)
+          >= 2 * res['world'], f'{tag}: B1 on the sharded chain '
+          f'{res["chain_mesh_launches"]} {res["chain_ring_launches"]}')
+    for pm in ('fast', 'exact'):
+        check(res[f'b2_{pm}_mesh_launches'].get(f'kirchhoff_ddphase:{pm}',
+                                                0) == 1,
+              f'{tag}: B2 {pm} on the sharded hop '
+              f'{res[f"b2_{pm}_mesh_launches"]}')
+    check(res['trace_launches'].get(route, 0) == TRACE_REPEATS,
+          f'{tag}: hist_plot on the sharded pass {res["trace_launches"]}')
+    check(res['dp_launches'].get('hist2d:k1:' + th.hist_route(128, 128, 1),
+                                 0) == 1 and
+          res['dp_launches'].get('hist2d_bwd:k1', 0) == 1,
+          f'{tag}: B4 / B4-bwd on the data-parallel step '
+          f'{res["dp_launches"]}')
+    check(res['grad_mesh_launches'].get('kirchhoff_recentred_bwd:mono', 0)
+          >= 1, f'{tag}: B3 on the sharded gradient '
+          f'{res["grad_mesh_launches"]}')
+    for k in ('chain_mesh_err', 'chain_ring_err', 'b2_fast_err',
+              'b2_exact_err'):
+        check(res[k] < MC_CHAIN_LIMIT,
+              f'{tag}: {k} {res[k]:.3e} >= {MC_CHAIN_LIMIT}')
+    check(res['grad_err'] < MC_GRAD_LIMIT,
+          f'{tag}: sharded chain gradient {res["grad_err"]:.3e}')
+    check(res['trace_equal'] and res['dp_equal'],
+          f'{tag}: the sharded pass or the data-parallel gradient is not '
+          'the ordered sum of the ranks\' unsharded ones')
+    check(res['trace_nRaysAll'] == res['world'] * TRACE_REPEATS *
+          TRACE_NRAYS, f'{tag}: nRaysAll {res["trace_nRaysAll"]}')
+
+
+def _mc_rank(rank, world, init, outdir):
+    """One rank of phase 34b: a gloo process group of *world* ranks on
+    card 0 (file store *init*); writes its numbers to *outdir*."""
+    import torch
+    import torch.distributed as dist
+    from xrt_tpu_torch import parallel as par
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method='file://' + init,
+                            rank=rank, world_size=world)
+    try:
+        mesh = par.make_mesh(device='cuda:0')
+        res = multicard_paths(mesh)
+        with open(os.path.join(outdir, f'rank{rank}.json'), 'w') as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_multicard(timing):
+    """Phase 34: the multi-card layer on the one card: (a) a world of 1
+    over NCCL in this process, bit-identical to the unsharded runs; (b) a
+    world of 2 processes on the same card over gloo (NCCL refuses two
+    ranks on one device), within MC_CHAIN_LIMIT / MC_GRAD_LIMIT and the
+    ordered sums bit for bit."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from xrt_tpu_torch import parallel as par
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        store = dist.FileStore(os.path.join(d, 'nccl'), 1)
+        dist.init_process_group('nccl', store=store, rank=0, world_size=1,
+                                device_id=torch.device('cuda', 0))
+        try:
+            res = multicard_paths(par.make_mesh(device='cuda:0'))
+        finally:
+            dist.destroy_process_group()
+    print_multicard('34a', res)
+    check_multicard('34a', res)
+    check(all(res[k] for k in ('chain_mesh_equal', 'chain_ring_equal',
+                               'b2_fast_equal', 'b2_exact_equal',
+                               'trace_equal', 'dp_equal', 'grad_equal')),
+          '34a: a world of 1 is not bit-identical to the unsharded runs: '
+          + str({k: v for k, v in res.items() if k.endswith('_equal')}))
+    timing['mc1'] = res
+    t_a = time.perf_counter() - t_phase
+
+    world = 2
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.start_processes(_mc_rank, args=(world, os.path.join(
+            d, 'init'), d), nprocs=world, join=False, start_method='spawn')
+        deadline = time.time() + MC_TIMEOUT
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.time())):
+                check(time.time() < deadline,
+                      f'34b: the gloo world did not finish in {MC_TIMEOUT} s')
+        except mp.ProcessRaisedException as e:
+            raise PhaseError(f'34b: a rank failed: {e}')
+        except mp.ProcessExitedException as e:
+            raise PhaseError(f'34b: a rank exited: {e}')
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(d, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+    for res in ranks:
+        print_multicard('34b', res)
+        check_multicard('34b', res)
+        check(res['host_staged'], '34b: gloo with CUDA tensors is staged')
+    same = [k for k in ('chain_mesh_err', 'trace_flux', 'dp_loss', 'dp_grad',
+                        'grad_mesh') if ranks[0][k] != ranks[1][k]]
+    check(not same, f'34b: the ranks disagree on {same}')
+    print(f'phase 34 took {time.perf_counter() - t_phase:.1f} s ({t_a:.1f} '
+          f's the NCCL world of 1); on one card the sharded times are the '
+          f'cost of the layer (collectives, host staging for gloo, two '
+          f'processes sharing the card) and say nothing of scaling across '
+          f'cards', flush=True)
+
+
+QOOK_FILES = (('1crystal.xml', 0.5), ('toroid_focus.xml', 0.5),
+              ('testGrating.xml', 0.3), ('lens1.xml', 0.5),
+              ('4crystals.xml', 0.5), ('testAlignment.xml', 0.5),
+              ('BioXAS_Main.xml', 0.05), ('canted_undulators.xml', 0.5),
+              ('mask_tests.xml', 0.5))
+QOOK_NRAYS = 1_000_000
+CLI_SEED = 7
+#: the pitch step (rad) phase 35 sets through the server and takes back
+SERVE_DPITCH = 1e-4
+
+
+def phase_cli(timing):
+    """Phase 35: ``python -m xrt_tpu_torch`` on the card in subprocesses
+    (info, trace, a Takagi-Taupin calc, codegen and its script, qook,
+    serve), the nine Qook projects in this process, and the profiler's
+    report against CUDA events."""
+    import io
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th, profiler, runner
+    from xrt_tpu_torch.beamline import BeamLine
+    from xrt_tpu_torch.qook import load_qook_project
+    from xrt_tpu_torch.server import BeamLineClient
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    py = [sys.executable, '-m', 'xrt_tpu_torch']
+    qook = os.path.join(root, 'tests', 'data', 'qook')
+    d = tempfile.mkdtemp()
+    procs = {}
+    try:
+        layout = os.path.join(d, 'config4.json')
+        with open(layout, 'w') as f:
+            f.write(timing['layout_json'])
+        script = os.path.join(d, 'config4.py')
+        r = subprocess.run(py + ['codegen', layout, '-o', script,
+                                 '--repeats', '1'], capture_output=True,
+                           text=True, timeout=300, env=env, cwd=root)
+        check(r.returncode == 0 and os.path.exists(script),
+              f'35 codegen: {r.stdout} {r.stderr}')
+        cmds = {
+            'info': py + ['info', layout],
+            'trace': py + ['trace', layout, '--repeats', '3', '--seed',
+                           str(CLI_SEED)],
+            'calc': py + ['calc', 'rocking', '--material', 'Si', '--hkl',
+                          '111', '--E', '9000', '--tc', '0.1', '--R',
+                          '2000', '--dtheta=-50:150:201'],
+            'script': [sys.executable, script],
+            'qook': py + ['qook', os.path.join(qook, 'BioXAS_Main.xml'),
+                          '--nrays', str(QOOK_NRAYS), '--repeats', '1'],
+            'serve': py + ['serve', layout, '--port', '0']}
+        t0 = time.perf_counter()
+        logs = {}
+        for name, cmd in cmds.items():
+            logs[name] = (os.path.join(d, name + '.out'),
+                          os.path.join(d, name + '.err'))
+            with open(logs[name][0], 'w') as fo, \
+                    open(logs[name][1], 'w') as fe:
+                procs[name] = subprocess.Popen(
+                    cmd, stdout=fo, stderr=fe, text=True, env=env, cwd=d,
+                    start_new_session=True)
+
+        def text(name, k=0):
+            with open(logs[name][k]) as f:
+                return f.read()
+        # serve on a port the system picks (its printed address): list,
+        # get, acquire (a trace on the card), set the pitch off and back,
+        # shutdown
+        m = None
+        while m is None and procs['serve'].poll() is None and \
+                time.perf_counter() - t0 < MC_TIMEOUT:
+            time.sleep(0.2)
+            m = re.search(r'serving beamline on ([\d.]+):(\d+)',
+                          text('serve'))
+        check(m is not None, f'35 serve: {text("serve")} '
+              f'{text("serve", 1)[-4000:]}')
+        cli = BeamLineClient(m.group(1), int(m.group(2)))
+        cli.sock.settimeout(MC_TIMEOUT)
+        try:
+            pvs = cli.list()
+            oe = next(n for n, p in pvs.items() if 'pitch' in p and
+                      n != 'source' and isinstance(p['pitch'], float))
+            p0 = cli.get(f'{oe}:pitch')
+            a0 = cli.acquire()
+            a1 = cli.set(f'{oe}:pitch', p0 + SERVE_DPITCH)['result']
+            p1 = cli.get(f'{oe}:pitch')
+            a2 = cli.set(f'{oe}:pitch', p0)['result']
+            a3 = cli.acquire()
+            bye = cli.request(cmd='shutdown')
+        except (ValueError, KeyError, OSError) as e:
+            raise PhaseError(f'35 serve: {type(e).__name__}: {e}; the '
+                             f'server said {text("serve", 1)[-4000:]}')
+        finally:
+            cli.close()
+        outs = {}
+        for name, p in procs.items():
+            try:
+                p.wait(timeout=max(1.0, MC_TIMEOUT -
+                                   (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f'35 {name} did not finish in '
+                                 f'{MC_TIMEOUT} s')
+            outs[name] = text(name)
+            check(p.returncode == 0, f'35 {name} exited {p.returncode}: '
+                  f'{outs[name][-2000:]} {text(name, 1)[-4000:]}')
+        t_sub = time.perf_counter() - t0
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    print(f'phase 35 serve: {len(pvs)} elements listed, {oe}:pitch '
+          f'{p0!r}, acquire {a0}; set to {p1!r} and re-traced {a1}; set back '
+          f'and re-traced {a2}, acquire {a3}; shutdown {bye}', flush=True)
+    check(a0['ngood'] > 0 and abs(p1 - p0 - SERVE_DPITCH) < 1e-3 *
+          SERVE_DPITCH and a1 != a0 and
+          a2 == a0 and a3 == a0 and bye == {'ok': True},
+          f'35 serve: {p0} {p1} {a0} {a1} {a2} {a3} {bye}')
+    info = outs['info'].strip().splitlines()
+    print(f'phase 35 info: {len(info)} elements; {info[0].strip()} ... '
+          f'{info[-1].strip()}', flush=True)
+    check(len(info) == len(BeamLine.load_from_json(
+        timing['layout_json'], device='cuda').flow), '35 info')
+    # trace: the printed numbers against the same seed through the API
+    bl = BeamLine.load_from_json(timing['layout_json'], device='cuda')
+    g = torch.Generator('cuda').manual_seed(CLI_SEED)
+    for _ in range(3):
+        beams = bl.propagate_flow(g)
+    last = list(beams)[-1]
+    img = beams[last]
+    good = (img.state == 1).cpu().numpy()
+    flux = (img.Jss + img.Jpp).detach().double().cpu().numpy()[good].sum()
+    want = f"traced; final beam '{last}': {good.sum()} good rays, " \
+        f'flux={flux:.5g}'
+    print(f'phase 35 trace --repeats 3: {outs["trace"].splitlines()[0]} '
+          f'(the API: {want[len("traced; "):]})', flush=True)
+    check(want in outs['trace'], f'35 trace: {outs["trace"]} vs {want}')
+    heads = [h for h in outs['calc'].splitlines() if h.startswith('#')]
+    rows = np.asarray([[float(v) for v in ln.split(',')] for ln in
+                       outs['calc'].splitlines() if ln and ln[0] != '#'])
+    print(f'phase 35 calc rocking, Si(111) bent to R = 2000 mm '
+          f'(Takagi-Taupin on the card): {heads[0]}; {rows.shape[0]} '
+          f'angles, peak |rs|^2 {rows[:, 1].max():.4f}', flush=True)
+    check(rows.shape == (201, 3) and np.all(np.isfinite(rows)) and
+          0.05 < rows[:, 1].max() <= 1.0, '35 calc rocking')
+    fs = re.search(r'flux=([0-9.eE+-]+) nGood=(\d+)', outs['script'])
+    print(f'phase 35 codegen: the generated script traced '
+          f'{outs["script"].strip()}', flush=True)
+    check(fs is not None and float(fs.group(1)) > 0, '35 codegen script')
+    qp = re.findall(r"plot '(\w+)': flux=([0-9.eE+-]+) nGood=(\d+)",
+                    outs['qook'])
+    print(f'phase 35 qook BioXAS_Main.xml at {QOOK_NRAYS} rays through the '
+          f'command line: {len(qp)} plots, {qp[:2]} ...; the subprocesses '
+          f'took {t_sub:.1f} s together', flush=True)
+    check(qp and any(int(n) > 0 for *_, n in qp), '35 qook')
+
+    # the nine projects in this process; each project's plots on its
+    # traced pass held to hist_plot_plain (oe_hist_plot_check) after the
+    # pass's launches are read
+    qook_launches = {}
+    for fn, min_good in QOOK_FILES:
+        t0 = time.perf_counter()
+        prj = load_qook_project(os.path.join(qook, fn), nrays=QOOK_NRAYS)
+        t_load = time.perf_counter() - t0
+        rng = torch.Generator('cuda').manual_seed(5)
+        prj.beamline.propagate_flow(rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beams = prj.beamline.propagate_flow(rng)
+        torch.cuda.synchronize()
+        t_pass = time.perf_counter() - t0
+        last = list(beams)[-1]
+        n = beams[last].x.shape[0]
+        frac = float((beams[last].state == 1).sum()) / n
+        plots = prj.plots or []
+        for p in plots:     # render nothing: the card's machine may lack
+            p.saveName = p.persistentName = None    # matplotlib
+        print(f'phase 35 qook {fn}: {len(prj.beamline.flow)} elements, '
+              f'loaded in {t_load:.2f} s; a pass of {n} rays '
+              f'{t_pass * 1e3:.1f} ms; good rays at {last!r} {frac:.4f} '
+              f'(min {min_good}); {len(plots)} plots traced', flush=True)
+        check(frac > min_good, f'35 qook {fn}: good {frac} <= {min_good}')
+        if not plots:
+            continue
+        th.LAUNCHES.clear()
+        runner.run_ray_tracing(
+            plots, repeats=1, beamLine=prj.beamline, rng=rng,
+            run_process=lambda b_, g_: b_.propagate_flow(g_))
+        torch.cuda.synchronize()
+        key = 'qook:' + fn[:-len('.xml')]
+        launches = dict(th.LAUNCHES)
+        qook_launches[key] = launches
+        check(sum(launches.values()) == len(plots),
+              f'35 {key}: {len(plots)} plots, hist_plot launches {launches}')
+        args = [oe_hist_plot_check(35, f'{key} plot {p.title!r}', p, beams)
+                for p in plots]
+        timing[key] = dict(launches=launches, plot_args=args[0])
+    print(f'phase 35 hist_plot launches of the Qook projects\' plots '
+          f'{qook_launches}', flush=True)
+    timing['qook_keys'] = tuple(qook_launches)
+
+    # the profiler's report of a verbose run against CUDA events
+    src, tor, scr = trace_beamline(TRACE_NRAYS, torch.float32)
+
+    def run_process(bl_, g_):
+        glo, _ = tor.reflect(src.shine(g_))
+        return {'screen': scr.expose(glo)}
+    lim = trace_plot(128)
+    runner.calibrate_limits([lim], run_process(
+        None, torch.Generator('cuda').manual_seed(50)))
+    profiler.reset()
+    buf = io.StringIO()
+    ev = events(2)
+    with contextlib.redirect_stdout(buf):
+        ev[0].record()
+        runner.run_ray_tracing(lim, repeats=TRACE_REPEATS,
+                               run_process=run_process, verbose=True,
+                               rng=torch.Generator('cuda').manual_seed(51))
+        ev[1].record()
+    torch.cuda.synchronize()
+    ev_s = ev[0].elapsed_time(ev[1]) * 1e-3
+    st = profiler.as_dict()
+    stage_s = st['runner.step']['total'] + st['runner.accumulate']['total']
+    dev_s = st['runner.step']['device_total']
+    rep = buf.getvalue().strip().splitlines()
+    print('phase 35 profiler report of a verbose run_ray_tracing '
+          f'({TRACE_NRAYS} rays x {TRACE_REPEATS}):', flush=True)
+    for ln in rep[-3:]:
+        print(f'phase 35   {ln}', flush=True)
+    print(f'phase 35 profiler: runner.step + runner.accumulate {stage_s:.4f}'
+          f' s (runner.step on the card {dev_s:.4f} s) against CUDA events '
+          f'around the run {ev_s:.4f} s: {abs(stage_s / ev_s - 1):.3f} '
+          f'(limit 0.1)', flush=True)
+    check(st['runner.step']['calls'] == TRACE_REPEATS and
+          abs(stage_s / ev_s - 1) < 0.1 and abs(dev_s / ev_s - 1) < 0.1,
+          f'35 profiler: {stage_s} / {dev_s} vs {ev_s}')
+    print(f'phase 35 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
 #: the ray paths of phases 21-25 and 27-29, by their keys in ``timing``
 OE_HIST_KEYS = ('laue', 'crl', 'multilayer', 'powder', 'fe:waviness',
                 'fe:roughness', 'fe:bump', 'capillary', 'mesh:quad',
@@ -5635,7 +6311,8 @@ SLICE_HIST_KEYS = ('config3:near', 'config3:far', 'config3:taper',
 
 def oe_physics_rows(timing, keys=OE_HIST_KEYS):
     """``hist_plot``'s rows on the paths of *keys* (phases 21-25 and
-    27-29 by default)."""
+    27-29 by default; phases 30-33 and the Qook projects of phase 35 are
+    the other calls)."""
     import torch
     from xrt_tpu_torch import histogram as th
     rows = []
@@ -5730,11 +6407,14 @@ def main():
         phase_search(timing)
         phase_customfield(timing)
         phase_layouts(timing)
+        phase_multicard(timing)
+        phase_cli(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + coherence_rows(timing) + \
             oe_physics_rows(timing) + fe_wave_rows(timing) + \
-            oe_physics_rows(timing, SLICE_HIST_KEYS)
+            oe_physics_rows(timing, SLICE_HIST_KEYS) + \
+            oe_physics_rows(timing, timing['qook_keys'])
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

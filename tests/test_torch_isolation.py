@@ -4,8 +4,8 @@
   ``xrt_tpu`` module to ``sys.modules``, checked in a fresh interpreter.
 * No import statement under ``xrt_tpu_torch/``, in ``chip_smoke.py`` or in
   the port's tools (``tools/torch_bench_softimax.py``,
-  ``tools/torch_bench_analyzer.py``) names ``jax``, ``flax`` or ``xrt_tpu``
-  (other than ``xrt_tpu_torch``),
+  ``tools/torch_bench_analyzer.py``, ``tools/torch_multicard.py``) names
+  ``jax``, ``flax`` or ``xrt_tpu`` (other than ``xrt_tpu_torch``),
   and no text there names ``jax`` or ``flax`` at all.  ``xrt_tpu`` may be
   named in comments and docstrings only (the kernels cite the TPU kernels
   they replace): no string literal of the package names it, so no path
@@ -15,6 +15,11 @@
   package's.
 * ``chip_smoke.py`` on a host without a CUDA device exits non-zero and
   prints no result.
+* The walk covers the multi-card package ``xrt_tpu_torch/parallel/`` and
+  the command line: ``python -m xrt_tpu_torch --help`` leaves no ``jax``,
+  ``flax`` or ``xrt_tpu`` module in ``sys.modules``, and ``python -m
+  xrt_tpu_torch trace`` without CUDA and without ``--device cpu`` exits
+  non-zero instead of tracing on the CPU.
 """
 import ast
 import os
@@ -27,7 +32,8 @@ import xrt_tpu_torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'xrt_tpu')
-PORT_TOOLS = ('torch_bench_softimax.py', 'torch_bench_analyzer.py')
+PORT_TOOLS = ('torch_bench_softimax.py', 'torch_bench_analyzer.py',
+              'torch_multicard.py')
 
 
 def _forbidden(mod):
@@ -66,7 +72,8 @@ def test_import_adds_no_jax_or_reference_module():
     assert 'BAD []' in r.stdout, r.stdout
     assert len(mods) >= 15
     assert {'xrt_tpu_torch.coherence', 'xrt_tpu_torch.modes',
-            'xrt_tpu_torch.kde'} <= set(mods)
+            'xrt_tpu_torch.kde', 'xrt_tpu_torch.parallel',
+            'xrt_tpu_torch.__main__', 'xrt_tpu_torch.qook'} <= set(mods)
 
 
 def test_no_import_statement_names_jax_or_the_reference():
@@ -211,3 +218,41 @@ def test_chip_smoke_fails_without_a_card():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_the_walk_covers_the_multi_card_package():
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert os.path.join('xrt_tpu_torch', 'parallel', '__init__.py') in files
+    assert os.path.join('xrt_tpu_torch', '__main__.py') in files
+
+
+def test_command_line_help_imports_no_jax():
+    code = (
+        'import runpy, sys\n'
+        "sys.argv = ['xrt_tpu_torch', '--help']\n"
+        'try:\n'
+        "    runpy.run_module('xrt_tpu_torch', run_name='__main__')\n"
+        'except SystemExit as e:\n'
+        '    assert e.code in (0, None), e.code\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+        f'{FORBIDDEN!r})\n'
+        'print("BAD", bad)\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    r = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr
+    assert 'usage: python -m xrt_tpu_torch' in r.stdout
+    assert 'BAD []' in r.stdout, r.stdout
+
+
+def test_trace_without_cuda_needs_the_cpu_asked_for(tmp_path):
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip('a CUDA device is present')
+    r = subprocess.run([sys.executable, '-m', 'xrt_tpu_torch', 'trace',
+                        str(tmp_path / 'bl.json')], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert 'CUDA' in r.stderr and "device='cpu'" in r.stderr
+    assert 'traced' not in r.stdout

@@ -294,22 +294,44 @@ def test_run_ray_tracing_persistence_and_history(tmp_path):
 
 @pytest.mark.parametrize('what', ['mesh', 'saveName', 'updateEvery',
                                   'generator'])
-def test_run_ray_tracing_refuses_what_is_not_ported(what):
+def test_run_ray_tracing_refuses_what_is_not_ported(what, tmp_path):
+    """Sharding (``mesh=``) and rendering (``saveName``, ``updateEvery``)
+    are ported now: they run (``tests/test_torch_parallel.py`` and
+    ``tests/test_torch_host_modules.py`` hold their results).  What is
+    still refused: a ``torch.Generator`` as ``generator=``, which is the
+    scan generator function (the RNG goes in as ``rng=``)."""
     run_process, _ = _port_beamline(100, torch.float64)
     plot = make_plot(tps)
-    kw, err = {}, NotImplementedError
+    if what == 'generator':
+        with pytest.raises(TypeError):
+            trunner.run_ray_tracing(plot, run_process=run_process,
+                                    device='cpu',
+                                    generator=torch.Generator())
+        assert plot.repeats == 0
+        return
+    import torch.distributed as dist
+    from xrt_tpu_torch.parallel import make_mesh
+    kw = {}
+    png = str(tmp_path / 'plot.png')
     if what == 'mesh':
-        kw['mesh'] = object()
+        dist.init_process_group(
+            'gloo', store=dist.FileStore(str(tmp_path / 'store'), 1),
+            rank=0, world_size=1)
+        kw['mesh'] = make_mesh(device='cpu')
     elif what == 'saveName':
-        plot.saveName = 'plot.png'
-    elif what == 'updateEvery':
+        plot.saveName = png
+    else:
+        plot.saveName = png
         kw['updateEvery'] = 1
-    else:       # the RNG goes in as rng=, generator= is the scan
-        kw['generator'], err = torch.Generator(), TypeError
-    with pytest.raises(err):
-        trunner.run_ray_tracing(plot, run_process=run_process, device='cpu',
-                                **kw)
-    assert plot.repeats == 0
+    try:
+        trunner.run_ray_tracing(plot, repeats=2, run_process=run_process,
+                                device='cpu', **kw)
+    finally:
+        if what == 'mesh':
+            dist.destroy_process_group()
+    assert plot.repeats == 2 and plot.nRaysAll == 200
+    assert plot.intensity > 0
+    assert os.path.exists(png) == (what != 'mesh')
 
 
 def test_field_flux_kinds_give_mutual_intensity():

@@ -11,9 +11,11 @@ histograms are linear.  The user contract:
 What differs from the reference package: PyTorch runs eagerly, so there is
 no compiled-step cache; each plot's histograms and counters of a pass come
 to the host in one transfer; auto limits are reduced to their minima and
-maxima on the device.  Sharding over several cards (``mesh=``, ROADMAP
-A10) and rendering (``saveName``, ``updateEvery``; ROADMAP A11) are not
-ported and raise ``NotImplementedError``.
+maxima on the device.  With ``mesh=`` (:mod:`xrt_tpu_torch.parallel`)
+every rank traces its own rays each pass and accumulates the histograms
+summed over ranks.  Plots with a ``saveName`` are rendered
+(:mod:`xrt_tpu_torch.plotting`) at the end and every ``updateEvery``
+passes.
 """
 from __future__ import annotations
 
@@ -344,14 +346,12 @@ def load_run_history(fileName=None):
         return []
 
 
-_NO_RENDERING = ('rendering plots (saveName, updateEvery) needs the '
-                 'plotting module, which is not ported yet (ROADMAP A11)')
-
-
-def normalize_sibling_plots(plots):
-    """Put a family of plots on a common brightness scale: the global
-    maxima of the 1D profiles and the 2D histograms are shared across all
-    *plots* through their ``globalMax*`` attributes."""
+def normalize_sibling_plots(plots, saveSuffix='_norm'):
+    """Put a family of plots on a common brightness scale and save them
+    again: the global maxima of the 1D profiles and the 2D histograms are
+    shared across all *plots* through their ``globalMax*`` attributes; a
+    plot with a ``saveName`` is rendered to that name with *saveSuffix*
+    before its extension."""
     max2D = max(float(np.max(p.total2D)) for p in plots) or 1.0
     max2D_RGB = max(float(np.max(p.total2D_RGB)) for p in plots) or 1.0
     max1Dx = max(float(np.max(p.total1D_x)) for p in plots) or 1.0
@@ -362,7 +362,9 @@ def normalize_sibling_plots(plots):
         plot.globalMax1D_x = max1Dx
         plot.globalMax1D_y = max1Dy
         if plot.saveName:
-            raise NotImplementedError(_NO_RENDERING)
+            from .plotting import save_plot
+            root, ext = plot.saveName.rsplit('.', 1)
+            save_plot(plot, f'{root}{saveSuffix}.{ext}')
     return max2D, max2D_RGB
 
 
@@ -379,22 +381,28 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
     0), from which a generator is made on *device* (the card by default).
     *generator* supports parametric scans: a Python generator function
     which mutates the beamline or the plots between scan points; each
-    scan point accumulates ``repeats`` more passes."""
+    scan point accumulates ``repeats`` more passes.
+
+    *mesh* (a :class:`~xrt_tpu_torch.parallel.Mesh`): every pass runs on
+    every rank with its own generator
+    (:func:`~xrt_tpu_torch.parallel.sharded_step`), and every rank
+    accumulates the same totals.  *updateEvery* re-renders the plots with a
+    ``saveName`` every so many passes; all of them are rendered at the end.
+    *verbose* prints each pass's time and the profiler's report of the
+    stages ``runner.step`` and ``runner.accumulate``, which block on the
+    card."""
     from . import config
+    from .parallel import sharded_step
+    from .profiler import report, stage
     if isinstance(plots, XYCPlot):
         plots = [plots]
-    if mesh is not None:
-        raise NotImplementedError(
-            'sharding a pass over several cards (mesh=) is not ported yet '
-            '(ROADMAP A10)')
-    if updateEvery or any(p.saveName for p in plots):
-        raise NotImplementedError(_NO_RENDERING)
     if isinstance(generator, torch.Generator):
         raise TypeError('generator= is the scan generator function; pass '
                         'the torch.Generator as rng=')
     if not isinstance(rng, torch.Generator):
-        rng = torch.Generator(config.resolve_device(device)).manual_seed(
-            0 if rng is None else int(rng))
+        rng = torch.Generator(config.resolve_device(
+            mesh.device if mesh is not None and device is None
+            else device)).manual_seed(0 if rng is None else int(rng))
 
     def one_scan_point():
         for plot in plots:
@@ -406,9 +414,22 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
             calibrate_limits(plots, run_process(beamLine, rng))
         t0 = time.time()
         for it in range(repeats):
-            beams = run_process(beamLine, rng)
-            for plot in plots:
-                _accumulate(plot, histogram_plot(plot, beams))
+            with stage('runner.step', block=rng.device):
+                if mesh is not None:
+                    hists = sharded_step(run_process, beamLine, plots, mesh,
+                                         rng)
+                else:
+                    beams = run_process(beamLine, rng)
+                    hists = [histogram_plot(plot, beams) for plot in plots]
+            with stage('runner.accumulate'):
+                for plot, h in zip(plots, hists):
+                    _accumulate(plot, h)
+            if updateEvery and (it + 1) % updateEvery == 0 and \
+                    (it + 1) < repeats:
+                from .plotting import save_plot
+                for plot in plots:
+                    if plot.saveName:
+                        save_plot(plot, plot.saveName)
             if pickleEvery and (it + 1) % pickleEvery == 0:
                 for plot in plots:
                     if plot.persistentName:
@@ -419,6 +440,9 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
         for plot in plots:
             if plot.persistentName:
                 plot.store_plots()
+            if plot.saveName:
+                from .plotting import save_plot
+                save_plot(plot, plot.saveName)
 
     t_run0 = time.time()
     if generator is None:
@@ -429,6 +453,8 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
     if historyFile:
         store_run_history(t_run0, time.time(), tag=historyTag,
                           fileName=historyFile)
+    if verbose:
+        print(report())
     if afterScript:
         afterScript(*afterScriptArgs)
     return plots

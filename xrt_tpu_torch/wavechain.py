@@ -33,7 +33,8 @@ so it also skips the kernel's host envelope check (``check_envelope``).
 ``build(tiled=True)`` samples the OE receivers sorted along y and gives
 every stage outside the recentred 'mxu*' envelopes a tile map
 (:func:`~xrt_tpu_torch.waves.choose_tile_modes`, ``tile_shape`` tiles).
-Multi-device runs (``mesh=``) are not ported yet.
+``build(mesh=...)`` splits every stage's destinations over the ranks of a
+:class:`~xrt_tpu_torch.parallel.Mesh` (``ring=True``: the sources too).
 """
 from __future__ import annotations
 
@@ -77,8 +78,8 @@ class WaveChain:
 
     # -- build -----------------------------------------------------------
     def build(self, generator=None, tiled=False, tile_shape=(5, 10),
-              verbose=False, mesh=None, error_budget='auto', dtype=None,
-              device=None):
+              verbose=False, mesh=None, ring=False, error_budget='auto',
+              dtype=None, device=None):
         """Prepare the fixed receiving geometry, choose per-stage kernel
         modes (and with *tiled* the tile maps), and return
         ``run(generator=None, timings=None) -> (final_wave, log_scale)``.
@@ -99,9 +100,16 @@ class WaveChain:
         ``run(waves=...)`` takes this run's receiving waves in place of the
         prepared ``run.waves`` (the same samples: shifted coordinates,
         elements with tensor parameters as ``fromOE`` / ``toOE``); the
-        modes chosen at build time stay."""
-        if mesh is not None:
-            raise NotImplementedError(_w._MESH_TODO)
+        modes chosen at build time stay.
+
+        *mesh* (a :class:`~xrt_tpu_torch.parallel.Mesh`): every Kirchhoff
+        stage runs with its destinations split over the mesh's ranks, the
+        sources replicated (``ring=True``: split and sent on around the
+        ring); every rank runs the whole chain and gets the whole result.
+        Not combinable with *tiled*."""
+        if mesh is not None and tiled:
+            raise ValueError('tiled chains cannot run sharded (tile_modes '
+                             'and mesh=); use mesh= with tiled=False')
         if not self._hops:
             raise ValueError('empty chain')
         dt = config.resolve_dtype(dtype)
@@ -194,7 +202,8 @@ class WaveChain:
                 mark = StageTimer(timings, rec, cur.x.device)
                 b = _w.diffract(cur, wvs[i], phase_mode=pm,
                                 monochromatic=mono, accumulate=acc,
-                                tile_modes=tilemaps[i], narrowband=False,
+                                tile_modes=tilemaps[i], mesh=mesh,
+                                ring=ring, narrowband=False,
                                 check_envelope=False)
                 mark.stop()
                 if kind == 'oe':

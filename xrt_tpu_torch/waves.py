@@ -34,9 +34,12 @@ The one-call hops (:func:`propagate_wave_to_oe`,
 methods ``OE.propagate_wave``, ``Screen.expose_wave`` and
 ``propagate_wave`` of the apertures) sample the receiver, fill it from the
 incoming wave (a synchrotron source shines its filament field there) and,
-onto an OE, reflect at the samples.  Not in this module yet:
-``diffract(mesh=...)`` (multi-device), which raises
-``NotImplementedError`` naming its ROADMAP item.
+onto an OE, reflect at the samples.
+
+Several cards: ``diffract(mesh=...)`` splits a stage's destinations over
+the ranks of a :class:`~xrt_tpu_torch.parallel.Mesh`
+(:func:`~xrt_tpu_torch.parallel.dst_sharded_call`), with the sources
+replicated or, with ``ring=True``, sent on around the ring.
 """
 from __future__ import annotations
 
@@ -57,10 +60,6 @@ from .transforms import cos, rotate_xyz, rotate_y, sin
 
 Tensor = torch.Tensor
 SRC_CHUNK = 256   # source samples per step of the float64 plain path
-
-_MESH_TODO = ('multi-device diffract / WaveChain (mesh=...) is not ported '
-              'yet: ROADMAP A10')
-
 
 def pad1d_edge(v, npad):
     """Pad a 1-D tensor by repeating its last element (position arrays:
@@ -625,7 +624,8 @@ def kirchhoff_kernel_args(oeLocal, wave):
 
 def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
              monochromatic=False, accumulate='mxu', tile_modes=None,
-             mesh=None, narrowband='auto', check_envelope=True) -> Wave:
+             mesh=None, ring=False, narrowband='auto',
+             check_envelope=True) -> Wave:
     """Diffract the surface field *oeLocal* onto the receiving *wave*
     samples; returns the updated wave (accumulating over repeated calls
     through the Acc fields).
@@ -642,10 +642,20 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
     float32 stage, each (destination tile, source tile) pair with its own
     (phase_mode, accumulate), overriding the stage's; see
     :func:`_tiled_integral`.  A float64 wave ignores it (its plain path is
-    exact at any geometry).  *mesh* is not ported yet and raises
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    exact at any geometry).
+
+    *mesh* (a :class:`~xrt_tpu_torch.parallel.Mesh`): the destinations are
+    split over its ranks (:func:`~xrt_tpu_torch.parallel.dst_sharded_call`)
+    with the sources replicated, or split too and sent on around the ring
+    with ``ring=True``; every rank returns the whole wave.  Each tile is
+    recentred on its own points, so a float32 result moves at the
+    kernel's rounding (~1e-6 of the field); the float64 path gives the
+    unsharded sums tile by tile.  Differentiable as the unsharded call,
+    with the same gradient on every rank.  Not combinable with
+    *tile_modes*."""
+    if mesh is not None and tile_modes is not None:
+        raise ValueError('tile_modes cannot be combined with mesh=: '
+                         'sharded stages run their global kernel mode')
     oe = wave.fromOE
     good, w, n, nl = _surface_terms(oeLocal, wave)
     if oeLocal.area is not None:
@@ -669,11 +679,22 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
             Es, Ep, aE, bE, cE = _tiled_integral(
                 args, tile_modes, monochromatic,
                 False if narrowband == 'auto' else narrowband)
+        elif mesh is not None:
+            Es, Ep, aE, bE, cE = _sharded_kernel(
+                mesh, ring, args, phase_mode, monochromatic, accumulate,
+                narrowband, check_envelope)
         else:
             Es, Ep, aE, bE, cE = kirchhoff_integral_kernel(
                 *args, phase_mode=phase_mode, monochromatic=monochromatic,
                 accumulate=accumulate, narrowband=narrowband,
                 check_envelope=check_envelope)
+    elif mesh is not None:
+        from .parallel import kirchhoff_ring, kirchhoff_sharded
+        k = oeLocal.E / CHBAR * 1e7  # 1/mm
+        Es, Ep, aE, bE, cE = (kirchhoff_ring if ring else kirchhoff_sharded)(
+            mesh, wave.xDiffr, wave.yDiffr, wave.zDiffr,
+            oeLocal.x, oeLocal.y, oeLocal.z, oeLocal.Es, oeLocal.Ep, k,
+            n, nl, w)
     else:
         k = oeLocal.E / CHBAR * 1e7  # 1/mm
         Es, Ep, aE, bE, cE = kirchhoff_integral_xla(
@@ -784,6 +805,45 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
             JssGlo=glo.Jss * proj, JppGlo=glo.Jpp * proj,
             JspGlo=glo.Jsp * proj)
     return out
+
+
+#: pad rules of the flattened kernel arguments' sources in a ring: (hi,
+#: lo) positions, fields, (hi, lo) k, normals, n . direction, weights
+KERNEL_SRC_PAD = ['edge'] * 6 + ['zero', 'zero', 'edge', 'edge'] + \
+    ['edge'] * 3 + ['edge', 'zero']
+
+
+def _sharded_kernel(mesh, ring, args, phase_mode, monochromatic, accumulate,
+                    narrowband, check_envelope):
+    """The float32 kernel call of a stage (the arguments of
+    :func:`kirchhoff_kernel_args`) with its destinations split over
+    *mesh*.  'auto' narrowband is resolved on the whole clouds, so every
+    tile runs the mode the unsharded call would."""
+    from .ops.kirchhoff import (kirchhoff_integral_kernel,
+                                narrowband_err_cycles)
+    from .parallel import dst_sharded_call
+    dst_t, src_t = args[0:3], args[3:6]
+    Es, Ep, (kh, kl), n, nl, w = args[6:]
+    if phase_mode == 'recentred' and narrowband == 'auto':
+        narrowband = False if monochromatic else bool(
+            narrowband_err_cycles((kh, kl), *dst_t, *src_t) < 1e-3)
+    nb = [torch.broadcast_to(torch.as_tensor(ni, dtype=Es.real.dtype,
+                                             device=Es.device), kh.shape)
+          for ni in n]
+
+    def flat(xh, xl, yh, yl, zh, zl, sxh, sxl, syh, syl, szh, szl, Es_,
+             Ep_, kh_, kl_, n0, n1, n2, nl_, w_):
+        return kirchhoff_integral_kernel(
+            (xh, xl), (yh, yl), (zh, zl), (sxh, sxl), (syh, syl),
+            (szh, szl), Es_, Ep_, (kh_, kl_), [n0, n1, n2], nl_, w_,
+            phase_mode=phase_mode, monochromatic=monochromatic,
+            accumulate=accumulate, narrowband=narrowband,
+            check_envelope=check_envelope)
+
+    return dst_sharded_call(
+        mesh, flat, [a for hl in dst_t for a in hl],
+        [a for hl in src_t for a in hl] + [Es, Ep, kh, kl, *nb, nl, w],
+        ring=ring, src_pad=KERNEL_SRC_PAD)
 
 
 def wave_to_global(wave: Wave) -> Beam:
