@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-five phases and exits
+process per source, in parallel), then runs thirty-six phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -362,6 +362,31 @@ non-zero if any fails:
     verbose ``run_ray_tracing`` of phase 6's trace, its stage times within
     10% of CUDA events around the run.  Nothing is rendered: the card's
     machine may lack matplotlib.
+36. (in a fresh process of this script, ``--views``: after the earlier
+    phases, phase 34b's spawned ranks among them, torch.profiler in this
+    process no longer sees copies to pageable host memory) the views and
+    control surfaces on phase 6's beamline at 1e7 rays a pass (float32, a
+    recorded flow): (a) ``glow``: a scene's time and its
+    device-to-host bytes (torch.profiler's memcpy events), its segments
+    equal to numpy's on whole host copies of the beams, the HTML file,
+    and ``bl.glow(scan=...)`` over five pitches (ms a frame; the
+    post-mirror segments' end z rises with the pitch); (b) ``WebUI`` over
+    loopback: ``/``, ``/api/elements``, ``/api/hist``, ``/api/probe`` at
+    -500, 0 and 500 mm, ``/api/inspect``, ``/api/scene`` and three
+    ``/api/set`` of the pitch (the focus moves by 2 dpitch q and comes
+    back), each request's median ms over 3 and device-to-host bytes
+    (under ``VIEWS_D2H_LIMIT``: no whole column); the /api/hist table from
+    ``hist2d_kernel`` against ``hist2d_plain`` (float64 sums, 1e-5 of the
+    peak, the same non-empty bins) and against ``np.histogram2d`` on a
+    host copy (the rays both bin apart all within 4 ulp of an edge,
+    counted); (c) subprocesses, each killed with its process group:
+    ``serve --ui`` with phase 33's layout (``/api/hist``, ``/api/set``),
+    ``serve --ui`` without one (an assembly from ``/api/registry``,
+    reorder, remove, layout -> load, codegen), ``glow`` and ``bob``; (d)
+    ``bob`` screens of the nine Qook projects, and ``EpicsIOC`` on a
+    stand-in ``softioc`` module: three writes of the pitch, each a replay
+    from the mirror, the image from ``hist2d_kernel`` bit-identical and
+    the flux equal to a full re-trace's to 1e-9.
 
 The ``kernels`` line adds B4's rows on these paths: ``hist2d_kernel`` at
 speed test 1's shapes (phase 15's launches) and ``hist_plot`` on a DCM
@@ -371,8 +396,9 @@ the full shape), ``hist_plot`` on a configuration-2 pass (phase
 19's), ``hist_plot`` on a pass of each of phases 21-25 and 27-29, and
 B1 and B3 at phase 26's two differentiated hops (M1 -> M2, 2e5 x 2e5;
 M2 -> the screen, 16641 x 2e5; B3 held to the plain blocked backward on
-slices, as in 5, its plain time from phase 26's reference step), and
-``hist_plot`` on a pass of each ray path of phases 30-33.
+slices, as in 5, its plain time from phase 26's reference step),
+``hist_plot`` on a pass of each ray path of phases 30-33, and
+``hist2d_kernel`` at the web UI's /api/hist table (phase 36's launches).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
 blocked backward at 8192 x 16384 for four block sizes (the measurement
@@ -6298,6 +6324,652 @@ def phase_cli(timing):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the views and control surfaces (glow, webui, epics)
+# ---------------------------------------------------------------------------
+
+#: the pitch values of phase 36's scan player and the step of its writes
+VIEWS_SCAN = 5
+VIEWS_DPITCH = 2e-4
+#: seconds a view subprocess or request of phase 36 may take
+VIEWS_TIMEOUT = 300
+#: the largest device-to-host copy a view request at 1e7 rays may make:
+#: O(maxRays + bins^2) values, not the 40 MB of a float32 column
+VIEWS_D2H_LIMIT = 1 << 20
+VIEWS_SEED = 36
+
+
+def d2h_bytes(fn):
+    """(fn's result, the bytes of the device-to-host copies the card made
+    while it ran) by torch.profiler's memcpy events, read from its Chrome
+    trace."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get('traceEvents', [])
+    return out, sum(int(e.get('args', {}).get('bytes', 0)) for e in events
+                    if e.get('cat') == 'gpu_memcpy' and
+                    'DtoH' in e.get('name', ''))
+
+
+def http(base, path, body=None):
+    """(response body, ms) of one request to a web UI; anything but a 200
+    fails the phase."""
+    import urllib.error
+    import urllib.request
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data,
+                                 method='GET' if body is None else 'POST')
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=VIEWS_TIMEOUT) as r:
+            raw, code = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        raise PhaseError(f'36 {path}: HTTP {e.code} {e.read()[:2000]!r}')
+    except OSError as e:
+        raise PhaseError(f'36 {path}: {type(e).__name__}: {e}')
+    check(code == 200, f'36 {path}: HTTP {code}')
+    return raw, (time.perf_counter() - t0) * 1e3
+
+
+def http_json(base, path, body=None):
+    raw, ms = http(base, path, body)
+    return json.loads(raw), ms
+
+
+def numpy_segments(beams, max_rays):
+    """The scene's ray segments as the reference package builds them in
+    numpy, from whole host copies of the beams' columns."""
+    from xrt_tpu_torch.glow import _energy_color
+    import numpy as np
+    chain = [(n, {k: getattr(b, k).detach().cpu().numpy()
+                  for k in ('x', 'y', 'z', 'E', 'state')})
+             for n, b in beams.items() if hasattr(b, 'x') and
+             not n.endswith(('_local', '_local1', '_local2'))]
+    nrays = chain[0][1]['x'].shape[0]
+    idx = np.linspace(0, nrays - 1, min(max_rays, nrays)).astype(int)
+    allE = np.concatenate([b['E'][idx] for _, b in chain])
+    emin, emax = float(allE.min()), float(allE.max())
+    out = []
+    for (n1, b1), (n2, b2) in zip(chain[:-1], chain[1:]):
+        segs = np.stack([np.stack([b1[k][idx] for k in 'xyz'], -1),
+                         np.stack([b2[k][idx] for k in 'xyz'], -1)], 1)
+        out.append({'from': n1, 'to': n2,
+                    'p': np.round(segs, 4).tolist(),
+                    'rgb': np.round(_energy_color(b2['E'][idx], emin, emax),
+                                    3).tolist(),
+                    'good': (b2['state'][idx] == 1).astype(int).tolist()})
+    return out
+
+
+def numpy_bins(v, lo, hi, bins):
+    """np.histogram2d's bin of each value on one axis (-1 outside): the
+    edges ``np.linspace(lo, hi, bins + 1)``, the last bin closed."""
+    import numpy as np
+    edges = np.linspace(lo, hi, bins + 1)
+    k = np.searchsorted(edges, v, side='right') - 1
+    k[v == edges[-1]] = bins - 1
+    k[(v < lo) | (v > hi)] = -1
+    return k, edges
+
+
+def readout_checks(cap):
+    """The /api/hist table from ``hist2d_kernel`` (*cap*: its inputs and
+    output, recorded on the path) against ``hist2d_plain`` with float64
+    sums (1e-5 of the peak, the same non-empty bins) and against
+    ``np.histogram2d`` on a host copy: every ray both bin alike but rays
+    within 4 ulp (at the scale of the range's limits) of a bin edge,
+    which are counted; the numpy table with
+    those rays moved to the kernel's bins equals the kernel's to 1e-5 of
+    the peak.  Returns (err against plain, rays near an edge)."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import histogram as th
+    x, y, w, bins, xr, zr, got = cap
+    ref = th.hist2d_plain(x, y, w[:, None], bins, bins, xr, zr,
+                          sum_dtype=torch.float64)[..., 0]
+    peak = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max()) / peak
+    check(err < 1e-5 and bool(((got != 0) == (ref != 0)).all()),
+          f'36 /api/hist table against hist2d_plain: {err}')
+    # the kernel's bins (its formula, in the rays' dtype on the card)
+    fx, inx = th._bin_index(x, xr, bins)
+    fz, inz = th._bin_index(y, zr, bins)
+    kx = torch.where(inx, fx, -1).long().cpu().numpy()
+    kz = torch.where(inz, fz, -1).long().cpu().numpy()
+    xh, zh = x.cpu().numpy(), y.cpu().numpy()
+    wh = w.double().cpu().numpy()
+    nx, ex = numpy_bins(xh.astype(np.float64), xr[0], xr[1], bins)
+    nz, ez = numpy_bins(zh.astype(np.float64), zr[0], zr[1], bins)
+    H, _, _ = np.histogram2d(xh, zh, bins=bins, range=[list(xr), list(zr)],
+                             weights=wh)
+    mism = (kx != nx) | (kz != nz)
+    idx = np.nonzero(mism)[0]
+
+    def ulps(v, edges, lim):
+        """Distance of *v* from the nearest edge in ulps of the rays'
+        dtype at the scale of the value or the range's limits, whichever
+        is larger: the kernel subtracts the lower limit in that dtype."""
+        d = np.abs(v.astype(np.float64)[:, None] - edges[None, :]).min(1)
+        scale = np.maximum(np.abs(v), max(abs(lim[0]), abs(lim[1])))
+        return d / np.spacing(scale.astype(v.dtype)).astype(np.float64)
+    far = np.minimum(ulps(xh[idx], ex, xr), ulps(zh[idx], ez, zr))
+    check((far <= 4).all(), f'36 /api/hist: {int((far > 4).sum())} rays '
+          f'bin apart from np.histogram2d farther than 4 ulp from an edge '
+          f'(the farthest {far.max(initial=0):.1f} ulp)')
+    moved = H.T.copy()
+    for i in idx:
+        if nx[i] >= 0 and nz[i] >= 0:
+            moved[nz[i], nx[i]] -= wh[i]
+        if kx[i] >= 0 and kz[i] >= 0:
+            moved[kz[i], kx[i]] += wh[i]
+    gh = got.double().cpu().numpy()
+    nerr = float(np.abs(gh - moved).max()) / peak
+    check(nerr < 1e-5, f'36 /api/hist table against np.histogram2d: {nerr}')
+    return err, nerr, int(len(idx))
+
+
+class _FakeRecord:
+    """A record of the stand-in softioc: what a client reads and writes."""
+
+    def __init__(self, name, initial_value=None, on_update=None):
+        self.name, self.value, self.on_update = name, initial_value, \
+            on_update
+
+    def set(self, v):
+        self.value = v
+
+    def get(self):
+        return self.value
+
+    def caput(self, v):
+        self.value = v
+        if self.on_update is not None:
+            self.on_update(v)
+
+
+def fake_softioc():
+    """A stand-in ``softioc`` module with the builder interface
+    ``EpicsIOC`` uses (the IOC library is not installed on the card's
+    machine); returns (module, the records it made)."""
+    import types
+    made = {}
+
+    def rec(record, initial_value=None, on_update=None, **kw):
+        made[record] = _FakeRecord(record, initial_value, on_update)
+        return made[record]
+    builder = types.SimpleNamespace(
+        aOut=rec, aIn=rec, boolOut=rec, boolIn=rec, stringIn=rec,
+        WaveformIn=rec, SetDeviceName=lambda p: None,
+        LoadDatabase=lambda: made.setdefault('~loaded', True))
+    mod = types.ModuleType('softioc')
+    mod.builder = builder
+    mod.softioc = types.SimpleNamespace(iocInit=lambda: None)
+    return mod, made
+
+
+def ioc_readbacks(results):
+    """{element: {'flux', 'image'}} of flow outputs: the good rays' flux
+    (float64 sum on the card) and a 128 x 128 image by ``hist2d``."""
+    import torch
+    from xrt_tpu_torch.histogram import hist2d
+    out = {}
+    for key, val in results.items():
+        b = val[0] if isinstance(val, tuple) else val
+        if key.startswith('~') or not hasattr(b, 'state'):
+            continue
+        w = torch.where(b.state == 1, b.Jss + b.Jpp, 0.0)
+        out[key.split('.')[0]] = {
+            'flux': float(w.sum(dtype=torch.float64)),
+            'image': hist2d(b.x, b.z, w, 128, 128, (-2, 2), (-2, 2))}
+    return out
+
+
+def phase_views(timing):
+    """Phase 36: the views and control surfaces on the card: the 3D view
+    and its scan player, the web UI's requests on phase 6's beamline at
+    1e7 rays, ``glow``, ``bob`` and ``serve --ui`` in subprocesses, the
+    Phoebus screens of the nine Qook projects and an IOC on a stand-in
+    ``softioc`` module."""
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import epics, glow, histogram as th
+    from xrt_tpu_torch.beamline import BeamLine
+    from xrt_tpu_torch.flow import record_flow
+    from xrt_tpu_torch.qook import load_qook_project
+    from xrt_tpu_torch.webui import WebUI
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the profiler's bytes, calibrated on a known copy
+    t = torch.ones(1000, device='cuda')
+    _, calib = d2h_bytes(lambda: t.cpu())
+    measured = calib == 4000
+    print(f'phase 36 torch.profiler memcpy bytes of a 4000-byte copy: '
+          f'{calib}' + ('' if measured else ' (device-to-host bytes not '
+                        'measured below)'), flush=True)
+
+    def d2h(fn):
+        out, n = d2h_bytes(fn)
+        return out, (n if measured else None)
+
+    th.LAUNCHES.clear()
+    src, tor, scr = trace_beamline(TRACE_NRAYS, torch.float32)
+    bl = BeamLine(alignE=9000.0, name='trace benchmark')
+    bl.add('source', src)
+    bl.add('mirror', tor)
+    bl.add('screen', scr)
+    with record_flow(bl) as flow:
+        beams = bl.propagate_flow(torch.Generator('cuda').manual_seed(
+            VIEWS_SEED))
+    torch.cuda.synchronize()
+
+    # (a) glow: a scene of the traced beams, the HTML file, the scan player
+    d = tempfile.mkdtemp()
+    procs = {}
+    try:
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scene = glow.build_scene(bl, beams=beams)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        _, nb = d2h(lambda: glow.build_scene(bl, beams=beams))
+        want = numpy_segments(beams, 200)
+        check(scene['segments'] == want, '36 glow: the segments differ '
+              'from numpy on whole host copies of the beams')
+        html = bl.glow(beams=beams, save=os.path.join(d, 'glow.html'))
+        size = os.path.getsize(html)
+        print(f'phase 36 glow: a scene of {TRACE_NRAYS} rays x 3 beams '
+              f'({len(scene["elements"])} elements, '
+              f'{len(scene["segments"])} x 200 segments) '
+              f'{statistics.median(ms):.1f} ms (median of 3), '
+              f'device-to-host {nb} bytes; segments equal numpy\'s on whole '
+              f'host copies; HTML {size} bytes', flush=True)
+        pitches = [TRACE_PITCH + k * VIEWS_DPITCH for k in range(VIEWS_SCAN)]
+        t0 = time.perf_counter()
+        out = bl.glow(scan={'element': 'mirror', 'param': 'pitch',
+                            'values': pitches}, flow=flow,
+                      save=os.path.join(d, 'scan.html'))
+        t_scan = (time.perf_counter() - t0) * 1e3
+        text = open(out).read()
+        scenes = json.loads(text.split('const SCENES = ')[1].split(';\n')[0])
+        zs = [float(np.mean([p[1][2] for p in [
+            s for s in sc['segments'] if s['to'].startswith('screen')][0][
+                'p']])) for sc in scenes]
+        print(f'phase 36 glow scan of mirror.pitch over {VIEWS_SCAN} values: '
+              f'{t_scan / VIEWS_SCAN:.1f} ms a frame (a replay from the '
+              f'mirror at {TRACE_NRAYS} rays and a scene); mean end z of '
+              f'the post-mirror segments {[round(z, 4) for z in zs]} mm',
+              flush=True)
+        check(len(scenes) == VIEWS_SCAN and
+              all(b > a for a, b in zip(zs, zs[1:])) and zs[-1] - zs[0] > 1,
+              f'36 glow scan: z {zs}')
+
+        # (b) the web UI on the same beamline and flow
+        ui = WebUI(bl, flow).start()
+        base = f'http://{ui.host}:{ui.port}'
+        try:
+            cap = []
+            orig = th.hist2d
+
+            def recorded(x, y, w, xb, yb, xl, yl):
+                out = orig(x, y, w, xb, yb, xl, yl)
+                cap.append((x, y, w, xb, tuple(xl), tuple(yl), out))
+                return out
+            th.hist2d = recorded
+            try:
+                hist0, _ = http_json(base, '/api/hist')
+            finally:
+                th.hist2d = orig
+            check(len(cap) == 1 and hist0['nGood'] > 0,
+                  f'36 /api/hist: {len(cap)} tables, {hist0.get("nGood")}')
+            err, nerr, nedge = readout_checks(cap[0])
+            timing['views_hist_args'] = cap[0][:6]
+            print(f'phase 36 /api/hist table ({cap[0][0].shape[0]} good '
+                  f'rays into {cap[0][3]} x {cap[0][3]} by hist2d_kernel): '
+                  f'against hist2d_plain (float64 sums) {err:.2e} of the '
+                  f'peak, against np.histogram2d {nerr:.2e} with {nedge} '
+                  f'rays within 4 ulp of an edge binned apart', flush=True)
+            rows = []
+            reqs = [('/', None), ('/api/elements', None), ('/api/hist', None),
+                    ('/api/probe?d=-500', None), ('/api/probe?d=0', None),
+                    ('/api/probe?d=500', None),
+                    ('/api/inspect?element=mirror', None),
+                    ('/api/scene', None)]
+            for path, body in reqs:
+                ms = [http(base, path, body)[1] for _ in range(3)]
+                _, nb = d2h(lambda: http(base, path, body))
+                rows.append((path, statistics.median(ms), nb))
+            probes = [http_json(base, f'/api/probe?d={v}')[0]
+                      for v in (-500, 0, 500)]
+            check(all(p['nGood'] > 0 for p in probes),
+                  f'36 /api/probe: {[p.get("nGood") for p in probes]}')
+            ins = http_json(base, '/api/inspect?element=mirror')[0]
+            check(ins['footprint']['nGood'] > 0 and
+                  0 < ins['transmission'] <= 1, f'36 inspect: {ins}')
+            sc = http_json(base, '/api/scene')[0]
+            check(sc['segments'] and {'source', 'mirror', 'screen'} <=
+                  {e['name'] for e in sc['elements']}, '36 /api/scene')
+            # three writes of the pitch: the focus moves by 2 dpitch q
+            ms, czs = [], [hist0['cz']]
+            for k in (1, 2, 0):
+                r, t_ = http_json(base, '/api/set', {
+                    'element': 'mirror', 'param': 'pitch',
+                    'value': TRACE_PITCH + k * VIEWS_DPITCH})
+                check(r.get('ok'), f'36 /api/set: {r}')
+                ms.append(t_)
+                czs.append(http_json(base, '/api/hist')[0]['cz'])
+            _, nb = d2h(lambda: http(base, '/api/set', {
+                'element': 'mirror', 'param': 'pitch',
+                'value': TRACE_PITCH}))
+            rows.append(('/api/set', statistics.median(ms), nb))
+            step = 2 * VIEWS_DPITCH * TRACE_Q
+            moves = [b - a for a, b in zip(czs, czs[1:])]
+            print(f'phase 36 /api/set of the pitch +{VIEWS_DPITCH}, '
+                  f'+{2 * VIEWS_DPITCH}, back: the focus centroid z '
+                  f'{[round(c, 5) for c in czs]} mm (steps {moves}, '
+                  f'expected {step}, {step}, {-2 * step})', flush=True)
+            check(abs(moves[0] / step - 1) < 0.15 and
+                  abs(moves[1] / step - 1) < 0.15 and
+                  abs(czs[3] - czs[0]) < 1e-6, f'36 /api/set: {czs}')
+        finally:
+            ui.stop()
+        for path, m, nb in rows:
+            print(f'phase 36 request {path}: {m:.2f} ms (median of 3), '
+                  f'device-to-host {nb} bytes', flush=True)
+            check(nb is None or nb < VIEWS_D2H_LIMIT,
+                  f'36 {path} copied {nb} bytes to the host')
+        timing['views_rows'] = rows
+
+        # (c) the command line: serve --ui with phase 33's layout and
+        # without one (assembly), glow and bob, all at once
+        env = dict(os.environ, PYTHONPATH=root)
+        py = [sys.executable, '-m', 'xrt_tpu_torch']
+        layout = os.path.join(d, 'config4.json')
+        with open(layout, 'w') as f:
+            f.write(timing['layout_json'])
+        nrays = json.loads(timing['layout_json'])['elements'][0][
+            'params'].get('nrays')
+        cmds = {'ui': py + ['serve', layout, '--ui', '--port', '0'],
+                'asm': py + ['serve', '--ui', '--port', '0'],
+                'glow': py + ['glow', layout, '--save',
+                              os.path.join(d, 'c4.html')],
+                'bob': py + ['bob', layout, '--out', os.path.join(d, 'bob')]}
+        logs = {}
+        t0 = time.perf_counter()
+        for name, cmd in cmds.items():
+            logs[name] = os.path.join(d, name + '.log')
+            with open(logs[name], 'w') as fo:
+                procs[name] = subprocess.Popen(
+                    cmd, stdout=fo, stderr=subprocess.STDOUT, text=True,
+                    env=env, cwd=d, start_new_session=True)
+
+        def log(name):
+            with open(logs[name]) as f:
+                return f.read()
+
+        def address(name):
+            m = None
+            while m is None and procs[name].poll() is None and \
+                    time.perf_counter() - t0 < VIEWS_TIMEOUT:
+                time.sleep(0.2)
+                m = re.search(r'beamline UI on (http://[\d.]+:\d+)/',
+                              log(name))
+            check(m is not None, f'36 serve --ui ({name}): '
+                  f'{log(name)[-4000:]}')
+            return m.group(1)
+        ub = address('ui')
+        t_up = time.perf_counter() - t0
+        h0, t_h = http_json(ub, '/api/hist')
+        els = http_json(ub, '/api/elements')[0]
+        oe = next(n for n, p in els.items() if isinstance(
+            p.get('pitch'), float) and n != list(els)[0])
+        r, t_s = http_json(ub, '/api/set', {
+            'element': oe, 'param': 'pitch',
+            'value': els[oe]['pitch'] + 1e-5})
+        h1 = http_json(ub, '/api/hist')[0]
+        print(f'phase 36 serve --ui with phase 33\'s configuration-4 '
+              f'layout ({nrays} rays): up in {t_up:.1f} s, /api/hist '
+              f'{t_h:.1f} ms ({h0["nGood"]} good rays, cz {h0["cz"]:.6g}), '
+              f'/api/set {oe}.pitch +1e-5 {t_s:.1f} ms (cz '
+              f'{h1["cz"]:.6g})', flush=True)
+        check(r.get('ok') and h0['nGood'] > 0 and h1['nGood'] > 0 and
+              h1 != h0, '36 serve --ui with a layout')
+        ab = address('asm')
+        reg = http_json(ab, '/api/registry')[0]['classes']
+        check({'GeometricSource', 'ToroidMirror', 'Screen'} <= set(reg),
+              '36 /api/registry')
+        p, q = TRACE_P, TRACE_Q
+        adds = [
+            {'name': 'src', 'class': 'GeometricSource',
+             'params': {'nrays': 1_000_000, 'dx': 0.1, 'dz': 0.05,
+                        'dxprime': 3e-5, 'dzprime': 3e-5,
+                        'distE': 'flat', 'energies': [8900.0, 9100.0]}},
+            {'name': 'm1', 'class': 'ToroidMirror', 'distance': p,
+             'pitch': TRACE_PITCH,
+             'material': {'catalog': 'elemental', 'name': 'Rh'},
+             'params': {'R': 2 * p * q / (p + q) / math.sin(TRACE_PITCH),
+                        'r': 2 * p * q / (p + q) * math.sin(TRACE_PITCH),
+                        'limPhysX': [-20, 20], 'limPhysY': [-300, 300]}},
+            {'name': 'scr', 'class': 'Screen', 'distance': q}]
+        t_add = []
+        for a in adds:
+            r, t_ = http_json(ab, '/api/add', a)
+            check(r.get('ok'), f'36 /api/add {a["name"]}: {r}')
+            t_add.append(t_)
+        hs = http_json(ab, '/api/hist?beam=scr')[0]
+        r = http_json(ab, '/api/reorder', {'order': ['src', 'm1', 'scr']})[0]
+        check(r.get('order') == ['src', 'm1', 'scr'], f'36 reorder: {r}')
+        r = http_json(ab, '/api/remove', {'name': 'scr'})[0]
+        check(r.get('elements') == ['src', 'm1'], f'36 remove: {r}')
+        text_layout = http(ab, '/api/layout')[0].decode()
+        r = http_json(ab, '/api/load', {'json': text_layout})[0]
+        check(r.get('elements') == ['src', 'm1'], f'36 load: {r}')
+        code = http(ab, '/api/codegen')[0].decode()
+        print(f'phase 36 serve --ui assembly: registry of {len(reg)} '
+              f'classes; GeometricSource (1e6 rays), ToroidMirror, Screen '
+              f'added in {[round(t_, 1) for t_ in t_add]} ms, the screen '
+              f'{hs["nGood"]} good rays; reorder, remove, layout -> load '
+              f'round trip ({len(text_layout)} bytes), codegen '
+              f'{len(code)} bytes', flush=True)
+        check(hs['nGood'] > 0 and 'ToroidMirror' in code,
+              '36 assembly session')
+        for name in ('ui', 'asm'):
+            os.killpg(procs[name].pid, 9)
+            procs[name].wait()
+        for name in ('glow', 'bob'):
+            try:
+                procs[name].wait(timeout=max(1.0, VIEWS_TIMEOUT -
+                                             (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f'36 {name} did not finish in '
+                                 f'{VIEWS_TIMEOUT} s')
+            check(procs[name].returncode == 0,
+                  f'36 {name} exited {procs[name].returncode}: '
+                  f'{log(name)[-4000:]}')
+        nfiles = sum(len(fs) for _, _, fs in os.walk(os.path.join(d,
+                                                                  'bob')))
+        hsize = os.path.getsize(os.path.join(d, 'c4.html'))
+        print(f'phase 36 glow {os.path.basename(layout)}: {hsize} bytes of '
+              f'HTML; bob: {nfiles} screens; the subprocesses took '
+              f'{time.perf_counter() - t0:.1f} s together', flush=True)
+        check(nfiles == len(json.loads(timing['layout_json'])['elements'])
+              + 1 and hsize > 1000, '36 glow / bob')
+    finally:
+        for pr in procs.values():
+            if pr.poll() is None:
+                os.killpg(pr.pid, 9)
+                pr.wait()
+
+    # (d) the PV layer: the Qook projects' screens, an IOC on a stand-in
+    try:
+        qook = os.path.join(root, 'tests', 'data', 'qook')
+        counts = []
+        for fn, _ in QOOK_FILES:
+            prj = load_qook_project(os.path.join(qook, fn),
+                                    nrays=QOOK_NRAYS)
+            files = epics.generate_bob_screens(
+                prj.beamline, os.path.join(d, 'qook', fn))
+            npv = sum(len(s.pvs) for s in epics.iter_element_specs(
+                prj.beamline))
+            check(len(files) == len(prj.beamline._elements) + 1,
+                  f'36 bob {fn}: {len(files)} screens')
+            counts.append((fn, len(files), npv))
+        print(f'phase 36 bob screens of the nine Qook projects (file, '
+              f'screens, PVs): {counts}', flush=True)
+        mod, made = fake_softioc()
+        sys.modules['softioc'] = mod
+        sys.modules['softioc.builder'] = mod.builder
+        recorded = dict(bl._elements)
+        traces = []
+
+        def trace_fn(bl_):
+            changed = {n: el for n, el in bl_._elements.items()
+                       if el is not recorded[n]}
+            t0 = time.perf_counter()
+            out = ioc_readbacks(flow.replay(replace=changed))
+            traces.append((time.perf_counter() - t0) * 1e3)
+            return out
+        try:
+            ioc = epics.EpicsIOC(bl, prefix='XRT:', trace_fn=trace_fn)
+        finally:
+            sys.modules.pop('softioc', None)
+            sys.modules.pop('softioc.builder', None)
+        ioc.records['AutoUpdate'].set(True)
+        errs = []
+        for k in (1, 2, 0):
+            ioc.records['mirror:pitch'].caput(TRACE_PITCH + k *
+                                              VIEWS_DPITCH)
+            fresh = BeamLine()
+            for name, kind, method, kw in bl.flow:
+                fresh.add(name, bl[name], kind, method, **kw)
+            full = ioc_readbacks(fresh.propagate_flow(
+                torch.Generator('cuda').manual_seed(VIEWS_SEED)))
+            got = ioc.records['screen:flux'].get()
+            errs.append(abs(got / full['screen']['flux'] - 1))
+            img = ioc.records['screen:image'].get()
+            check(img.size == 128 * 128 and img.sum() > 0 and
+                  np.array_equal(img, full['screen']['image'].cpu().numpy(
+                  ).ravel()), f'36 IOC image after pitch write {k}')
+        print(f'phase 36 EpicsIOC on a stand-in softioc: '
+              f'{len(ioc.records)} records; three writes of mirror:pitch, '
+              f'each a replay from the mirror ({[round(t_, 1) for t_ in traces]}'
+              f' ms); screen flux against a full re-trace {errs} (limit '
+              f'1e-9), images bit-identical', flush=True)
+        check(len(traces) == 3 and max(errs) < 1e-9, f'36 IOC: {errs}')
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    timing['views_launches'] = dict(th.LAUNCHES)
+    print(f'phase 36 kernel launches of the views: '
+          f'{timing["views_launches"]}; the phase took '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    check(sum(v for k, v in th.LAUNCHES.items()
+              if k.startswith('hist2d:k1')) > 0,
+          '36: hist2d_kernel was not launched on the views\' path')
+
+
+def views_main(layout, out):
+    """``chip_smoke.py --views LAYOUT OUT``: phase 36 on the JSON layout
+    LAYOUT (phase 33's) in this process, its kernels row written to OUT
+    as JSON; non-zero if a check fails."""
+    with open(layout) as f:
+        timing = {'layout_json': f.read()}
+    try:
+        phase_views(timing)
+        rows = views_rows(timing)
+    except PhaseError as e:
+        print(f'chip_smoke --views: FAILED: {e}', file=sys.stderr)
+        return 1
+    with open(out, 'w') as f:
+        json.dump(rows, f)
+    return 0
+
+
+def phase_views_process(timing):
+    """Phase 36 in a fresh process of this script (``--views``): once this
+    process has spawned phase 34b's ranks, torch.profiler here no longer
+    sees its copies to pageable host memory (a 4000-byte ``.cpu()`` leaves
+    no memcpy event; a fresh process sees it), and phase 36 counts bytes
+    by those events.  The child sets and reads the launch counts of its
+    own path; its lines print here, its kernels row comes back as JSON;
+    it is killed with everything it started if it outlives its time."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        layout, out = os.path.join(d, 'layout.json'), os.path.join(d, 'row')
+        with open(layout, 'w') as f:
+            f.write(timing['layout_json'])
+        sys.stdout.flush()
+        proc = subprocess.Popen([sys.executable, os.path.join(
+            root, 'chip_smoke.py'), '--views', layout, out], cwd=root,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=3 * VIEWS_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f'36 did not finish in {3 * VIEWS_TIMEOUT} s')
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        check(rc == 0 and os.path.exists(out), f'36 exited {rc}')
+        with open(out) as f:
+            timing['views_rows_line'] = json.load(f)
+
+
+def views_rows(timing):
+    """The kernels line's row of phase 36: ``hist2d_kernel`` at the
+    /api/hist table's shape (the good rays of the 1e7-ray image into
+    80 x 80), its launches on the views' path (every /api/hist and
+    /api/probe: the table and two 128-bin widths; the IOC's images)."""
+    import torch
+    from xrt_tpu_torch import histogram as th
+    x, y, w, bins, xr, zr = timing['views_hist_args']
+    args = (x, y, w[:, None], bins, bins, xr, zr)
+    route = th.hist_route(bins, bins, 1)
+    kernel = lambda: th.hist2d_kernel(*args)
+    kernel()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(kernel, 20)[0] for _ in range(3))
+    got = kernel()
+    plain_ms, _ = cuda_ms(lambda: th.hist2d_plain(*args))
+    ref = th.hist2d_plain(*args, sum_dtype=torch.float64)
+    rel, ab, _ = hist_errors(got, ref)
+    fx, inx = th._bin_index(x, xr, bins)
+    fy, iny = th._bin_index(y, zr, bins)
+    inside = inx & iny
+    flat = torch.where(inside, fy * bins + fx, torch.zeros_like(fx)).long()
+    wi = torch.where(inside[:, None], args[2], torch.zeros_like(args[2]))
+    library = lambda: torch.zeros((bins * bins, 1), device='cuda',
+                                  dtype=wi.dtype).index_add_(0, flat, wi)
+    library()
+    lib_ms = statistics.median(cuda_ms(library, 20)[0] for _ in range(3))
+    n = x.shape[0]
+    bms = 1e3 * (4.0 * n * 3 + 4.0 * bins * bins) / PEAK_BYTES
+    launches = sum(v for k, v in timing['views_launches'].items()
+                   if k.startswith('hist2d:k1'))
+    print(f'phase 5 hist2d:views: {n} rays into {bins} x {bins} ({route}), '
+          f'kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, index_add_ '
+          f'{lib_ms:.4f} ms, bound {bms:.4f} ms (bytes), launches '
+          f'{launches} (phase 36)', flush=True)
+    check(launches > 0, 'hist2d:views was not launched on its path')
+    return [dict(name='hist2d:views', route='cuda', source=SOURCES['hist2d'],
+                 replaces=REPLACES['hist2d'], launches=launches,
+                 max_abs_err=ab, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bms, bound_by='bytes', library_ms=lib_ms)]
+
+
 #: the ray paths of phases 21-25 and 27-29, by their keys in ``timing``
 OE_HIST_KEYS = ('laue', 'crl', 'multilayer', 'powder', 'fe:waviness',
                 'fe:roughness', 'fe:bump', 'capillary', 'mesh:quad',
@@ -6371,6 +7043,8 @@ def main():
         phase_card()
         sweep_plain_blocks()
         return 0
+    if sys.argv[1:2] == ['--views']:
+        return views_main(*sys.argv[2:4])
     t_all = time.perf_counter()
     timing = {}
     try:
@@ -6409,12 +7083,14 @@ def main():
         phase_layouts(timing)
         phase_multicard(timing)
         phase_cli(timing)
+        phase_views_process(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + coherence_rows(timing) + \
             oe_physics_rows(timing) + fe_wave_rows(timing) + \
             oe_physics_rows(timing, SLICE_HIST_KEYS) + \
-            oe_physics_rows(timing, timing['qook_keys'])
+            oe_physics_rows(timing, timing['qook_keys']) + \
+            timing['views_rows_line']
     except PhaseError as e:
         print(f'chip_smoke: FAILED: {e}', file=sys.stderr)
         return 1

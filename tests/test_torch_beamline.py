@@ -13,8 +13,7 @@ JAX package, float64.
   coherency, states) to 1e-9 and their 2D histograms to 1e-9 of the
   largest bin, and the focus under 20 um in both planes (the limit of
   ``tests/test_baseline_configs.py``).
-* What the port leaves to ROADMAP A11 (the 3D view ``glow``) raises naming
-  it.
+* The 3D view ``glow`` of an empty beamline writes a file.
 """
 import json
 import math
@@ -170,12 +169,15 @@ def test_config4_focus_matches_jax():
     assert timg.z.numpy()[good].std() < 0.02
 
 
-def test_host_layers_raise_naming_the_item():
-    # of the host layers only the 3D view is left to ROADMAP A11; the flow,
-    # alarms and layouts are ported (tests/test_torch_layouts.py)
+def test_host_layers_raise_naming_the_item(tmp_path):
+    # every host layer is ported: the 3D view of an empty beamline is a
+    # file with an empty scene (tests/test_torch_glow.py), the flow,
+    # alarms and layouts are tested in tests/test_torch_layouts.py
     bl = tbl.BeamLine()
-    with pytest.raises(NotImplementedError, match='A11'):
-        bl.glow()
+    out = bl.glow(save=str(tmp_path / 'empty.html'))
+    html = open(out).read()
+    assert html.startswith('<!DOCTYPE html>')
+    assert '"elements": [], "segments": []' in html
     assert bl.propagate_flow() == {}
     assert bl.check_alarms({}) == []
     assert json.loads(bl.export_to_json())['elements'] == []

@@ -8,8 +8,9 @@
   printed six digits, rtol 2e-5).
 * ``info``, ``trace`` (the printed flux and centroids equal those of the
   same seed through the API), ``codegen`` (the written script runs),
-  ``qook`` on ``BioXAS_Main.xml``; ``glow``, ``bob`` and ``serve --ui``
-  raise, citing ROADMAP A11.
+  ``qook`` on ``BioXAS_Main.xml``; ``glow`` writes the HTML view, ``bob``
+  the Phoebus screens, and ``serve --ui`` (a subprocess) answers
+  ``/api/elements``.
 * ``serve`` (``main()`` in a thread) answers list / get / set / acquire /
   shutdown from a ``BeamLineClient`` and returns 0.
 * ``trace --multihost`` in two processes over gloo (``--coordinator`` on
@@ -195,9 +196,59 @@ def test_qook_project(tmp_path):
 
 @pytest.mark.parametrize('argv', (['glow', 'bl.json'], ['bob', 'bl.json'],
                                   ['serve', '--ui']))
-def test_views_raise_citing_a11(argv):
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        main(argv)
+def test_views_write_and_serve(argv, layout, tmp_path):
+    """``glow`` writes the standalone HTML view of the layout, ``bob`` one
+    Phoebus screen per element and the workflow screen, and ``serve --ui``
+    (a subprocess on a free port, killed afterwards) answers
+    ``/api/elements`` with the layout's elements."""
+    import json
+    import urllib.request
+    argv = [layout if a == 'bl.json' else a for a in argv]
+    if argv[0] == 'glow':
+        out = str(tmp_path / 'glow.html')
+        assert f'wrote {out}' in run(main, argv + ['--save', out,
+                                                   '--device', 'cpu'])
+        html = open(out).read()
+        scene = json.loads(re.search(r'const SCENE = (\{.*?\});\n', html,
+                                     re.S).group(1))
+        assert {e['name'] for e in scene['elements']} == \
+            {'source', 'mirror', 'screen'}
+        return
+    if argv[0] == 'bob':
+        out = str(tmp_path / 'bob')
+        printed = run(main, argv + ['--out', out, '--device', 'cpu'])
+        files = sorted(os.path.relpath(os.path.join(d, f), out)
+                       for d, _, fs in os.walk(out) for f in fs)
+        assert files == ['oes/mirror.bob', 'screens/screen.bob',
+                         'sources/source.bob', 'workflow.bob']
+        assert printed.count('wrote ') == 4
+        return
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'xrt_tpu_torch'] + argv +
+        ['--device', 'cpu', '--port', '0'], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=ENV, cwd=ROOT,
+        start_new_session=True)
+    # a server that never prints its address is killed (its output then
+    # ends)
+    import threading
+    timer = threading.Timer(120, os.killpg, (proc.pid, 9))
+    timer.start()
+    try:
+        out, m = [], None
+        for line in proc.stdout:
+            out.append(line)
+            m = re.search(r'http://([\d.]+):(\d+)/', line)
+            if m:
+                break
+        assert m, ''.join(out)
+        url = f'http://{m.group(1)}:{m.group(2)}/api/elements'
+        with urllib.request.urlopen(url, timeout=60) as r:
+            assert json.loads(r.read()) == {}
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+        proc.wait(timeout=60)
 
 
 def _free_port():

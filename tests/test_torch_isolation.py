@@ -15,6 +15,8 @@
   package's.
 * ``chip_smoke.py`` on a host without a CUDA device exits non-zero and
   prints no result.
+* The walk covers the views (``glow``, ``epics``, ``webui``); the web
+  page and its class registry name no module of the JAX package.
 * The walk covers the multi-card package ``xrt_tpu_torch/parallel/`` and
   the command line: ``python -m xrt_tpu_torch --help`` leaves no ``jax``,
   ``flax`` or ``xrt_tpu`` module in ``sys.modules``, and ``python -m
@@ -224,6 +226,22 @@ def test_the_walk_covers_the_multi_card_package():
     files = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert os.path.join('xrt_tpu_torch', 'parallel', '__init__.py') in files
     assert os.path.join('xrt_tpu_torch', '__main__.py') in files
+
+
+def test_the_walk_covers_the_views():
+    import json
+    from xrt_tpu_torch import webui
+    files = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ('glow', 'epics', 'webui'):
+        assert os.path.join('xrt_tpu_torch', mod + '.py') in files
+    text = webui._PAGE + json.dumps(
+        {cls: webui._create_defaults(webui._registry_class(cls))
+         for _, cls in webui._REGISTRY})
+    assert not re.search(r'xrt_tpu(?!_torch)', text)
+    assert 'xrt_tpu_torch' in webui._PAGE
+    for _, cls in webui._REGISTRY:
+        m = getattr(webui._registry_class(cls), '__module__', '')
+        assert m.split('.')[0] == 'xrt_tpu_torch', (cls, m)
 
 
 def test_command_line_help_imports_no_jax():

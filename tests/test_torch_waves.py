@@ -222,16 +222,12 @@ def test_unported_options_raise_naming_the_roadmap(jax_side):
     (a, b, c), (src, slit, tor, scr) = port_waves(jax_side)
     s0 = src.shine(None, a)
     # diffract(mesh=) and WaveChain.build(mesh=) are ported
-    # (tests/test_torch_parallel.py), but not with tiles; the 3D view is
-    # not ported yet and raises naming its ROADMAP item
+    # (tests/test_torch_parallel.py), but not with tiles
     with pytest.raises(ValueError, match='tile_modes'):
         tw.diffract(s0, b, tile_modes=[[('fast', 'vpu')]], mesh=object())
     chain = WaveChain(src, nrays=10).through_aperture(slit)
     with pytest.raises(ValueError, match='tiled'):
         chain.build(mesh=object(), tiled=True, device='cpu')
-    from xrt_tpu_torch.beamline import BeamLine
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        BeamLine().glow()
     # figure errors and voxel-volume (TXM) materials are ported too
     # (tests/test_torch_figure_error.py, tests/test_torch_txm.py): an OE
     # takes a figure error

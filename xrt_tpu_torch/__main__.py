@@ -20,15 +20,19 @@ that traces exits with an error.  ``trace --multihost`` starts one process
 per card (by hand with ``--coordinator``, ``--num-processes`` and
 ``--process-id``, or under ``torchrun``), each tracing its own rays; the
 histograms are summed over the ranks (:mod:`xrt_tpu_torch.parallel`).
-``glow``, ``bob`` and ``serve --ui`` (the 3D view, the Phoebus screens and
-the browser page) are not ported yet (ROADMAP A11).
+``glow`` writes the 3D view, ``bob`` the Phoebus screens, and ``serve
+--ui`` serves the browser page (:mod:`xrt_tpu_torch.webui`): with a layout
+it records the flow and replays it on each edit, without one it starts an
+empty beamline in assembly mode.
+
+    python -m xrt_tpu_torch glow beamline.json [--save glow.html]
+    python -m xrt_tpu_torch bob beamline.json [--out bob]
+    python -m xrt_tpu_torch serve [beamline.json] --ui [--port P]
 """
 from __future__ import annotations
 
 import argparse
 import sys
-
-_A11 = 'is not ported yet: ROADMAP A11 (the views and control surfaces)'
 
 
 def main(argv=None):
@@ -153,13 +157,6 @@ def main(argv=None):
             args.beamline is None:
         ap.error('serve: a beamline JSON file is required without --ui')
 
-    if args.cmd == 'glow':
-        raise NotImplementedError(f'glow {_A11}')
-    if args.cmd == 'bob':
-        raise NotImplementedError(f'bob {_A11}')
-    if args.cmd == 'serve' and args.ui:
-        raise NotImplementedError(f'serve --ui {_A11}')
-
     if args.cmd == 'codegen':
         from .codegen import generate_script
         text = generate_script(args.beamline, repeats=args.repeats)
@@ -186,12 +183,51 @@ def main(argv=None):
         return _qook(args, dev)
 
     from .beamline import BeamLine
-    bl = BeamLine.load_from_json(args.beamline, device=dev)
+    bl = BeamLine.load_from_json(args.beamline, device=dev) \
+        if args.beamline is not None else None
 
     if args.cmd == 'info':
         for name, kind, method, _ in bl.flow:
             el = bl[name]
             print(f'{name:>16}  {type(el).__name__:<24} .{method}()')
+        return 0
+
+    if args.cmd == 'glow':
+        fn = bl.glow(save=args.save, maxRays=args.max_rays)
+        print(f'wrote {fn if fn else args.save}')
+        return 0
+
+    if args.cmd == 'bob':
+        from .epics import generate_bob_screens
+        files = generate_bob_screens(bl, args.out, args.prefix)
+        for fn in files:
+            print(f'wrote {fn}')
+        return 0
+
+    if args.cmd == 'serve' and args.ui:
+        import torch
+        from .webui import WebUI
+        if bl is None:
+            # assembly from scratch: an empty beamline, traced with the
+            # default flow as elements are added
+            bl = BeamLine(name='new beamline')
+            srv = WebUI(bl, host=args.host, port=args.port,
+                        device=dev).start()
+        else:
+            # a loaded beamline: record its flow so parameter edits replay
+            # only the dirty part; the first structural edit (add, remove,
+            # reorder) switches the session to assembly mode
+            from .flow import record_flow
+            with record_flow(bl) as flow:
+                bl.propagate_flow(torch.Generator(dev).manual_seed(0))
+            srv = WebUI(bl, flow, host=args.host, port=args.port,
+                        device=dev).start()
+        print(f'beamline UI on http://{srv.host}:{srv.port}/ (element '
+              'tree + assembly + 3D view + live histogram)', flush=True)
+        try:
+            srv._thread.join()
+        except KeyboardInterrupt:
+            srv.stop()
         return 0
 
     if args.cmd == 'serve':

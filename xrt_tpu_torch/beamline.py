@@ -20,8 +20,7 @@ builds run on their own device.
 A layout names each element's class and module.  The module is resolved
 below its top-level package name inside this package
 (:func:`_layout_module`), so the two packages read each other's layouts.
-The 3D view (``glow``) comes with ROADMAP A11 and raises
-``NotImplementedError``.
+``glow`` writes the 3D view (:mod:`xrt_tpu_torch.glow`).
 """
 from __future__ import annotations
 
@@ -36,8 +35,6 @@ import torch
 
 from . import config
 from .transforms import rotate_xyz
-
-_A11 = 'is not ported yet: ROADMAP A11 (the 3D view)'
 
 
 def _rot_matrix(seq, pitch, roll, yaw):
@@ -356,8 +353,39 @@ class BeamLine:
             globalBeams[name] = beam
         return beams
 
-    def glow(self, *args, **kwargs):
-        raise NotImplementedError(f'BeamLine.glow {_A11}')
+    def glow(self, beams=None, save='glow.html', maxRays=200, scan=None,
+             flow=None, generator=None):
+        """Headless 3D view of the beamline layout and traced beams: the
+        capability analog of the reference's ``bl.glow()`` Qt/OpenGL
+        viewer (beamline.py:888, gui/xrtGlow).  Writes a standalone
+        interactive HTML file (or a PNG if *save* ends with '.png') and
+        returns the file name.  *beams*: an ordered {name: Beam} of global
+        beams, e.g. from :meth:`propagate_flow`.
+
+        *scan*: ``{'element': name, 'param': field, 'values': [...]}``
+        animates a parameter sweep with a play slider (the reference's
+        xrtGlow scan player, gui/xrtGlow/widgets/scan.py): each frame is
+        a dirty-aware flow replay at one value.  Pass a recorded *flow*
+        (:func:`xrt_tpu_torch.flow.record_flow`) or one is recorded here
+        with *generator* (seed 0 on the first source's device if None)."""
+        from . import glow as _glow
+        if scan is not None:
+            if flow is None:
+                from .flow import record_flow
+                with record_flow(self) as flow:
+                    self.propagate_flow(generator)
+            frames = _glow.build_scan_frames(
+                self, flow, scan['element'], scan['param'],
+                scan['values'], maxRays=maxRays)
+            return _glow.export_scan_html(
+                frames, fileName=save,
+                title=f"{self.name or 'beamline'} — scan "
+                      f"{scan['element']}.{scan['param']}")
+        if str(save).endswith('.png'):
+            return _glow.export_png(self, beams=beams, fileName=save,
+                                    maxRays=maxRays)
+        return _glow.export_html(self, beams=beams, fileName=save,
+                                 maxRays=maxRays)
 
     def check_alarms(self, beams, threshold=0.5):
         """The elements of the flow that lose more than *threshold* of the
