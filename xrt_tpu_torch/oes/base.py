@@ -19,13 +19,19 @@ filtered: the ``state`` mask selects which rays change.
 
 The search is a vectorized Illinois (modified regula falsi) iteration on
 all rays in lockstep with a convergence mask, then two Newton steps.  The
-iteration runs under ``torch.no_grad()`` and reads ``any(active)`` to the
-host once per iteration: at the ray counts of a trace one iteration is
-tens of kernel launches over the whole ray state, so the read costs less
-than one more iteration would.  The Newton steps are differentiable torch
-operations: they polish the root (float32 at t ~ 1e4 mm has ~6e-4 mm
-ulps, so the bracket alone cannot give float32 accuracy) and carry the
-implicit-function gradient dt/dparams = -dF/dparams / dF/dt.
+iteration runs under ``torch.no_grad()`` and reads the count of active
+rays to the host once per iteration, stopping at 0: at the ray counts of
+a trace one iteration is tens of kernel launches over the whole ray
+state, so the read costs less than one more iteration would.  The Newton
+steps are differentiable torch operations: they polish the root (float32
+at t ~ 1e4 mm has ~6e-4 mm ulps, so the bracket alone cannot give float32
+accuracy) and carry the implicit-function gradient dt/dparams =
+-dF/dparams / dF/dt.  While the profiler traces (``profiler.tracing``),
+the search is the span ``oes.search`` and counts its calls, iterations,
+rays evaluated and rays still active (``search.calls``,
+``search.iterations``, ``search.ray_evals``, ``search.active``, the last
+from that one read); ``reflect`` is the span ``oes.reflect`` and
+``_interact`` within it ``oes.interact``.
 
 Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
@@ -56,6 +62,7 @@ from ..beam import Beam, rotate_coherency_matrix
 from ..materials.crystal import _over
 from ..ops.dd import sqrt_rn
 from ..physconsts import CH, CHBAR
+from ..profiler import count, stage
 from ..sources.geometric import _draw
 from ..transforms import (cos, global_to_virgin_local, rotate_beam, rotate_x,
                           rotate_y, sin,
@@ -112,53 +119,63 @@ def find_intersection_dz(dz_fn, tMin, tMax, x, y, z, a, b, c,
     def F(t):
         return dz_fn(x + a * t, y + b * t, z + c * t)
 
-    with torch.no_grad():
-        fa, fb = F(tMin), F(tMax)
-        lost = active & (fa <= 0)       # started below the surface
-        over = active & (fb >= 0)       # never crosses within the bracket
-        good = active & ~(lost | over)
-        # Illinois iteration on the bracket [ta, tb] with f(ta) > 0 > f(tb)
-        ta, tb = tMin, tMax
-        ts = torch.where(good, 0.5 * (ta + tb), tMax)
-        act = good
-        for _ in range(max_iterations):
-            if not bool(torch.any(act)):
-                break
-            denom = fb - fa
-            denom = torch.where(denom == 0, torch.ones_like(denom), denom)
-            tn = ta - fa * (tb - ta) / denom
-            # fall back to bisection when the step leaves the bracket
-            bad = (tn <= torch.minimum(ta, tb)) | \
-                (tn >= torch.maximum(ta, tb)) | torch.isnan(tn)
-            tn = torch.where(bad, 0.5 * (ta + tb), tn)
-            fs = F(tn)
-            keep_a = fs <= 0          # root in [ta, tn]
-            # halving the stale endpoint's value keeps the convergence
-            # superlinear
-            upd_a = act & ~keep_a
-            upd_b = act & keep_a
-            fa = torch.where(upd_a, fs, torch.where(upd_b, fa * 0.5, fa))
-            fb = torch.where(upd_b, fs, torch.where(upd_a, fb * 0.5, fb))
-            ta = torch.where(upd_a, tn, ta)
-            tb = torch.where(upd_b, tn, tb)
-            ts = torch.where(act, tn, ts)
-            # the absolute eps is unreachable in float32 at beamline
-            # scales, so the bracket width is also tested relative to t;
-            # the Newton steps below restore full precision
-            tol = eps + rel * (torch.abs(ta) + torch.abs(tb))
-            act = act & (torch.abs(fs) > eps) & (torch.abs(tb - ta) > tol)
-        t0 = torch.where(good, ts, torch.where(lost, tMin, tMax))
+    with stage('oes.search', device=x):
+        with torch.no_grad():
+            fa, fb = F(tMin), F(tMax)
+            lost = active & (fa <= 0)     # started below the surface
+            over = active & (fb >= 0)     # never crosses within the bracket
+            good = active & ~(lost | over)
+            # Illinois iteration on the bracket [ta, tb], f(ta) > 0 > f(tb)
+            ta, tb = tMin, tMax
+            ts = torch.where(good, 0.5 * (ta + tb), tMax)
+            act = good
+            count('search.calls')
+            for _ in range(max_iterations):
+                n_active = int(act.count_nonzero())
+                if n_active == 0:
+                    break
+                count('search.iterations')
+                count('search.ray_evals', act.numel())
+                count('search.active', n_active)
+                denom = fb - fa
+                denom = torch.where(denom == 0, torch.ones_like(denom),
+                                    denom)
+                tn = ta - fa * (tb - ta) / denom
+                # fall back to bisection when the step leaves the bracket
+                bad = (tn <= torch.minimum(ta, tb)) | \
+                    (tn >= torch.maximum(ta, tb)) | torch.isnan(tn)
+                tn = torch.where(bad, 0.5 * (ta + tb), tn)
+                fs = F(tn)
+                keep_a = fs <= 0          # root in [ta, tn]
+                # halving the stale endpoint's value keeps the convergence
+                # superlinear
+                upd_a = act & ~keep_a
+                upd_b = act & keep_a
+                fa = torch.where(upd_a, fs,
+                                 torch.where(upd_b, fa * 0.5, fa))
+                fb = torch.where(upd_b, fs,
+                                 torch.where(upd_a, fb * 0.5, fb))
+                ta = torch.where(upd_a, tn, ta)
+                tb = torch.where(upd_b, tn, tb)
+                ts = torch.where(act, tn, ts)
+                # the absolute eps is unreachable in float32 at beamline
+                # scales, so the bracket width is also tested relative to
+                # t; the Newton steps below restore full precision
+                tol = eps + rel * (torch.abs(ta) + torch.abs(tb))
+                act = act & (torch.abs(fs) > eps) & \
+                    (torch.abs(tb - ta) > tol)
+            t0 = torch.where(good, ts, torch.where(lost, tMin, tMax))
 
-    t = t0
-    for _ in range(2):       # quadratic: two steps reach machine precision
-        Ft, dFt = torch.func.jvp(F, (t,), (torch.ones_like(t),))
-        dFt = torch.where(torch.abs(dFt) < 1e-12,
-                          torch.full_like(dFt, 1e-12), dFt)
-        t = t - Ft / dFt
-    # keep the Newton result only where it stays within the bracket
-    ok = good & (t >= tMin) & (t <= tMax) & torch.isfinite(t)
-    t = torch.where(ok, t, t0)
-    return t, x + a * t, y + b * t, z + c * t, lost
+        t = t0
+        for _ in range(2):   # quadratic: two steps reach machine precision
+            Ft, dFt = torch.func.jvp(F, (t,), (torch.ones_like(t),))
+            dFt = torch.where(torch.abs(dFt) < 1e-12,
+                              torch.full_like(dFt, 1e-12), dFt)
+            t = t - Ft / dFt
+        # keep the Newton result only where it stays within the bracket
+        ok = good & (t >= tMin) & (t <= tMax) & torch.isfinite(t)
+        t = torch.where(ok, t, t0)
+        return t, x + a * t, y + b * t, z + c * t, lost
 
 
 def _merge_by_mask(old: Beam, new: Beam, mask) -> Beam:
@@ -630,15 +647,18 @@ class OE(config.Replaceable):
         grating's facet) is evaluated where the samples are: in float32 the
         round trip through global coordinates moves them by ulp(|centre|),
         ~2e-3 mm at 26 m, a grating period's scale."""
-        good_in = beam.state > 0
-        lb = global_to_virgin_local(beam, self.center)
-        pitch, roll, yaw, dx, dy, dz = self._placement(is2ndXtal)
-        lb, out = self._reflect_local(
-            lb, good_in, pitch, roll, yaw, dx, dy, dz, fromVacuum=fromVacuum,
-            is2ndXtal=is2ndXtal, noIntersectionSearch=noIntersectionSearch,
-            surfacePoints=surfacePoints, generator=generator, draws=draws)
-        glo = virgin_local_to_global(lb, self.center)
-        merged = _merge_by_mask(beam, glo, good_in)
+        with stage('oes.reflect', device=beam.x):
+            good_in = beam.state > 0
+            lb = global_to_virgin_local(beam, self.center)
+            pitch, roll, yaw, dx, dy, dz = self._placement(is2ndXtal)
+            lb, out = self._reflect_local(
+                lb, good_in, pitch, roll, yaw, dx, dy, dz,
+                fromVacuum=fromVacuum, is2ndXtal=is2ndXtal,
+                noIntersectionSearch=noIntersectionSearch,
+                surfacePoints=surfacePoints, generator=generator,
+                draws=draws)
+            glo = virgin_local_to_global(lb, self.center)
+            merged = _merge_by_mask(beam, glo, good_in)
         if needLocal:
             return merged, out
         return merged
@@ -731,9 +751,10 @@ class OE(config.Replaceable):
         lb = lb.replace(state=state)
         goodN = state == 1
         lb = lb.replace(path=torch.where(goodN, lb.path + t, lb.path))
-        lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
-                                       material, local_n, generator, draws,
-                                       is2ndXtal=is2ndXtal)
+        with stage('oes.interact', device=lb.x):
+            lb, rollAngle = self._interact(lb, goodN, roll, fromVacuum, t,
+                                           material, local_n, generator,
+                                           draws, is2ndXtal=is2ndXtal)
         if param:
             # back to cartesian, keeping the parametric impact coordinates
             xC, yC, zC = self.param_to_xyz(lb.x, lb.y, lb.z)

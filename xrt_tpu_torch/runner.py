@@ -19,6 +19,7 @@ passes.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -32,6 +33,7 @@ from .histogram import hist1d, hist2d, hist_plot_kernel, hist_plot_plain
 from .ops.dd import sqrt_rn
 from .physconsts import SIE0
 from .plotspec import HUE_DEAD, HUE_GOOD, HUE_OUT, HUE_OVER, XYCPlot
+from .profiler import count, is_tracing, next_pass, report, stage, tracing
 
 # ---------------------------------------------------------------------------
 # beam getters
@@ -319,6 +321,21 @@ def _accumulate(plot: XYCPlot, h):
     plot.repeats += 1
 
 
+def _alloc_stats(device):
+    """The caching allocator's ``cudaMalloc`` calls on *device* so far,
+    while tracing on a card; else None."""
+    if device.type != 'cuda' or not is_tracing():
+        return None
+    return torch.cuda.memory_stats(device).get('segment.all.allocated', 0)
+
+
+def _count_allocs(before, device):
+    """Count the allocator's ``cudaMalloc`` calls since *before*."""
+    after = None if before is None else _alloc_stats(device)
+    if after is not None:
+        count('alloc.segments', after - before)
+
+
 RUN_HISTORY_FILE = 'lastRuns.pickle'
 
 
@@ -388,12 +405,22 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
     (:func:`~xrt_tpu_torch.parallel.sharded_step`), and every rank
     accumulates the same totals.  *updateEvery* re-renders the plots with a
     ``saveName`` every so many passes; all of them are rendered at the end.
-    *verbose* prints each pass's time and the profiler's report of the
-    stages ``runner.step`` and ``runner.accumulate``, which block on the
-    card."""
+    *verbose* prints each pass's time and the profiler's report of its
+    stages, and records their spans and counters (``profiler.tracing()``),
+    as it does while a ``torch.profiler`` session records.
+
+    Each pass is ``runner.step``, which blocks on the card, then
+    ``runner.accumulate``.  ``runner.step`` holds ``runner.process`` (the
+    pass's ``run_process``, or ``sharded_step`` with *mesh*) and one
+    ``runner.histogram`` a plot; the elements' own spans (``oes.reflect``
+    and inside it ``oes.search`` and ``oes.interact``) nest in
+    ``runner.process``.  While tracing, every pass (and a calibration
+    pass) takes a new pass id (``profiler.next_pass()``), and on a card
+    ``runner.step`` counts the caching allocator's ``cudaMalloc`` calls of
+    the pass (``alloc.segments``); ``profiler.spans()`` and
+    ``profiler.counters()`` return them until ``profiler.reset()``."""
     from . import config
     from .parallel import sharded_step
-    from .profiler import report, stage
     if isinstance(plots, XYCPlot):
         plots = [plots]
     if isinstance(generator, torch.Generator):
@@ -411,17 +438,27 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
         # calibration pass for auto limits
         if any(ax.limits is None or isinstance(ax.limits, str)
                for p in plots for ax in (p.xaxis, p.yaxis, p.caxis)):
+            next_pass()
             calibrate_limits(plots, run_process(beamLine, rng))
         t0 = time.time()
+        dev = rng.device
         for it in range(repeats):
-            with stage('runner.step', block=rng.device):
-                if mesh is not None:
-                    hists = sharded_step(run_process, beamLine, plots, mesh,
-                                         rng)
-                else:
-                    beams = run_process(beamLine, rng)
-                    hists = [histogram_plot(plot, beams) for plot in plots]
-            with stage('runner.accumulate'):
+            next_pass()
+            with stage('runner.step', block=dev, device=dev):
+                alloc0 = _alloc_stats(dev)
+                with stage('runner.process', device=dev):
+                    if mesh is not None:
+                        hists = sharded_step(run_process, beamLine, plots,
+                                             mesh, rng)
+                    else:
+                        beams = run_process(beamLine, rng)
+                if mesh is None:
+                    hists = []
+                    for plot in plots:
+                        with stage('runner.histogram', device=dev):
+                            hists.append(histogram_plot(plot, beams))
+                _count_allocs(alloc0, dev)
+            with stage('runner.accumulate', device=dev):
                 for plot, h in zip(plots, hists):
                     _accumulate(plot, h)
             if updateEvery and (it + 1) % updateEvery == 0 and \
@@ -445,11 +482,12 @@ def run_ray_tracing(plots, repeats=1, beamLine=None, run_process=None,
                 save_plot(plot, plot.saveName)
 
     t_run0 = time.time()
-    if generator is None:
-        one_scan_point()
-    else:
-        for _ in generator(*generatorArgs):
+    with tracing() if verbose else contextlib.nullcontext():
+        if generator is None:
             one_scan_point()
+        else:
+            for _ in generator(*generatorArgs):
+                one_scan_point()
     if historyFile:
         store_run_history(t_run0, time.time(), tag=historyTag,
                           fileName=historyFile)
