@@ -4,12 +4,12 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-six phases and exits
+process per source, in parallel), then runs thirty-seven phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions, the build time, the registers and spills of the forward
-   Kirchhoff, adjoint and histogram kernels;
+   Kirchhoff, adjoint, histogram and toroid search kernels;
 2. kernels against their plain PyTorch versions on the card: kernel B1
    (recentred; mono, narrowband, poly, every ``accumulate`` value) and B2
    (per-pair double-float; 'fast', 'exact') at 8192 x 16384 pairs to
@@ -137,11 +137,21 @@ non-zero if any fails:
     three histograms through ``hist2d_kernel`` (400 x 400 and two
     128 x 128; 864 launches): the time, rays/s, the time per source and
     the accumulated flux, with xrt's published i7 times as context; one
-    step of each source split by CUDA events (source, reflect and its
-    bracket + search alone with the Illinois iterations, expose, the
+    step of each source split by CUDA events (source, reflect, the
+    generic bracket + search alone with its Illinois iterations, expose, the
     histograms and their share of the step); the three histograms of a
     step against ``hist2d_plain`` with float64 sums (< 1e-5, the same
     non-empty bins);
+37. (run after phase 15) the toroid crystals' search kernel
+    (``csrc/toroid_search.cu``, ``oes/toroid_search.py``) on speed test
+    1's analyzer: 1e7 float32 and 1e6 float64 rays of its flat source
+    against the generic ``find_intersection_dz`` (t off by more than 4 ulp
+    / 1e-9 mm on at most 1e-4 of the rays, ``lost`` identical), the
+    kernel's time against its bytes and instruction bounds and the
+    generic search's, ``reflect`` through the kernel and through the
+    generic search (one launch / none; s and p flux within 1e-5), and the
+    gradient case at 1e5 float64 rays (t0 from the kernel, the Newton
+    steps on the tape: t and dt/dh of a height offset to 1e-9);
 16. the DCM trace: GeometricSource -> Si(111) DCM (30 m, fixed exit
     20 mm, the golden's Bragg angle) -> screen, +-8 eV, 1e7 rays a pass,
     float32, 4 passes through ``run_ray_tracing`` with one energy-coloured
@@ -515,6 +525,12 @@ SX_GOLDEN = 'tests/golden/ref_softimax.npz'
 #: xrt's speed test 1 (tools/torch_bench_analyzer.py): rays a step and
 #: steps a source, nothing cut
 AN_NRAYS, AN_REPEATS = 100_000, 96
+#: phase 37, the toroid search kernel: rays of the float32 and float64
+#: checks; the share of rays whose t may differ from the generic search's
+#: by more than 4 ulp (float32) or 1e-9 mm (float64), and the s and p flux
+#: of the reflected beams (relative)
+TS_NRAYS, TS_NRAYS_F64 = 10_000_000, 1_000_000
+TS_T_SHARE, TS_FLUX_LIMIT = 1e-4, 1e-5
 #: the DCM trace at the geometry of the golden (tests/test_trace_parity.py)
 DCM_E0, DCM_P = 9000.0, 30000.0
 DCM_GOLDEN = 'tests/golden/ref_trace_dcm.npz'
@@ -644,7 +660,7 @@ def phase_card():
           f'{t:.2f} s', flush=True)
     for name in ('kirchhoff_recentred', 'kirchhoff_ddphase',
                  'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd',
-                 'hist2d', 'hist_plot'):
+                 'hist2d', 'hist_plot', 'toroid_search'):
         for fn, regs, st, ld in ptxas_rows(_cuda.build_log(name)):
             print(f'phase 1 ptxas {name} {fn}: {regs} registers, spill '
                   f'stores {st} B, loads {ld} B', flush=True)
@@ -2454,8 +2470,9 @@ def phase_analyzer(timing):
     for i, (src_ms, refl, expo, hist, s_ms, it) in enumerate(splits):
         step = src_ms + refl + expo + hist
         print(f'phase 15 source {i} one step (CUDA events): source '
-              f'{src_ms:.2f} ms, reflect {refl:.2f} ms (bracket + search '
-              f'alone {s_ms:.2f} ms in {it} Illinois iterations), expose '
+              f'{src_ms:.2f} ms, reflect {refl:.2f} ms (the generic '
+              f'bracket + search alone {s_ms:.2f} ms in {it} Illinois '
+              f'iterations; the reflect takes the kernel), expose '
               f'{expo:.2f} ms, three histograms {hist:.3f} ms '
               f'({100 * hist / step:.2f}% of the step)', flush=True)
     # the device's busy share of a step: the kernel time torch.profiler
@@ -2496,6 +2513,158 @@ def phase_analyzer(timing):
     timing['analyzer'] = dict(launches=launches, args=kargs,
                               step_ms=[sum(s[:4]) for s in splits],
                               hist_ms=[s[3] for s in splits])
+
+
+def search_inputs(oe, beam):
+    """The local rays, bracket and active mask of *oe*'s search on
+    *beam*, as OE._reflect_local forms them, and its search function."""
+    import torch
+    from xrt_tpu_torch.transforms import global_to_virgin_local, rotate_beam
+    pitch, roll, yaw = oe._placement()[0:3]
+    lb = rotate_beam(global_to_virgin_local(beam, oe.center),
+                     rotationSequence=oe.rotationSequence, pitch=-pitch,
+                     roll=-roll, yaw=-yaw)
+    rays = (lb.x, lb.y, lb.z, lb.a, lb.b, lb.c)
+
+    def dz_fn(xx, yy, zz):
+        surf = oe.local_z(xx, yy)
+        return zz - torch.where(torch.isnan(surf), torch.zeros_like(surf),
+                                surf)
+    return rays, oe._bracket(*rays), lb.state > 0, dz_fn
+
+
+def generic_copy(oe):
+    """*oe* with its own surface as a plain function: the dispatch keeps
+    it on the generic search."""
+    own = oe.local_z
+    return oe.replace(local_z=lambda x, y: own(x, y))
+
+
+def search_differences(got, ref, tol_ulp=None, tol_mm=None):
+    """(share of rays whose t differs by more than the tolerance, lost
+    masks equal, largest difference in mm)."""
+    import torch
+    tg, tr = got[0].double(), ref[0].double()
+    d = (tg - tr).abs()
+    same_nan = torch.isnan(tg) == torch.isnan(tr)
+    d = torch.where(torch.isnan(d), torch.zeros_like(d), d)
+    if tol_ulp is not None:
+        tr32 = ref[0].float()
+        ulp = (torch.nextafter(tr32.abs(), torch.full_like(tr32, math.inf))
+               - tr32.abs()).double()
+        off = (d > tol_ulp * ulp) | ~same_nan
+    else:
+        off = (d > tol_mm) | ~same_nan
+    return (float(off.double().mean()), bool(torch.equal(got[4], ref[4])),
+            float(d.max()))
+
+
+def phase_toroid_search(timing):
+    """Phase 37 (run after phase 15): the toroid crystals' search kernel
+    (csrc/toroid_search.cu, oes/toroid_search.py) against the generic
+    search on the analyzer of speed test 1: 1e7 float32 rays (t, lost, the
+    reflected beams' s and p flux, the kernel's time against its bounds),
+    1e6 float64 rays, and the gradient case (t0 from the kernel, the
+    Newton steps on the tape)."""
+    import torch
+    from xrt_tpu_torch.oes import base as oebase
+    from xrt_tpu_torch.oes import toroid_search as ts
+    from xrt_tpu_torch.ops import _cuda
+    tool = port_tool('torch_bench_analyzer')
+    for fn, regs, st, ld in ptxas_rows(_cuda.build_log('toroid_search')):
+        print(f'phase 37 ptxas toroid_search {fn}: {regs} registers, '
+              f'spill stores {st} B, loads {ld} B', flush=True)
+    for dtype, nrays in ((torch.float32, TS_NRAYS),
+                         (torch.float64, TS_NRAYS_F64)):
+        sources, analyzer, _, _ = tool.build(nrays, dtype, 'cuda')
+        gen = torch.Generator('cuda').manual_seed(37)
+        beam = sources[0].shine(gen)
+        rays, (tMin, tMax), active, dz_fn = search_inputs(analyzer, beam)
+        check(ts.engages(analyzer, beam.x.device, dtype),
+              'phase 37: the analyzer does not engage the kernel')
+        ts.LAUNCHES.clear()
+
+        def fused():
+            return ts.search(analyzer, tMin, tMax, *rays, active, 1, dz_fn)
+
+        def generic():
+            return oebase.find_intersection_dz(dz_fn, tMin, tMax, *rays,
+                                               active=active)
+        fused()
+        generic()      # the allocator's first growth out of the timing
+        k_ms, got = cuda_ms(fused, 20)
+        g_ms, ref = cuda_ms(generic, 2)
+        f32 = dtype == torch.float32
+        share, lost_eq, dmax = search_differences(
+            got, ref, tol_ulp=4 if f32 else None,
+            tol_mm=None if f32 else 1e-9)
+        hit = int((active & ~ref[4] & (ref[0] < tMax)).sum())
+        print(f'phase 37 {dtype} {nrays} analyzer rays ({hit} hit): kernel '
+              f'{k_ms:.3f} ms, generic search {g_ms:.2f} ms '
+              f'({g_ms / k_ms:.1f}x); t off by more than '
+              f'{"4 ulp" if f32 else "1e-9 mm"} on {share:.3e} of the rays '
+              f'(largest {dmax:.3e} mm), lost identical {lost_eq}; '
+              f'launches {dict(ts.LAUNCHES)}', flush=True)
+        check(lost_eq, f'phase 37 {dtype}: lost masks differ')
+        check(share <= TS_T_SHARE, f'phase 37 {dtype}: t differs on '
+              f'{share:.3e} of the rays')
+        check(ts.LAUNCHES[f'toroid_search:{dtype}'] == 21,
+              f'phase 37: launches {dict(ts.LAUNCHES)}')
+        if f32:
+            bytes_ms = 1e3 * 50 * nrays / PEAK_BYTES
+            print(f'phase 37 kernel against its bounds: {k_ms:.3f} ms; '
+                  f'bytes {bytes_ms:.3f} ms ({100 * bytes_ms / k_ms:.1f}%), '
+                  f'instructions ~2 ms (~17 evaluations of ~400 '
+                  f'instructions a ray)', flush=True)
+            timing['toroid_search'] = dict(kernel_ms=k_ms, generic_ms=g_ms,
+                                           bytes_ms=bytes_ms)
+        # the reflected beams through the kernel and through the generic
+        # search: the same rays, the same s and p flux
+        outs = []
+        for oe in (analyzer, generic_copy(analyzer)):
+            ts.LAUNCHES.clear()
+            glo, loc = oe.reflect(beam, torch.Generator('cuda').manual_seed(
+                38))
+            good = loc.state == 1
+            outs.append((good, float(loc.Jss[good].double().sum()),
+                         float(loc.Jpp[good].double().sum()),
+                         sum(ts.LAUNCHES.values())))
+        (gk, sk, pk, nk), (gg, sg, pg, ng) = outs
+        ds, dp = abs(sk - sg) / abs(sg), abs(pk - pg) / abs(pg)
+        same = float((gk != gg).double().mean())
+        print(f'phase 37 {dtype} reflect: kernel launches {nk} / {ng}; good '
+              f'rays {int(gk.sum())} / {int(gg.sum())} (differ on '
+              f'{same:.2e}); s flux {sk:.9e} / {sg:.9e} ({ds:.2e}), p flux '
+              f'{pk:.9e} / {pg:.9e} ({dp:.2e})', flush=True)
+        check(nk == 1 and ng == 0, f'phase 37: reflect launches {nk}, {ng}')
+        check(ds <= TS_FLUX_LIMIT and dp <= TS_FLUX_LIMIT,
+              f'phase 37 {dtype}: flux {ds:.3e}, {dp:.3e}')
+        del got, ref, beam, rays, tMin, tMax, active, outs, glo, loc
+        torch.cuda.empty_cache()
+    # the gradient case: t and dt/dh (h a height offset of the rays)
+    sources, analyzer, _, _ = tool.build(100_000, torch.float64, 'cuda')
+    beam = sources[0].shine(torch.Generator('cuda').manual_seed(39))
+    rays, _, active, dz_fn = search_inputs(analyzer, beam)
+    res = []
+    for fn in ('fused', 'generic'):
+        h = torch.zeros((), dtype=torch.float64, device='cuda',
+                        requires_grad=True)
+        r = (*rays[:2], rays[2] + h, *rays[3:])
+        tMin, tMax = analyzer._bracket(*r)
+        ts.LAUNCHES.clear()
+        out = ts.search(analyzer, tMin, tMax, *r, active, 1, dz_fn) \
+            if fn == 'fused' else oebase.find_intersection_dz(
+                dz_fn, tMin, tMax, *r, active=active)
+        hit = active & ~out[4] & (out[0] < tMax)
+        g, = torch.autograd.grad(out[0][hit].sum(), h)
+        res.append((out[0].detach(), float(g), sum(ts.LAUNCHES.values())))
+    (tk, gk, nk), (tg, gg, _) = res
+    dt = float((tk - tg).abs().nan_to_num(0).max())
+    print(f'phase 37 gradient case (float64, 1e5 rays): kernel launches '
+          f'{nk}, t within {dt:.2e} mm, dt/dh {gk:.12e} / {gg:.12e}',
+          flush=True)
+    check(nk == 1 and dt <= 1e-9 and abs(gk - gg) <= 1e-9 * abs(gg),
+          f'phase 37 gradient case: {nk}, {dt:.3e}, {gk}, {gg}')
 
 
 def dcm_trace_line(nrays, dtype):
@@ -7063,6 +7232,7 @@ def main():
         phase_softimax(timing)
         phase_softimax_cross()
         phase_analyzer(timing)
+        phase_toroid_search(timing)
         phase_dcm(timing)
         phase_config4(timing)
         phase_coherent_modes(timing)

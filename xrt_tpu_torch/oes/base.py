@@ -17,21 +17,24 @@ through the crystal's grating vector (``_grating_deflection``), mosaic
 (``_mosaic_normal``), with the two-beam amplitudes.  Rays are never
 filtered: the ``state`` mask selects which rays change.
 
-The search is a vectorized Illinois (modified regula falsi) iteration on
-all rays in lockstep with a convergence mask, then two Newton steps.  The
-iteration runs under ``torch.no_grad()`` and reads the count of active
-rays to the host once per iteration, stopping at 0: at the ray counts of
-a trace one iteration is tens of kernel launches over the whole ray
-state, so the read costs less than one more iteration would.  The Newton
-steps are differentiable torch operations: they polish the root (float32
-at t ~ 1e4 mm has ~6e-4 mm ulps, so the bracket alone cannot give float32
+The search (``find_intersection_dz``) is a vectorized Illinois (modified
+regula falsi) iteration on all rays in lockstep with a convergence mask,
+then two Newton steps.  The iteration runs under ``torch.no_grad()`` and
+reads the count of active rays to the host once per iteration, stopping
+at 0: one iteration is tens of kernel launches over the whole ray state,
+so the read costs less than one more iteration would.  The Newton steps
+are differentiable torch operations: they polish the root (float32 at t ~
+1e4 mm has ~6e-4 mm ulps, so the bracket alone cannot give float32
 accuracy) and carry the implicit-function gradient dt/dparams =
--dF/dparams / dF/dt.  While the profiler traces (``profiler.tracing``),
-the search is the span ``oes.search`` and counts its calls, iterations,
-rays evaluated and rays still active (``search.calls``,
-``search.iterations``, ``search.ray_evals``, ``search.active``, the last
-from that one read); ``reflect`` is the span ``oes.reflect`` and
-``_interact`` within it ``oes.interact``.
+-dF/dparams / dF/dt.  The toroid crystals' own surfaces on a card go to
+one CUDA kernel instead (``oes/toroid_search.py``): the same solve with no
+host read and one launch a call, the Newton steps left on the tape when
+autograd records.  While the profiler traces (``profiler.tracing``),
+either search is the span ``oes.search`` and counts its calls,
+iterations, rays evaluated and rays still active (``search.calls``,
+``search.iterations``, ``search.ray_evals``, ``search.active``; the
+kernel also ``search.fused``); ``reflect`` is the span ``oes.reflect``
+and ``_interact`` within it ``oes.interact``.
 
 Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
@@ -67,6 +70,7 @@ from ..sources.geometric import _draw
 from ..transforms import (cos, global_to_virgin_local, rotate_beam, rotate_x,
                           rotate_y, sin,
                           virgin_local_to_global)
+from . import toroid_search
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -680,7 +684,8 @@ class OE(config.Replaceable):
         (virgin-local beam, true-local beam)."""
         if material is None:
             material = self.material
-        if local_z is None:
+        own_z = local_z is None
+        if own_z:
             local_z = self.local_z
         if local_n is None:
             local_n = self.local_n
@@ -728,6 +733,11 @@ class OE(config.Replaceable):
             if hasattr(self, 'analytic_intersect'):
                 t, xx, yy, zz, lost = self.analytic_intersect(tMin, tMax,
                                                               *ray)
+            elif toroid_search.engages(self, lb.x.device, lb.x.dtype,
+                                       None if own_z else local_z, isMulti,
+                                       inv):
+                t, xx, yy, zz, lost = toroid_search.search(
+                    self, tMin, tMax, *ray, good, inv, dz_fn)
             else:
                 t, xx, yy, zz, lost = find_intersection_dz(
                     dz_fn, tMin, tMax, *ray, active=good)

@@ -13,9 +13,11 @@ so the kernels fuse explicitly where no error-free transform lives: the
 amplitude and the ten sums of the forward kernels (B1, B2 on the skeleton
 ``csrc/kirchhoff_fwd.cuh``), the reverse sweeps of the adjoint kernels (B3
 on ``csrc/kirchhoff_bwd.cuh``), and ``two_prod``'s error term.  The pair
-functions of both skeletons are also compiled for the host by the CPU
-tests (``tests/test_torch_forward.py``, ``tests/test_torch_adjoint.py``)
-against a stub of the CUDA runtime.  No ``--use_fast_math``: ``sqrtf``,
+functions of both skeletons, and the toroid crystals' per-ray search
+(``csrc/toroid_search.cuh``), are also compiled for the host by the CPU
+tests (``tests/test_torch_forward.py``, ``tests/test_torch_adjoint.py``,
+``tests/test_torch_search_kernel.py``) against a stub of the CUDA
+runtime.  No ``--use_fast_math``: ``sqrtf``,
 ``1.0f / x``, ``sinf`` and ``cosf`` stay IEEE.  ``-Xptxas -v`` puts every
 kernel's registers and spills into the build log, which is kept beside
 the library (:func:`build_log`).
@@ -39,7 +41,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: kernel sources, one shared library each
 SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
            'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
-           'hist2d', 'hist_plot')
+           'hist2d', 'hist_plot', 'toroid_search')
 
 
 def nvcc() -> str:
