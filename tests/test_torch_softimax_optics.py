@@ -8,7 +8,10 @@ Both sides run the same operations eagerly on the same seeded inputs:
   included) and ``get_grating_area_fraction``: float64 to 1e-12 of each
   quantity's largest magnitude; float32 (the JAX elements' parameters cast
   to float32, as the JAX package stores them in a float32 run) to 2 ulp of
-  each value (transcendental functions may differ in the last ulp);
+  each value (transcendental functions may differ in the last ulp), but
+  for the grating, whose groove arithmetic the port runs in float64 for
+  float32 rays too (ROADMAP C8): its float32 values are the JAX package's
+  float64 values on the same float32 inputs, rounded to float32, to 2 ulp;
 * ``reflect`` with the search (the grating: its analytic intersection) and
   without it, on the same beams, float64 to 1e-10 (after a search the
   fields to 1e-7 with their propagation phase k t taken out: both
@@ -121,16 +124,22 @@ def test_grating_surface_f64(els):
         float(jpg.get_grating_area_fraction()), rel=1e-12)
 
 
+def rounded(v):
+    """A float64 JAX value rounded to float32."""
+    return np.asarray(v, np.float64).astype(np.float32)
+
+
 def test_grating_surface_f32(els):
-    tpg, jpg = els[0]['pg'], f32_twin(els[1]['pg'])
+    tpg, jpg = els[0]['pg'], els[1]['pg']
     x, y = grating_points(tpg, seed=1)
     x, y = x.astype(np.float32), y.astype(np.float32)
     tx, ty = torch.from_numpy(x), torch.from_numpy(y)
-    jx, jy = jnp.asarray(x), jnp.asarray(y)
-    assert jpg.local_z(jx, jy).dtype == jnp.float32
-    close_ulp(tpg.local_z(tx, ty), jpg.local_z(jx, jy))
+    jx, jy = jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64)
+    assert jpg.local_z(jx, jy).dtype == jnp.float64
+    assert tpg.local_z(tx, ty).dtype == torch.float32
+    close_ulp(tpg.local_z(tx, ty), rounded(jpg.local_z(jx, jy)))
     for a, b in zip(tpg.local_n(tx, ty), jpg.local_n(jx, jy)):
-        close_ulp(a, b)
+        close_ulp(a, rounded(b) * np.ones_like(x))
 
 
 def ray_batch(seed, n, dtype=np.float64):
@@ -149,16 +158,15 @@ def ray_batch(seed, n, dtype=np.float64):
 
 @pytest.mark.parametrize('f32', [False, True], ids=['f64', 'f32'])
 def test_grating_analytic_intersect(els, f32):
-    tpg = els[0]['pg']
-    jpg = f32_twin(els[1]['pg']) if f32 else els[1]['pg']
+    tpg, jpg = els[0]['pg'], els[1]['pg']
     ray = ray_batch(2, 500, np.float32 if f32 else np.float64)
     t_out = tpg.analytic_intersect(None, None,
                                    *(torch.from_numpy(v) for v in ray))
-    j_out = jpg.analytic_intersect(None, None,
-                                   *(jnp.asarray(v) for v in ray))
+    j_out = jpg.analytic_intersect(
+        None, None, *(jnp.asarray(v, jnp.float64) for v in ray))
     for a, b in zip(t_out[:4], j_out[:4]):
         if f32:
-            close_ulp(a, b)
+            close_ulp(a, rounded(b))
         else:
             close(a, b)
     assert not bool(t_out[4].any())

@@ -16,7 +16,11 @@ Port of the reference package's ``oes/gratings.py``:
 
 Facet and groove indices are taken by true divisions by 0-dim tensors
 (PyTorch's CUDA division by a Python number multiplies by the reciprocal,
-and a sample at an edge could land on the other side).  The zone index of
+and a sample at an edge could land on the other side).  The blazed
+grating's groove arithmetic runs in float64 whatever the rays' dtype: its
+antiblaze facet is ~1.1e-8 mm wide at 300 lines/mm, below float32's
+rounding of y (a few 1e-6 mm at |y| ~ 40 mm), so a float32 groove index
+put samples near an edge on the wrong facet.  The zone index of
 ``NormalFZP`` is n = 2 r^2 / ((sqrt(f^2 + r^2) + f) lambda), the reference's
 2 (sqrt(f^2 + r^2) - f) / lambda without the difference of two numbers
 near f, which in float32 is one ulp of f: 1770 zones at f = 2000 mm, 9 keV
@@ -203,39 +207,51 @@ class BlazedGrating(OE):
         return 1.0 / self.rho
 
     def _consts(self, like):
-        """(period, tan blaze, tan antiblaze) as 0-dim tensors of *like*'s
-        dtype and device."""
+        """(period, tan blaze, tan antiblaze) as 0-dim float64 tensors on
+        *like*'s device."""
         def T(v):
-            return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+            return torch.as_tensor(v, dtype=torch.float64, device=like.device)
         return (T(1.0) / T(self.rho), torch.tan(T(self.blaze)),
                 torch.tan(T(self.antiblaze)))
 
     def _local_pre(self, y):
+        """The groove arithmetic in float64, whatever *y*'s dtype: (y, y1,
+        yC, yL, tanB, tanA) with y as float64, y1 the period's end, yC the
+        antiblaze facet's width and yL the in-period coordinate (the blaze
+        facet is yL > yC)."""
+        y = y.to(torch.float64)
         rho_1, tanB, tanA = self._consts(y)
         y0 = torch.floor(y / rho_1) * rho_1
         y1 = y0 + rho_1
         yL = y - y0
         yC = (y1 - y0) / (1 + tanA / tanB)
-        return y0, y1, yC, yL, tanB, tanA
+        return y, y1, yC, yL, tanB, tanA
 
     def local_z(self, x, y):
-        y0, y1, yC, yL, tanB, tanA = self._local_pre(y)
-        return torch.where(yL > yC, -(y1 - y) * tanB, -yL * tanA)
+        y64, y1, yC, yL, tanB, tanA = self._local_pre(y)
+        return torch.where(yL > yC, -(y1 - y64) * tanB,
+                           -yL * tanA).to(y.dtype)
 
     def local_n(self, x, y):
-        y0, y1, yC, yL, tanB, tanA = self._local_pre(y)
+        _, _, yC, yL, _, _ = self._local_pre(y)
 
         def T(v):
-            return torch.as_tensor(v, dtype=y.dtype, device=y.device)
+            return torch.as_tensor(v, dtype=torch.float64, device=y.device)
         blaze, anti = T(self.blaze), T(self.antiblaze)
         on_blaze = yL > yC
         return [torch.zeros_like(x),
-                torch.where(on_blaze, -torch.sin(blaze), torch.sin(anti)),
-                torch.where(on_blaze, torch.cos(blaze), torch.cos(anti))]
+                torch.where(on_blaze, -torch.sin(blaze),
+                            torch.sin(anti)).to(y.dtype),
+                torch.where(on_blaze, torch.cos(blaze),
+                            torch.cos(anti)).to(y.dtype)]
 
     def analytic_intersect(self, tMin, tMax, x, y, z, a, b, c):
         """The hit on the blaze facet of the period that holds the ray's
-        z = 0 crossing (the first, illuminated facet crossing)."""
+        z = 0 crossing (the first, illuminated facet crossing), in float64
+        like the groove arithmetic of :meth:`local_z`, returned in the
+        rays' dtype."""
+        dt = y.dtype
+        x, y, z, a, b, c = (v.to(torch.float64) for v in (x, y, z, a, b, c))
         rho_1, tanB, _ = self._consts(y)
         b_c = b / torch.where(c == 0, torch.full_like(c, -1e-12), c)
         yz = y - b_c * z
@@ -244,7 +260,8 @@ class BlazedGrating(OE):
         y2 = b_c * (z2 - z) + y
         t2 = (y2 - y) / torch.where(b == 0, torch.full_like(b, 1e-12), b)
         x2 = x + t2 * a
-        return t2, x2, y2, z2, torch.zeros_like(t2, dtype=torch.bool)
+        return (t2.to(dt), x2.to(dt), y2.to(dt), z2.to(dt),
+                torch.zeros_like(t2, dtype=torch.bool))
 
     def get_grating_area_fraction(self):
         """Illuminated fraction of the period at the grating's pitch (host

@@ -35,12 +35,17 @@ import torch
 import torch.utils.checkpoint
 
 from ..physconsts import PI
+from ..profiler import count, stage
 from . import dd
 
 SRC_CHUNK = 512
 
 #: kernel launches by 'kernel:variant', counted where each kernel launches
-#: (``LAUNCHES.clear()`` before a run, read after it)
+#: (``LAUNCHES.clear()`` before a run, read after it).  While the profiler
+#: traces, each forward launch (B1, B2) also adds to the counters
+#: ``kirchhoff.launches`` and ``kirchhoff.pairs`` (its destinations x
+#: sources), and the per-point preparation around the kernels is the span
+#: ``waves.prep``.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -668,14 +673,27 @@ def forward_grid(nd, ns_pad):
     return ntile, max(ngroup, 1)
 
 
+def _forward_inputs(D, S, P):
+    """(D, source rows, P) as the forward kernels read them: *D* and *P*
+    contiguous, the rows of *S* from :func:`forward_sources`."""
+    D = D.contiguous()
+    P = None if P is None else P.contiguous()
+    return D, forward_sources(S), P
+
+
 def _forward_pass(scheme, variant, D, S, P):
     """The pass of kernel B1 (*scheme* 'recentred') or B2 ('ddphase'): the
     source groups' partial sums (ngroup, 10, Nd)."""
-    from . import _cuda
     dev = _check_kernel_inputs(*(t for t in (D, S, P) if t is not None))
-    D = D.contiguous()
-    P = None if P is None else P.contiguous()
-    rows = forward_sources(S)
+    with stage('waves.prep', device=dev):
+        D, rows, P = _forward_inputs(D, S, P)
+    return _forward_launch(scheme, variant, D, rows, P)
+
+
+def _forward_launch(scheme, variant, D, rows, P):
+    """The pass on prepared inputs (:func:`_forward_inputs`)."""
+    from . import _cuda
+    dev = D.device
     nd, ns_pad = D.shape[1], rows.shape[0]
     _, ngroup = forward_grid(nd, ns_pad)
     part = torch.empty((ngroup, 10, nd), dtype=torch.float32, device=dev)
@@ -704,22 +722,35 @@ def _forward_reduce(name, part):
     return out
 
 
+def _forward_sums(scheme, variant, part):
+    """The ten sums (10, Nd) of the pass's partials *part*: the second
+    kernel, and one launch of the scheme's kernel in :data:`LAUNCHES`."""
+    out = _forward_reduce(f'kirchhoff_{scheme}', part)
+    names = _RECENTRED_NAMES if scheme == 'recentred' else _DD_NAMES
+    LAUNCHES[f'kirchhoff_{scheme}:{names[variant]}'] += 1
+    return out
+
+
 def _launch_recentred(D, S, P, variant):
     """Kernel B1 on the structure of arrays *D* (6 or 8, Nd), *S* (20, 23 or
     24, Ns) and the scalars *P* (10,), all f32 on one CUDA device.  Returns
     the ten sums (10, Nd); one launch in :data:`LAUNCHES`."""
-    out = _forward_reduce('kirchhoff_recentred',
-                          _forward_pass('recentred', variant, D, S, P))
-    LAUNCHES[f'kirchhoff_recentred:{_RECENTRED_NAMES[variant]}'] += 1
-    return out
+    return _forward_sums('recentred', variant,
+                         _forward_pass('recentred', variant, D, S, P))
 
 
 def _launch_ddphase(D, S, variant):
     """Kernel B2 on *D* (6, Nd) and *S* (20, Ns); (10, Nd)."""
-    out = _forward_reduce('kirchhoff_ddphase',
-                          _forward_pass('ddphase', variant, D, S, None))
-    LAUNCHES[f'kirchhoff_ddphase:{_DD_NAMES[variant]}'] += 1
-    return out
+    return _forward_sums('ddphase', variant,
+                         _forward_pass('ddphase', variant, D, S, None))
+
+
+def _count_forward(nd, ns):
+    """The profiler's counters of one forward launch over *nd*
+    destinations and *ns* sources (before their padding), while
+    tracing."""
+    count('kirchhoff.launches')
+    count('kirchhoff.pairs', nd * ns)
 
 
 def adjoint_grid(nd, ns_pad):
@@ -913,6 +944,7 @@ class _KirchhoffRecentred(torch.autograd.Function):
         elif D.device.type == 'cuda':
             S = _pad_sources(S)
             out = _launch_recentred(D, S, P, variant)
+            _count_forward(D.shape[1], ctx.ns)
         else:
             raise ValueError(f'no Kirchhoff kernel for {D.device}')
         ctx.save_for_backward(D, S, P)
@@ -943,6 +975,7 @@ class _KirchhoffDDPhase(torch.autograd.Function):
         elif D.device.type == 'cuda':
             S = _pad_sources(S)
             out = _launch_ddphase(D, S, variant)
+            _count_forward(D.shape[1], ctx.ns)
         else:
             raise ValueError(f'no Kirchhoff kernel for {D.device}')
         ctx.save_for_backward(D, S)
@@ -968,7 +1001,8 @@ def _complex5(out):
 def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                               weights, phase_mode='recentred',
                               monochromatic=False, accumulate='mxu',
-                              narrowband='auto', check_envelope=True):
+                              narrowband='auto', check_envelope=True,
+                              graph=False):
     """The Kirchhoff double sum in float32, differentiable in all twelve
     inputs: the CUDA kernels (forward and adjoint) for CUDA tensors, their
     plain PyTorch versions for CPU tensors.
@@ -992,7 +1026,109 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     The per-point preparation is ordinary differentiable torch; the pair
     sums are one ``torch.autograd.Function`` whose backward recomputes the
     pairs (nothing per pair is kept).  The envelope checks read detached
-    float64 copies on the host."""
+    float64 copies on the host.
+
+    *graph* (a caller that runs many calls of one shape, such as the tile
+    pairs of a tiled stage): on the card, with nothing to differentiate,
+    no host read to make (``check_envelope=False``, *narrowband* not
+    'auto') and tensors for every argument, the per-point preparation is
+    replayed from a CUDA graph (:func:`_graphed_sums`): the same
+    operations on the same values, so the same bits, but for a slice that
+    starts off a 16-byte boundary, whose recentring means the graph's
+    aligned copy may add in another order."""
+    opts = (phase_mode, monochromatic, accumulate, narrowband,
+            check_envelope)
+    if graph and not check_envelope and narrowband != 'auto':
+        flat = _flat_args(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
+                          weights)
+        if all(isinstance(t, torch.Tensor) and t.is_cuda and
+               not t.requires_grad for t in flat):
+            return _graphed_sums(flat, opts)
+    with stage('waves.prep', device=_astuple(xs)[0]):
+        scheme, variant, D, S, P = _prepared_inputs(
+            xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights, *opts)
+    if scheme == 'recentred':
+        out = _KirchhoffRecentred.apply(D, S, P, variant)
+    else:
+        out = _KirchhoffDDPhase.apply(D, S, variant)
+    with stage('waves.prep', device=D):
+        return _complex5(out)
+
+
+def _flat_args(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights):
+    """The twelve arguments of :func:`kirchhoff_integral_kernel` as one
+    list (positions and k as (hi, lo) pairs, n as three members)."""
+    pairs = [_astuple(v) for v in (xd, yd, zd, xs, ys, zs, k)]
+    return [*(t for p in pairs[:6] for t in p), Es, Ep, *pairs[6], *n, nl,
+            weights]
+
+
+def _args_of(f):
+    """The twelve arguments from :func:`_flat_args`'s list *f*."""
+    return (*[(f[i], f[i + 1]) for i in range(0, 12, 2)], f[12], f[13],
+            (f[14], f[15]), [f[16], f[17], f[18]], f[19], f[20])
+
+
+#: the captured per-point preparations of :func:`_graphed_sums`, by the
+#: call's options and its arguments' shapes, dtypes and card; each kept
+#: for the life of the process (a SoftiMAX chain captures three)
+_PREP_GRAPHS = {}
+
+
+def _graphed_sums(flat, opts):
+    """:func:`kirchhoff_integral_kernel` of the arguments *flat* (from
+    :func:`_flat_args`; CUDA tensors) with its options *opts*, the
+    per-point preparation (:func:`_prepared_inputs`, the sources' padding
+    and rows) replayed from a CUDA graph captured at the first call of
+    these options and shapes: its ~900 element-wise launches become the
+    copies of the arguments into the graph's inputs and one replay.  The
+    kernels then run on the graph's outputs."""
+    dev = flat[0].device
+    key = (opts, dev, tuple((t.shape, t.dtype) for t in flat))
+    got = _PREP_GRAPHS.get(key)
+    if got is None:
+        got = _PREP_GRAPHS[key] = _capture_prep(flat, opts)
+    inputs, (scheme, variant, ns), (D, rows, P), graph = got
+    with stage('waves.prep', device=dev):
+        for buf, t in zip(inputs, flat):
+            buf.copy_(t)
+        graph.replay()
+    out = _forward_sums(scheme, variant,
+                        _forward_launch(scheme, variant, D, rows, P))
+    _count_forward(D.shape[1], ns)
+    with stage('waves.prep', device=dev):
+        return _complex5(out)
+
+
+def _capture_prep(flat, opts):
+    """(static inputs, (scheme, variant, sources), static (D, rows, P),
+    graph) of the preparation of :func:`_graphed_sums`, warmed up once on a
+    side stream and then captured, as ``torch.cuda.graphs`` asks."""
+    dev = flat[0].device
+    inputs = [t.detach().clone() for t in flat]
+
+    def prep():
+        scheme, variant, D, S, P = _prepared_inputs(*_args_of(inputs),
+                                                    *opts)
+        return (scheme, variant, S.shape[1]), \
+            _forward_inputs(D, _pad_sources(S), P)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        prep()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        info, outputs = prep()
+    _check_kernel_inputs(*(t for t in outputs if t is not None))
+    return inputs, info, outputs, graph
+
+
+def _prepared_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights,
+                     phase_mode, monochromatic, accumulate, narrowband,
+                     check_envelope):
+    """(scheme, variant, D, S, P) of :func:`kirchhoff_integral_kernel`'s
+    arguments: the mode resolved, then :func:`_kernel_inputs`."""
     xd, yd, zd = _astuple(xd), _astuple(yd), _astuple(zd)
     xs, ys, zs = _astuple(xs), _astuple(ys), _astuple(zs)
     k = _astuple(k)
@@ -1010,7 +1146,7 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                     f"1/A-series envelope (e_max={e_max:.3f} > "
                     f"{SERIES_E_MAX}); falling back to the exact 'vpu' "
                     f"contraction for the direction integrals.",
-                    stacklevel=2)
+                    stacklevel=3)
                 accumulate = 'vpu'
     elif phase_mode not in ('fast', 'exact'):
         raise ValueError(f'phase_mode {phase_mode!r}')
@@ -1020,10 +1156,5 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     if phase_mode == 'recentred':
         mode = 'mono' if monochromatic else \
             ('narrowband' if narrowband is True else 'poly')
-    scheme, variant, D, S, P = _kernel_inputs(
-        xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl, weights, mode)
-    if scheme == 'recentred':
-        out = _KirchhoffRecentred.apply(D, S, P, variant)
-    else:
-        out = _KirchhoffDDPhase.apply(D, S, variant)
-    return _complex5(out)
+    return _kernel_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl,
+                          weights, mode)

@@ -41,6 +41,7 @@ from ..ops import dd
 from ..ops.dd import sqrt_rn
 from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, K2B, M0,
                           PI, PI2, SIE0, SQ2, SQPI)
+from ..profiler import stage
 from ..transforms import virgin_local_to_global
 from .synchrotron import _SynchrotronBase, _create_args, _ebeam_sizes
 
@@ -598,7 +599,13 @@ class Undulator(_SynchrotronBase):
         are normal draws from *generator* (seed 0 if None), or the five
         standard normals *draws* (x, z, x', z', energy spread).  Returns
         the wave with E, Es, Ep, the coherency matrix and directions
-        set."""
+        set.  While the profiler traces, the call is the span
+        ``sources.shine_wave``."""
+        with stage('sources.shine_wave', device=wave.xDiffr):
+            return self._shine_wave(generator, wave, fixedEnergy, ray_block,
+                                    draws)
+
+    def _shine_wave(self, generator, wave, fixedEnergy, ray_block, draws):
         dt, dev = wave.xDiffr.dtype, wave.xDiffr.device
         n = wave.xDiffr.shape[0]
         g = _normals(generator, 5) if draws is None else \

@@ -36,6 +36,13 @@ methods ``OE.propagate_wave``, ``Screen.expose_wave`` and
 incoming wave (a synchrotron source shines its filament field there) and,
 onto an OE, reflect at the samples.
 
+While the profiler traces (``profiler.tracing``), each :func:`diffract`
+is the span ``waves.diffract``, and its work outside the Kirchhoff sums
+(the per-point preparation, the tiling, the kernels' source rows, the
+directions and normalization of the result) the spans ``waves.prep``
+within it; ``ops.kirchhoff`` counts the forward launches and their pairs
+(``kirchhoff.launches``, ``kirchhoff.pairs``).
+
 Several cards: ``diffract(mesh=...)`` splits a stage's destinations over
 the ranks of a :class:`~xrt_tpu_torch.parallel.Mesh`
 (:func:`~xrt_tpu_torch.parallel.dst_sharded_call`), with the sources
@@ -56,6 +63,7 @@ from . import config
 from .beam import Beam, rotate_coherency_matrix
 from .physconsts import CH, CHBAR, PI
 from .ops.dd import sqrt_rn
+from .profiler import stage
 from .transforms import cos, rotate_xyz, rotate_y, sin
 
 Tensor = torch.Tensor
@@ -656,23 +664,34 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
     if mesh is not None and tile_modes is not None:
         raise ValueError('tile_modes cannot be combined with mesh=: '
                          'sharded stages run their global kernel mode')
-    oe = wave.fromOE
-    good, w, n, nl = _surface_terms(oeLocal, wave)
-    if oeLocal.area is not None:
-        area = oeLocal.area
-    else:
-        secondDim = oeLocal.y if _is_oe(oe) else oeLocal.z
-        big = 1e30
-        area = (torch.max(torch.where(good, oeLocal.x, -big)) -
-                torch.min(torch.where(good, oeLocal.x, big))) * \
-            (torch.max(torch.where(good, secondDim, -big)) -
-             torch.min(torch.where(good, secondDim, big)))
-    sumJ = torch.sum((oeLocal.Jss + oeLocal.Jpp) * w)
-    sumJnl = torch.abs(torch.sum((oeLocal.Jss + oeLocal.Jpp) * nl * w))
+    with stage('waves.diffract', device=wave.xDiffr):
+        return _diffract(oeLocal, wave, phase_mode, monochromatic,
+                         accumulate, tile_modes, mesh, ring, narrowband,
+                         check_envelope)
 
-    if wave.xDiffr.dtype == torch.float32:
+
+def _diffract(oeLocal, wave, phase_mode, monochromatic, accumulate,
+              tile_modes, mesh, ring, narrowband, check_envelope):
+    oe = wave.fromOE
+    with stage('waves.prep', device=wave.xDiffr):
+        good, w, n, nl = _surface_terms(oeLocal, wave)
+        if oeLocal.area is not None:
+            area = oeLocal.area
+        else:
+            secondDim = oeLocal.y if _is_oe(oe) else oeLocal.z
+            big = 1e30
+            area = (torch.max(torch.where(good, oeLocal.x, -big)) -
+                    torch.min(torch.where(good, oeLocal.x, big))) * \
+                (torch.max(torch.where(good, secondDim, -big)) -
+                 torch.min(torch.where(good, secondDim, big)))
+        sumJ = torch.sum((oeLocal.Jss + oeLocal.Jpp) * w)
+        sumJnl = torch.abs(torch.sum((oeLocal.Jss + oeLocal.Jpp) * nl * w))
+        f32 = wave.xDiffr.dtype == torch.float32
+        if f32:
+            args = kirchhoff_kernel_args(oeLocal, wave)
+
+    if f32:
         from .ops.kirchhoff import kirchhoff_integral_kernel
-        args = kirchhoff_kernel_args(oeLocal, wave)
         if tile_modes is not None:
             # 'auto' resolves to False, as under the reference's jit: its
             # error bound would be one more host read per tile pair
@@ -702,6 +721,18 @@ def diffract(oeLocal: Beam, wave: Wave, phase_mode='recentred',
             oeLocal.x, oeLocal.y, oeLocal.z, oeLocal.Es, oeLocal.Ep, k,
             n, nl, w)
 
+    with stage('waves.prep', device=wave.xDiffr):
+        return _diffracted_wave(oeLocal, wave, w, area, sumJ, sumJnl,
+                                (Es, Ep, aE, bE, cE))
+
+
+def _diffracted_wave(oeLocal, wave, w, area, sumJ, sumJnl, sums):
+    """The receiving *wave* updated by a stage's Kirchhoff *sums* (Es, Ep
+    and the three direction integrals): the accumulators, the directions
+    from the conjugate-phase trick, the flux normalization and, for an OE
+    receiver, the rotation into its frame."""
+    oe = wave.fromOE
+    Es, Ep, aE, bE, cE = sums
     EsAcc = wave.EsAcc + Es
     EpAcc = wave.EpAcc + Ep
     aEacc = wave.aEacc + aE
@@ -1013,18 +1044,33 @@ def _tiled_integral(args, tile_modes, monochromatic, narrowband):
     :func:`~xrt_tpu_torch.ops.kirchhoff.kirchhoff_integral_kernel` on
     slices (B1 or B2 on the card), added into its destination tile.  The
     modes were chosen on the host at build time, so no pair reads anything
-    back: the envelope check is skipped."""
+    back: the envelope check is skipped.  On the card the pairs share one
+    shape, so each pair's per-point preparation is replayed from a CUDA
+    graph (``kirchhoff_integral_kernel(graph=True)``): a stage's ~50
+    pairs would otherwise launch ~900 element-wise kernels each.  The
+    padding, the slicing and the sums of the tiles are spans
+    ``waves.prep``."""
     from .ops.kirchhoff import kirchhoff_integral_kernel
     ntd = len(tile_modes)
     Nd = args[0][0].shape[0]
+    dev = args[0][0]
     acc = [[None] * 5 for _ in range(ntd)]
-    for (di, _), (pm, am), pair, _ in tile_pair_args(args, tile_modes):
+    pairs = tile_pair_args(args, tile_modes)
+    with stage('waves.prep', device=dev):
+        item = next(pairs, None)
+    while item is not None:
+        (di, _), (pm, am), pair, _ = item
         out = kirchhoff_integral_kernel(
             *pair, phase_mode=pm, monochromatic=monochromatic,
-            accumulate=am, narrowband=narrowband, check_envelope=False)
-        acc[di] = [o if a is None else a + o for a, o in zip(acc[di], out)]
-    return tuple(torch.cat([acc[di][i] for di in range(ntd)])[:Nd]
-                 for i in range(5))
+            accumulate=am, narrowband=narrowband, check_envelope=False,
+            graph=True)
+        with stage('waves.prep', device=dev):
+            acc[di] = [o if a is None else a + o
+                       for a, o in zip(acc[di], out)]
+            item = next(pairs, None)
+    with stage('waves.prep', device=dev):
+        return tuple(torch.cat([acc[di][i] for di in range(ntd)])[:Nd]
+                     for i in range(5))
 
 
 def tile_pairs_by_mode(tile_modes):
