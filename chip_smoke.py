@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-seven phases and exits
+process per source, in parallel), then runs thirty-eight phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -129,8 +129,14 @@ non-zero if any fails:
     xrt's receiver samples (``tests/golden/ref_softimax.npz``, read with
     numpy; the phase fails if the file is missing), float32 against
     float64, overlap above the reference package's own floors at every hop
-    (0.999 up to the grating, pg 0.7, m3 / es / m4 / m5 0.6, focus 0.55).
-
+    (0.999 up to the grating, pg 0.7, m3 / es / m4 / m5 0.6, focus 0.55);
+38. (run after phase 14) the Kirchhoff stages' preparation kernel
+    (``csrc/kirchhoff_prep.cu``) at the SoftiMAX chain's shapes (a 4e4 x
+    2e4 recentred and a 'fast' tile pair, the 2e5 x 2e5 stage PG -> M3):
+    its device time by torch.profiler against its bytes bound and the
+    plain preparation's, the host's time a call, its keys and a whole
+    call's sums against the plain preparation's (the same bits), one
+    ``prep:<mode>`` launch a call;
 15. xrt's speed test 1 (``tools/torch_bench_analyzer.py``), nothing cut:
     a diced Johansson Si(444) analyzer traced from three geometric
     sources, 96 steps x 1e5 rays each, float32, each step filling xrt's
@@ -424,6 +430,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -481,13 +488,15 @@ SOURCES = {'kirchhoff_recentred': 'xrt_tpu_torch/csrc/kirchhoff_recentred.cu',
            'kirchhoff_ddphase_bwd':
            'xrt_tpu_torch/csrc/kirchhoff_ddphase_bwd.cu',
            'hist2d': 'xrt_tpu_torch/csrc/hist2d.cu',
-           'hist_plot': 'xrt_tpu_torch/csrc/hist_plot.cu'}
+           'hist_plot': 'xrt_tpu_torch/csrc/hist_plot.cu',
+           'kirchhoff_prep': 'xrt_tpu_torch/csrc/kirchhoff_prep.cu'}
 REPLACES = {'kirchhoff_recentred': 'xrt_tpu/ops/kirchhoff.py:565',
             'kirchhoff_ddphase': 'xrt_tpu/ops/kirchhoff.py:903',
             'kirchhoff_recentred_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
             'kirchhoff_ddphase_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
             'hist2d': 'xrt_tpu/histogram.py:89',
-            'hist_plot': 'xrt_tpu/histogram.py:89'}
+            'hist_plot': 'xrt_tpu/histogram.py:89',
+            'kirchhoff_prep': None}
 #: the adjoint kernels against the plain blocked backward: the limit on
 #: max|row - ref| / max|ref| of every key row and scalar's cotangent
 ADJ_LIMIT = 1e-4
@@ -855,7 +864,8 @@ def phase_main(timing):
           f'launches {launches}', flush=True)
     check(launches.get('kirchhoff_recentred:mono', 0) >= 2 * 4,
           f'main path did not launch B1 on both hops: {launches}')
-    check(set(launches) == {'kirchhoff_recentred:mono'},
+    check(set(launches) == {'kirchhoff_recentred:mono', 'prep:mono'} and
+          launches['prep:mono'] == launches['kirchhoff_recentred:mono'],
           f'unexpected launches on the main path: {launches}')
     timing['main'] = dict(run=run, els=els, launches=launches,
                           pairs=pairs)
@@ -2144,6 +2154,7 @@ def phase_softimax(timing):
                          bound_by=by, library_ms=None,
                          shape=f'{Nd}x{Ns}'))
     timing['softimax_rows'] = rows
+    timing['softimax_chain'] = (rc, inputs)
     shine = [r for r in timings if r['stage'] == 'shine']
     print(f"phase 13 undulator shine_wave: "
           f"{shine[0]['start'].elapsed_time(shine[0]['end']):.2f} ms "
@@ -2215,6 +2226,178 @@ def phase_softimax_cross():
           f'golden {float(ref["flux_focus"]):.6e}', flush=True)
     check(np.isfinite(J32) and J32 > 0 and J64 > 0,
           'deterministic chain: focal flux not finite and positive')
+
+
+def prep_bytes(mode, nd, ns):
+    """Bytes the preparation kernel must move for one call: every input
+    read once (six floats a destination, seventeen a source) and its
+    outputs written once (D, the zero-padded source rows, the centre)."""
+    from xrt_tpu_torch.ops import kirchhoff as tk
+    if mode in tk._DD_VARIANTS:
+        dkeys, skeys = tk._DD_DST_KEYS, tk._DD_SRC_KEYS
+    else:
+        dkeys, skeys = tk._RECENTRED_KEYS[tk._RECENTRED_VARIANTS[mode]]
+    ns_pad = -(-ns // tk.KERNEL_SRC_CHUNK) * tk.KERNEL_SRC_CHUNK
+    width = -(-len(skeys) // 4) * 4
+    return 4 * (6 * nd + 17 * ns + len(dkeys) * nd + width * ns_pad +
+                tk.PREP_CENTRE)
+
+
+def profiled_kernels_us(fn, n):
+    """{kernel name: device us a call} of *n* calls of *fn*, by
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            out[e.key] += getattr(e, 'self_device_time_total',
+                                  getattr(e, 'self_cuda_time_total', 0.0)) / n
+    return out
+
+
+def host_us(fn, n):
+    """Wall us a call of *n* calls of *fn*, ending synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / n
+
+
+def phase_prep_kernel(timing):
+    """Phase 38 (after phase 14): the Kirchhoff stages' preparation kernel
+    (csrc/kirchhoff_prep.cu) at the SoftiMAX chain's shapes: a 4e4 x 2e4
+    tile pair of M1 -> M2 (recentred mono), a contact tile pair of
+    M2 -> PG ('fast'), and the untiled 2e5 x 2e5 stage PG -> M3; and at
+    the main path's two hops (phase 3).  Its device time (torch.profiler,
+    both launches) against its bytes bound and the plain preparation's,
+    the host's time a call both ways; its six recentring means against the
+    float64 means (1.5 ulp), and its keys and the whole call's sums against
+    the plain preparation's: the same bits (both sum the recentring means
+    in double, in orders whose float results differ only at a tie)."""
+    import numpy as np
+    import torch
+    from xrt_tpu_torch import waves as W
+    from xrt_tpu_torch.ops import _cuda, kirchhoff as tk
+    rc, inputs = timing['softimax_chain']
+    for fn, regs, st, ld in ptxas_rows(_cuda.build_log('kirchhoff_prep')):
+        print(f'phase 38 ptxas kirchhoff_prep {fn}: {regs} registers, spill '
+              f'stores {st} B, loads {ld} B', flush=True)
+    cases = []
+    for name in ('m2', 'pg'):
+        args = W.kirchhoff_kernel_args(inputs[name], rc.waves[name])
+        seen = set()
+        for ij, (pm, am), pair, _ in W.tile_pair_args(args,
+                                                      rc.tilemaps[name]):
+            if pm not in seen:
+                seen.add(pm)
+                cases.append((f'{name} tile {ij}', pm, am, pair))
+    cases.append(('m3 stage', 'recentred', 'vpu',
+                  W.kirchhoff_kernel_args(inputs['m3'], rc.waves['m3'])))
+    for hop, stage in enumerate(timing['stages'], 1):
+        cases.append((f'main hop {hop}', 'recentred', 'vpu',
+                      W.kirchhoff_kernel_args(*stage)))
+    rows = []
+    for label, pm, am, pair in cases:
+        mode = 'mono' if pm == 'recentred' else pm
+        xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, w = pair
+        nd, ns = xd[0].shape[0], xs[0].shape[0]
+        args_n = (xd, yd, zd, xs, ys, zs, Es, Ep, k,
+                  tk._broadcast_n(n, ns, xs[0]), nl, w)
+        check(tk._takes_prep_kernel(args_n),
+              f'phase 38 {label}: the kernel does not take the call')
+        flat = tk._flat_args(*args_n)
+
+        def fused():
+            return tk._prep_kernel(mode, flat)
+
+        def plain():
+            scheme, v, D, S, P = tk._kernel_inputs(*pair, mode)
+            return scheme, v, D, tk.forward_sources(tk._pad_sources(S)), P
+        kern = profiled_kernels_us(fused, 20)
+        k_us = sum(kern.values())
+        p_us = sum(profiled_kernels_us(plain, 3).values())
+        kh_us, ph_us = host_us(fused, 50), host_us(plain, 5)
+        got, ref = fused(), plain()
+        same = [torch.equal(a, b) for a, b in zip(got[2:4], ref[2:4])]
+        mean_ulps = 0.0
+        if got[4] is not None:
+            mine = got[4]._base[10:16].double().cpu().numpy()
+            exact = np.array([float(t[0].double().mean())
+                              for t in pair[:6]])
+            mean_ulps = float(np.max(np.abs(mine - exact) / np.spacing(
+                np.abs(exact).astype(np.float32))))
+            same.append(torch.equal(got[4], ref[4]))
+        kw = dict(phase_mode=pm, monochromatic=True, accumulate=am,
+                  narrowband=False, check_envelope=False)
+        grad_pair = (*pair[:-1], w.clone().requires_grad_(True))
+        tk.LAUNCHES.clear()
+        out = tk.kirchhoff_integral_kernel(*pair, **kw)
+        launches = dict(tk.LAUNCHES)
+        out_plain = [o.detach() for o in
+                     tk.kirchhoff_integral_kernel(*grad_pair, **kw)]
+        rel, _ = rel_err(out, out_plain)
+        call_ms = statistics.median(cuda_ms(
+            lambda: tk.kirchhoff_integral_kernel(*pair, **kw), 5)[0]
+            for _ in range(3))
+        plain_call_ms = statistics.median(cuda_ms(
+            lambda: tk.kirchhoff_integral_kernel(*grad_pair, **kw), 2)[0]
+            for _ in range(3))
+        by = prep_bytes(mode, nd, ns)
+        bytes_us = 1e6 * by / PEAK_BYTES
+        print(f'phase 38 {label} ({mode}): {nd} x {ns}; preparation kernel '
+              f'{k_us:.2f} us of device time a call ('
+              f'{", ".join(f"{kk} {v:.2f}" for kk, v in kern.items())}), '
+              f'bytes bound {bytes_us:.2f} us ({by / 1e6:.2f} MB, '
+              f'{bytes_us / k_us:.1%}); plain preparation {p_us:.1f} us of '
+              f'device time ({p_us / k_us:.0f}x); host a call {kh_us:.1f} / '
+              f'{ph_us:.1f} us; means {mean_ulps:.2f} ulp from float64; '
+              f'D, rows (P) equal to the plain ones: {same}; the '
+              f'whole call {call_ms:.3f} ms, with the plain preparation '
+              f'(weights requiring grad) {plain_call_ms:.3f} ms; sums against '
+              f'the plain preparation\'s {rel:.2e}; launches {launches}',
+              flush=True)
+        fwd = 'kirchhoff_recentred' if pm == 'recentred' else \
+            'kirchhoff_ddphase'
+        check(launches == {f'prep:{mode}': 1, f'{fwd}:{mode}': 1},
+              f'phase 38 {label}: launches {launches}')
+        check(all(same) and rel == 0.0 and mean_ulps <= 1.5,
+              f'phase 38 {label}: {same}, {rel}, {mean_ulps}')
+        rows.append(dict(label=label, mode=mode, nd=nd, ns=ns,
+                         kernel_us=k_us, bytes_us=bytes_us, plain_us=p_us,
+                         host_us=kh_us, plain_host_us=ph_us,
+                         call_ms=call_ms, plain_call_ms=plain_call_ms))
+    timing['prep_kernel'] = rows
+
+
+def prep_rows(timing):
+    """Phase 38's kernel-line rows: the preparation kernel at each shape,
+    with the launches of its mode on the main path's own counted runs
+    (phase 3 for mono, phase 4's B2 run for 'fast' and 'exact')."""
+    counted = dict(timing['b2_launches'], **{
+        k: v for k, v in timing['main']['launches'].items()
+        if k == 'prep:mono'})
+    return [dict(name=f'kirchhoff_prep:{r["mode"]}:'
+                      f'{"-".join(re.findall("[a-z0-9]+", r["label"]))}',
+                 route='cuda', source=SOURCES['kirchhoff_prep'],
+                 replaces=REPLACES['kirchhoff_prep'],
+                 launches=int(counted.get(f'prep:{r["mode"]}', 0)),
+                 ms=r['kernel_us'] * 1e-3, bound_ms=r['bytes_us'] * 1e-3,
+                 bound_by='bytes', plain_ms=r['plain_us'] * 1e-3,
+                 call_ms=r['call_ms'], plain_call_ms=r['plain_call_ms'],
+                 library_ms=None, shape=f'{r["nd"]}x{r["ns"]}')
+            for r in timing['prep_kernel']]
 
 
 def sliced_adjoint_errors(scheme, v, D, S, P, G, got, Ns):
@@ -3136,26 +3319,23 @@ def c5_run(dtype, electrons, nslit, nfzp, nfocus):
 @contextlib.contextmanager
 def recorded_b1(store, ndst):
     """Record every launch of kernel B1 inside the block: the last *ndst*
-    destinations' inputs and sums, the (unpadded) sources and the
-    scalars, for a check against the plain version afterwards."""
+    destinations' inputs and sums, the (unpadded) sources and the scalars,
+    for a check against the plain version afterwards."""
     from xrt_tpu_torch.ops import kirchhoff as tk
-    launch, pad = tk._launch_recentred, tk._pad_sources
-    ns = []
+    rows_launch = tk._launch_rows
 
-    def pad_rec(S):
-        ns.append(S.shape[1])
-        return pad(S)
-
-    def launch_rec(D, S, P, variant):
-        out = launch(D, S, P, variant)
-        store.append((D[:, -ndst:].clone(), S[:, :ns[-1]], P, variant,
-                      out[:, -ndst:].clone(), D.shape[1]))
+    def rows_rec(scheme, variant, D, rows, P, nsrc):
+        out = rows_launch(scheme, variant, D, rows, P, nsrc)
+        if scheme == 'recentred':
+            nsk = len(tk._RECENTRED_KEYS[variant][1])
+            store.append((D[:, -ndst:].clone(), rows[:nsrc, :nsk].t(), P,
+                          variant, out[:, -ndst:].clone(), D.shape[1]))
         return out
-    tk._launch_recentred, tk._pad_sources = launch_rec, pad_rec
+    tk._launch_rows = rows_rec
     try:
         yield
     finally:
-        tk._launch_recentred, tk._pad_sources = launch, pad
+        tk._launch_rows = rows_launch
 
 
 def profiled_kernel_count(fn):
@@ -3227,7 +3407,8 @@ def phase_coherent_modes(timing):
         print(f'phase 18 mode {i}: weight {w[i]:.6f}, slit -> zone plate '
               f'{a:.2f} ms, zone plate -> focus {b:.2f} ms (CUDA events)',
               flush=True)
-    check(launches == {'kirchhoff_recentred:mono': 2 * C5_MODES},
+    check(launches == {'kirchhoff_recentred:mono': 2 * C5_MODES,
+                       'prep:mono': 2 * C5_MODES},
           f'configuration 5: B1 launches {launches}')
     check(abs(w.sum() - 1) < 1e-4 and w[0] > 0.25 and w[0] > 1.2 * w[1],
           f'configuration 5 mode weights {w[:4]}, sum {w.sum()}')
@@ -4616,21 +4797,22 @@ def b1_b3_by_shape():
     """Count the launches of B1 and of its adjoint B3 inside the block by
     (destinations, sources)."""
     from xrt_tpu_torch.ops import kirchhoff as tk
-    fwd, bwd = tk._launch_recentred, tk._launch_recentred_bwd
+    bwd, rows_fwd = tk._launch_recentred_bwd, tk._launch_rows
     counts = dict(fwd=collections.Counter(), bwd=collections.Counter())
 
-    def fwd_rec(D, S, P, v):
-        counts['fwd'][D.shape[1]] += 1
-        return fwd(D, S, P, v)
+    def rows_rec(scheme, v, D, rows, P, ns):
+        if scheme == 'recentred':
+            counts['fwd'][D.shape[1]] += 1
+        return rows_fwd(scheme, v, D, rows, P, ns)
 
     def bwd_rec(D, S, P, G, v):
         counts['bwd'][D.shape[1]] += 1
         return bwd(D, S, P, G, v)
-    tk._launch_recentred, tk._launch_recentred_bwd = fwd_rec, bwd_rec
+    tk._launch_recentred_bwd, tk._launch_rows = bwd_rec, rows_rec
     try:
         yield counts
     finally:
-        tk._launch_recentred, tk._launch_recentred_bwd = fwd, bwd
+        tk._launch_recentred_bwd, tk._launch_rows = bwd, rows_fwd
 
 
 def phase_fe_wave(timing):
@@ -4696,7 +4878,7 @@ def phase_fe_wave(timing):
           f'figure-error wave chain: loss {float(val.detach())}, gradients '
           f'{vals}')
     check(launches == {'kirchhoff_recentred:mono': 3,
-                       'kirchhoff_recentred_bwd:mono': 2},
+                       'kirchhoff_recentred_bwd:mono': 2, 'prep:mono': 1},
           f'figure-error wave chain: launches {launches}')
     tk.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -4712,7 +4894,7 @@ def phase_fe_wave(timing):
           f'{dict(zip(FW_NAMES, ref))}; kernels vs plain '
           f'{", ".join(f"{e:.2e}" for e in errs)} (limit '
           f'{GRAD_PLAIN_LIMIT:.0e})', flush=True)
-    check(ref_launches == {'kirchhoff_recentred:mono': 3},
+    check(ref_launches == {'kirchhoff_recentred:mono': 3, 'prep:mono': 1},
           f'plain-backward step: launches {ref_launches}')
     check(max(errs) < GRAD_PLAIN_LIMIT,
           f'figure-error gradient, kernels vs plain backward: {errs}')
@@ -7231,6 +7413,7 @@ def main():
         phase_trace_grad(timing)
         phase_softimax(timing)
         phase_softimax_cross()
+        phase_prep_kernel(timing)
         phase_analyzer(timing)
         phase_toroid_search(timing)
         phase_dcm(timing)
@@ -7256,7 +7439,8 @@ def main():
         phase_views_process(timing)
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
-            timing['softimax_rows'] + coherence_rows(timing) + \
+            timing['softimax_rows'] + prep_rows(timing) + \
+            coherence_rows(timing) + \
             oe_physics_rows(timing) + fe_wave_rows(timing) + \
             oe_physics_rows(timing, SLICE_HIST_KEYS) + \
             oe_physics_rows(timing, timing['qook_keys']) + \

@@ -13,6 +13,15 @@ check).  On the card:
   skeleton's tiling (1, 2, 31, 33 and 257 destinations against 1, 255 and
   257 sources, a grid of one block), two launches with the same bits, and
   a launch from a side stream;
+* the preparation kernel (``csrc/kirchhoff_prep.cu``, taken by the
+  wrapper when nothing requires grad, one ``prep:<mode>`` launch a call):
+  where the recentring means are exact in any order its keys are the
+  plain version's bits and a call gives the plain preparation's sums;
+  only gradients make a call take the plain preparation, a conjugate or
+  complex128 field and a 0-dim argument launch it, what it cannot read
+  raises, two calls
+  and one from a side stream give the same bits, and its tickets are left
+  at zero;
 * the double-float device helpers bit for bit against the torch dd, and
   sincosf against sinf / cosf;
 * the wrappers count their launches, and a failing launch raises;
@@ -115,14 +124,24 @@ def _rel(got, ref):
                for g, r in zip(got, ref))
 
 
+FORWARD = ['mono', 'narrowband', 'poly', 'fast', 'exact']
+
+
+def _launched(before):
+    """The launches counted since *before* (a copy of ``tk.LAUNCHES``)."""
+    return {k: v - before.get(k, 0) for k, v in tk.LAUNCHES.items()
+            if v != before.get(k, 0)}
+
+
 @pytest.mark.parametrize('mode', ['mono', 'narrowband', 'poly'])
 def test_recentred_kernel_matches_plain(cuda, mode):
     args = _args(cuda, poly=mode != 'mono')
     kw = dict(monochromatic=mode == 'mono', narrowband=mode == 'narrowband')
-    before = tk.LAUNCHES[f'kirchhoff_recentred:{mode}']
+    before = dict(tk.LAUNCHES)
     got = tk.kirchhoff_integral_kernel(*args, accumulate='vpu', **kw)
     torch.cuda.synchronize()
-    assert tk.LAUNCHES[f'kirchhoff_recentred:{mode}'] == before + 1
+    assert _launched(before) == {f'kirchhoff_recentred:{mode}': 1,
+                                 f'prep:{mode}': 1}
     ref = tk.kirchhoff_integral_recentred(*args, **kw)
     assert _rel(got, ref) < 2e-5
 
@@ -201,12 +220,124 @@ def test_refused_launch_raises(cuda):
         _cuda.check(err, 'kirchhoff_recentred')
 
 
+# ---- the preparation kernel (csrc/kirchhoff_prep.cu) -----------------------
+
+def _integer_args(device, mode, Nd=1187, Ns=2313, seed=11):
+    """Arguments whose hi positions are integers (mm) with every partial
+    sum below 2^24: the six recentring means are then exact in any order,
+    the kernel's and the plain version's alike.  Lo parts (within half an
+    ulp of their hi part), fields, k and the rest as random as ever;
+    slices 4 bytes past a 16-byte boundary."""
+    rng = np.random.RandomState(seed)
+
+    def off(a, dt=torch.float32):
+        buf = torch.zeros(1 + a.size, dtype=dt)
+        buf[1:] = torch.from_numpy(a)
+        return buf.to(device)[1:]
+
+    def D(ints):
+        hi = ints.astype(np.float32)
+        lo = 0.5 * np.spacing(hi) * rng.uniform(-1, 1, hi.size)
+        return off(hi), off(np.where(hi == 0, 0, lo).astype(np.float32))
+    k = np.full(Ns, 280.0 / 1973.269788 * 1e7)
+    if mode != 'mono':
+        k = k * (1 + rng.uniform(-1e-4, 1e-4, Ns))
+    kh, kl = (off(a) for a in dd.from_f64(k))
+    Es = (rng.normal(size=Ns) + 1j * rng.normal(size=Ns)).astype(np.complex64)
+    return (D(rng.randint(-3, 4, Nd)), D(10000 + rng.randint(-100, 101, Nd)),
+            D(5 + rng.randint(-1, 2, Nd)), D(rng.randint(-5, 6, Ns)),
+            D(rng.randint(-200, 201, Ns)), D(rng.randint(-1, 2, Ns)),
+            off(Es, torch.complex64), off(0.1 * Es, torch.complex64),
+            (kh, kl), [off(rng.uniform(-0.05, 0.05, Ns).astype(np.float32)),
+                       off(rng.uniform(0.99, 1, Ns).astype(np.float32)),
+                       torch.tensor(0.02, device=device)],
+            off(rng.uniform(0.01, 0.05, Ns).astype(np.float32)),
+            off((rng.uniform(size=Ns) > 0.1).astype(np.float32)))
+
+
+PHASE = {'mono': ('recentred', dict(monochromatic=True)),
+         'narrowband': ('recentred', dict(narrowband=True)),
+         'poly': ('recentred', dict(narrowband=False)),
+         'fast': ('fast', {}), 'exact': ('exact', {})}
+
+
+@pytest.mark.parametrize('mode', FORWARD)
+def test_prep_kernel_gives_the_plain_keys_where_the_means_are_exact(cuda,
+                                                                    mode):
+    """With the same six means (here exact in any order) the kernel's D,
+    source rows and P are the plain version's bits on the card, and a call
+    through it gives the sums of a call through the plain preparation
+    (weights requiring grad), bit for bit."""
+    args = _integer_args(cuda, mode)
+    ns = args[3][0].shape[0]
+    args_n = (*args[:9], tk._broadcast_n(args[9], ns, args[3][0]),
+              *args[10:])
+    assert tk._takes_prep_kernel(args_n)
+    got = tk._prep_kernel(mode, tk._flat_args(*args_n))
+    scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
+    rows = tk.forward_sources(tk._pad_sources(S))
+    assert got[:2] == (scheme, v)
+    assert torch.equal(got[2], D) and torch.equal(got[3], rows)
+    assert (got[4] is None and P is None) or torch.equal(got[4], P)
+    pm, kw = PHASE[mode]
+    out = tk.kirchhoff_integral_kernel(*args, phase_mode=pm,
+                                       accumulate='vpu', **kw)
+    grad_args = (*args[:-1], args[-1].clone().requires_grad_(True))
+    before = dict(tk.LAUNCHES)
+    ref = tk.kirchhoff_integral_kernel(*grad_args, phase_mode=pm,
+                                       accumulate='vpu', **kw)
+    assert not any(k.startswith('prep:') for k in _launched(before))
+    assert all(torch.equal(a, b.detach()) for a, b in zip(out, ref))
+
+
+def test_prep_kernel_is_taken_only_without_gradients(cuda):
+    """On the card only an argument that requires grad makes a call take
+    the plain preparation.  A conjugate field, a complex128 field and a
+    0-dim n . direction launch the kernel and give the bits of their
+    resolved, rounded, full-length copies; what the kernel cannot read
+    raises.  Two calls give the same
+    bits (the means in a fixed order), also from a side stream, which gets
+    a centre scratch of its own; every ticket is left at zero."""
+    args = _args(cuda, poly=False)
+    kw = dict(monochromatic=True)
+
+    def call(**swap):
+        a = list(args)
+        for i, t in swap.items():
+            a[int(i[1:])] = t
+        before = dict(tk.LAUNCHES)
+        out = tk.kirchhoff_integral_kernel(*a, **kw)
+        return [o.detach() for o in out], _launched(before)
+    ref, launched = call()
+    assert launched == {'prep:mono': 1, 'kirchhoff_recentred:mono': 1}
+    _, launched = call(a11=args[11].clone().requires_grad_(True))
+    assert launched == {'kirchhoff_recentred:mono': 1}
+    got, launched = call(a6=args[6].conj().resolve_conj().conj(),
+                         a7=args[7].to(torch.complex128),
+                         a10=torch.tensor(0.9, device=cuda))
+    assert launched == {'prep:mono': 1, 'kirchhoff_recentred:mono': 1}
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    for swap, error in ((dict(a11=args[11].double()), TypeError),
+                        (dict(a6=args[6].real.contiguous()), TypeError),
+                        (dict(a10=args[10][:-1]), ValueError)):
+        with pytest.raises(error):
+            call(**swap)
+    again, _ = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other, _ = call()
+    side.synchronize()
+    assert all(torch.equal(x, y) and torch.equal(x, z)
+               for x, y, z in zip(ref, again, other))
+    mine = [t for (dev, _), t in tk._PREP_SCRATCH.items()
+            if dev == ref[0].device]
+    assert len(mine) >= 2 and all(float(t[-1]) == 0.0 for t in mine)
+
+
 # ---- B1, B2: the forward skeleton -----------------------------------------
 
 ACCUMULATE = ['vpu', 'mxu', 'mxu2', 'mxu-fast', 'mxu32']
-
-
-FORWARD = ['mono', 'narrowband', 'poly', 'fast', 'exact']
 
 
 def _forward(D, S, P, scheme, v):
@@ -223,9 +354,8 @@ def test_every_accumulate_value_launches_the_kernel(cuda, mode, acc):
     before = dict(tk.LAUNCHES)
     got = tk.kirchhoff_integral_kernel(*args, accumulate=acc, **kw)
     torch.cuda.synchronize()
-    name = f'kirchhoff_recentred:{mode}'
-    assert tk.LAUNCHES[name] == before.get(name, 0) + 1
-    assert sum(tk.LAUNCHES.values()) == sum(before.values()) + 1
+    assert _launched(before) == {f'kirchhoff_recentred:{mode}': 1,
+                                 f'prep:{mode}': 1}
     assert _rel(got, tk.kirchhoff_integral_recentred(*args, **kw)) < 2e-5
 
 

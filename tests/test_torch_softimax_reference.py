@@ -48,35 +48,47 @@ def test_small_chain_through_the_cell_driver(dtype, monkeypatch):
     assert max(readings['steps'].values()) < 1e-2, readings['steps']
 
 
-def copies(v):
-    """*v* (tensors in tuples and lists) with each tensor copied."""
-    if isinstance(v, torch.Tensor):
-        return v.clone()
-    return type(v)(copies(u) for u in v)
+def _requiring_grad(pair):
+    """*pair* with a copy of its weights that requires grad: the call then
+    takes the plain, differentiable preparation."""
+    return (*pair[:-1], pair[-1].clone().requires_grad_(True))
 
 
 @pytest.mark.cuda
-def test_tile_pairs_replayed_from_graphs_give_the_eager_bits():
+def test_tile_pairs_take_the_prep_kernel():
     """On the card a tiled stage's pairs take their per-point preparation
-    from a CUDA graph: every pair's sums equal the eager call's on the same
-    values, bit for bit.  The eager call gets copies of the pair's slices:
-    a slice that starts off a 16-byte boundary (tiles of 410 and 205
-    samples here) sums the recentring means in another order."""
+    from ``csrc/kirchhoff_prep.cu``, one launch of it a call and no CUDA
+    graph, and every pair's five sums agree with those of the plain
+    preparation (a copy of the weights requiring grad) within 1e-6 of the
+    pair's peak: both sum the recentring means in double."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from xrt_tpu_torch import waves
     from xrt_tpu_torch.ops import kirchhoff as tk
+    assert not hasattr(tk, '_PREP_GRAPHS')
     cell, traffic, cfg, drv = harness.find_cell(CELL)
     st = drv.setup(dict(cfg, **SMALL), traffic, cell, SEED, 'cuda')
     outs = {}
+    tk.LAUNCHES.clear()
     st.run_chain(st.generator, outputs=outs)
-    assert st.run_chain.tilemaps and tk._PREP_GRAPHS
+    preps = sum(v for kk, v in tk.LAUNCHES.items() if kk.startswith('prep:'))
+    forwards = sum(v for kk, v in tk.LAUNCHES.items()
+                   if kk.startswith('kirchhoff_'))
+    assert st.run_chain.tilemaps and preps == forwards > 0, tk.LAUNCHES
     for name, tm in st.run_chain.tilemaps.items():
         args = waves.kirchhoff_kernel_args(outs[name][0],
                                            st.run_chain.waves[name])
-        for _, (pm, am), pair, _ in waves.tile_pair_args(args, tm):
+        for ij, (pm, am), pair, _ in waves.tile_pair_args(args, tm):
             kw = dict(phase_mode=pm, monochromatic=True, accumulate=am,
                       narrowband=False, check_envelope=False)
-            got = tk.kirchhoff_integral_kernel(*pair, graph=True, **kw)
-            want = tk.kirchhoff_integral_kernel(*copies(pair), **kw)
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+            tk.LAUNCHES.clear()
+            got = tk.kirchhoff_integral_kernel(*pair, **kw)
+            assert dict(tk.LAUNCHES) == (
+                {'prep:mono': 1, 'kirchhoff_recentred:mono': 1}
+                if pm == 'recentred' else
+                {f'prep:{pm}': 1, f'kirchhoff_ddphase:{pm}': 1}), tk.LAUNCHES
+            want = tk.kirchhoff_integral_kernel(*_requiring_grad(pair), **kw)
+            for a, b in zip(got, want):
+                b = b.detach()
+                assert float((a - b).abs().max()) <= \
+                    1e-6 * float(b.abs().max()), (name, ij)

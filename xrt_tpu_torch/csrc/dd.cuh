@@ -1,5 +1,7 @@
 // Double-float ("double-double" style) arithmetic on float32 pairs, as
-// __device__ helpers for the Kirchhoff kernels.
+// helpers for the Kirchhoff kernels; those the preparation kernel uses
+// (csrc/kirchhoff_prep.cuh) also for the host, where the CPU tests build
+// them with g++ -ffp-contract=off.
 //
 // Op-for-op counterpart of xrt_tpu_torch/ops/dd.py (itself the port of the
 // reference package's ops/dd.py): a value is (hi, lo) with value = hi + lo
@@ -19,60 +21,96 @@
 //  * No --use_fast_math: sqrtf and 1.0f / x stay correctly rounded.
 #pragma once
 
+#define XDD_HD __host__ __device__ __forceinline__
+
 namespace xdd {
 
 struct dd {
   float h, l;
 };
 
-__device__ __forceinline__ dd two_sum(float a, float b) {
+XDD_HD dd two_sum(float a, float b) {
   float s = a + b;
   float bb = s - a;
   float e = (a - (s - bb)) + (b - bb);
   return {s, e};
 }
 
-__device__ __forceinline__ dd quick_two_sum(float a, float b) {
+XDD_HD dd quick_two_sum(float a, float b) {
   float s = a + b;
   float e = b - (s - a);
   return {s, e};
 }
 
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
+XDD_HD void split(float a, float& hi, float& lo) {
   float c = 4097.0f * a;  // 2^12 + 1
   hi = c - (c - a);
   lo = a - hi;
 }
 
-__device__ __forceinline__ dd two_prod(float a, float b) {
+XDD_HD dd two_prod(float a, float b) {
   float p = a * b;
+#ifdef __CUDA_ARCH__
   float e = __fmaf_rn(a, b, -p);
+#else
+  float e = fmaf(a, b, -p);  // the host's correctly rounded FMA
+#endif
   return {p, e};
 }
 
-__device__ __forceinline__ dd add(dd a, dd b) {
+XDD_HD dd add(dd a, dd b) {
   dd s = two_sum(a.h, b.h);
   float e = s.l + (a.l + b.l);
   return quick_two_sum(s.h, e);
 }
 
-__device__ __forceinline__ dd sub(dd a, dd b) {
+XDD_HD dd sub(dd a, dd b) {
   return add(a, {-b.h, -b.l});
 }
 
-__device__ __forceinline__ dd mul(dd a, dd b) {
+XDD_HD dd mul(dd a, dd b) {
   dd p = two_prod(a.h, b.h);
   float e = p.l + (a.h * b.l + a.l * b.h);
   return quick_two_sum(p.h, e);
 }
 
-__device__ __forceinline__ dd sqr(dd a) {
+XDD_HD dd sqr(dd a) {
   dd p = two_prod(a.h, a.h);
   float e = p.l + 2.0f * a.h * a.l;
   return quick_two_sum(p.h, e);
 }
 
-__device__ __forceinline__ dd sqrt(dd a) {
+// dd + float
+XDD_HD dd add_f(dd a, float b) {
+  dd s = two_sum(a.h, b);
+  float e = s.l + a.l;
+  return quick_two_sum(s.h, e);
+}
+
+// dd * float
+XDD_HD dd mul_f(dd a, float b) {
+  dd p = two_prod(a.h, b);
+  float e = p.l + a.l * b;
+  return quick_two_sum(p.h, e);
+}
+
+// dd / dd by one Newton refinement of the f32 quotient
+XDD_HD dd div(dd a, dd b) {
+  float q1 = a.h / b.h;
+  dd r = sub(a, mul_f(b, q1));
+  float q2 = (r.h + r.l) / b.h;
+  return quick_two_sum(q1, q2);
+}
+
+// the Dekker halves of a (each with at most 12 mantissa bits), for exact
+// products against another pre-split factor
+XDD_HD dd presplit(float a) {
+  float hi, lo;
+  split(a, hi, lo);
+  return {hi, lo};
+}
+
+XDD_HD dd sqrt(dd a) {
   float s0 = sqrtf(a.h);
   if (a.h <= 0.0f) s0 = 0.0f;
   dd s2 = two_prod(s0, s0);
@@ -83,7 +121,7 @@ __device__ __forceinline__ dd sqrt(dd a) {
 }
 
 // frac(m) in [-0.5, 0.5] cycles for dd m = phase / (2 pi)
-__device__ __forceinline__ float frac_cycles(float mh, float ml) {
+XDD_HD float frac_cycles(float mh, float ml) {
   float n = rintf(mh);
   float f1 = mh - n;  // exact
   float n2 = rintf(ml);
@@ -147,7 +185,7 @@ __device__ __forceinline__ void sincos_cycles_fma(float c, float& s,
 }
 
 // 1 / (2 pi) as a dd constant
-__device__ __forceinline__ dd inv_two_pi() {
+XDD_HD dd inv_two_pi() {
   return {0x1.45f306p-3f, 0x1.b93910p-28f};
 }
 

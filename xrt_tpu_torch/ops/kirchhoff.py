@@ -19,6 +19,9 @@ Two schemes, each with a plain version here and a CUDA kernel in
 
 :func:`kirchhoff_integral_kernel` takes either scheme: on CPU tensors it
 runs the plain version, on CUDA tensors it launches the kernel (or raises).
+On the card, with nothing to differentiate, the per-point preparation is
+one more kernel, ``csrc/kirchhoff_prep.cu``, in place of the plain
+:func:`_kernel_inputs`.
 
 Every double-float step is written as separate ``+``/``*`` operations:
 ``addcmul`` or ``torch.compile`` would contract them into FMAs and break
@@ -41,11 +44,12 @@ from . import dd
 SRC_CHUNK = 512
 
 #: kernel launches by 'kernel:variant', counted where each kernel launches
-#: (``LAUNCHES.clear()`` before a run, read after it).  While the profiler
-#: traces, each forward launch (B1, B2) also adds to the counters
-#: ``kirchhoff.launches`` and ``kirchhoff.pairs`` (its destinations x
-#: sources), and the per-point preparation around the kernels is the span
-#: ``waves.prep``.
+#: (``LAUNCHES.clear()`` before a run, read after it); the preparation
+#: kernel's as 'prep:<mode>'.  While the profiler traces, each forward
+#: launch (B1, B2) also adds to the counters ``kirchhoff.launches`` and
+#: ``kirchhoff.pairs`` (its destinations x sources), each preparation by
+#: the kernel to ``kirchhoff.prep_fused``, and the per-point preparation
+#: around the kernels is the span ``waves.prep``.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -277,8 +281,14 @@ def recentre_kirchhoff_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     Ns = xs[0].shape[0]
 
     def mean_h(t):
-        # sum times the f32 reciprocal of the count, as XLA lowers a mean
-        return torch.sum(t[0]) * (1.0 / t[0].shape[0])
+        # the sum in double, rounded, times the reciprocal of the count
+        # (as XLA lowers a mean): the preparation kernel
+        # (csrc/kirchhoff_prep.cu) sums in double too, in another order,
+        # so a call with gradients recentres about the centre of one
+        # without (the two roundings differ only within a double's
+        # rounding of a tie)
+        s = torch.sum(t[0], dtype=torch.float64).to(f32)
+        return s * (1.0 / t[0].shape[0])
     D0 = (mean_h(xd), mean_h(yd), mean_h(zd))
     S0 = (mean_h(xs), mean_h(ys), mean_h(zs))
     C = [dd.two_sum(D0[i], -S0[i]) for i in range(3)]
@@ -675,19 +685,18 @@ def forward_grid(nd, ns_pad):
 
 def _forward_inputs(D, S, P):
     """(D, source rows, P) as the forward kernels read them: *D* and *P*
-    contiguous, the rows of *S* from :func:`forward_sources`."""
-    D = D.contiguous()
-    P = None if P is None else P.contiguous()
-    return D, forward_sources(S), P
+    contiguous, the rows of *S* from :func:`forward_sources`; raises on
+    what the kernels do not take."""
+    dev = _check_kernel_inputs(*(t for t in (D, S, P) if t is not None))
+    with stage('waves.prep', device=dev):
+        P = None if P is None else P.contiguous()
+        return D.contiguous(), forward_sources(S), P
 
 
 def _forward_pass(scheme, variant, D, S, P):
     """The pass of kernel B1 (*scheme* 'recentred') or B2 ('ddphase'): the
     source groups' partial sums (ngroup, 10, Nd)."""
-    dev = _check_kernel_inputs(*(t for t in (D, S, P) if t is not None))
-    with stage('waves.prep', device=dev):
-        D, rows, P = _forward_inputs(D, S, P)
-    return _forward_launch(scheme, variant, D, rows, P)
+    return _forward_launch(scheme, variant, *_forward_inputs(D, S, P))
 
 
 def _forward_launch(scheme, variant, D, rows, P):
@@ -943,8 +952,8 @@ class _KirchhoffRecentred(torch.autograd.Function):
             out = _plain_rows('recentred', variant, D, S, P)
         elif D.device.type == 'cuda':
             S = _pad_sources(S)
-            out = _launch_recentred(D, S, P, variant)
-            _count_forward(D.shape[1], ctx.ns)
+            out = _launch_rows('recentred', variant,
+                               *_forward_inputs(D, S, P), ctx.ns)
         else:
             raise ValueError(f'no Kirchhoff kernel for {D.device}')
         ctx.save_for_backward(D, S, P)
@@ -974,8 +983,8 @@ class _KirchhoffDDPhase(torch.autograd.Function):
             out = _plain_rows('ddphase', variant, D, S)
         elif D.device.type == 'cuda':
             S = _pad_sources(S)
-            out = _launch_ddphase(D, S, variant)
-            _count_forward(D.shape[1], ctx.ns)
+            out = _launch_rows('ddphase', variant,
+                               *_forward_inputs(D, S, None), ctx.ns)
         else:
             raise ValueError(f'no Kirchhoff kernel for {D.device}')
         ctx.save_for_backward(D, S)
@@ -1001,8 +1010,7 @@ def _complex5(out):
 def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
                               weights, phase_mode='recentred',
                               monochromatic=False, accumulate='mxu',
-                              narrowband='auto', check_envelope=True,
-                              graph=False):
+                              narrowband='auto', check_envelope=True):
     """The Kirchhoff double sum in float32, differentiable in all twelve
     inputs: the CUDA kernels (forward and adjoint) for CUDA tensors, their
     plain PyTorch versions for CPU tensors.
@@ -1026,28 +1034,31 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
     The per-point preparation is ordinary differentiable torch; the pair
     sums are one ``torch.autograd.Function`` whose backward recomputes the
     pairs (nothing per pair is kept).  The envelope checks read detached
-    float64 copies on the host.
-
-    *graph* (a caller that runs many calls of one shape, such as the tile
-    pairs of a tiled stage): on the card, with nothing to differentiate,
-    no host read to make (``check_envelope=False``, *narrowband* not
-    'auto') and tensors for every argument, the per-point preparation is
-    replayed from a CUDA graph (:func:`_graphed_sums`): the same
-    operations on the same values, so the same bits, but for a slice that
-    starts off a 16-byte boundary, whose recentring means the graph's
-    aligned copy may add in another order."""
-    opts = (phase_mode, monochromatic, accumulate, narrowband,
-            check_envelope)
-    if graph and not check_envelope and narrowband != 'auto':
-        flat = _flat_args(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
-                          weights)
-        if all(isinstance(t, torch.Tensor) and t.is_cuda and
-               not t.requires_grad for t in flat):
-            return _graphed_sums(flat, opts)
-    with stage('waves.prep', device=_astuple(xs)[0]):
-        scheme, variant, D, S, P = _prepared_inputs(
-            xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights, *opts)
-    if scheme == 'recentred':
+    float64 copies on the host.  On the card, when no argument requires
+    grad, the preparation is instead the kernel ``csrc/kirchhoff_prep.cu``
+    (:func:`_prep_kernel`): two launches in place of ~900 element-wise
+    ones, and the same keys given the same recentring means, which it sums
+    in another order.  It takes float32 tensors (complex fields) of the
+    points' length or broadcast from one value, and raises on anything
+    else, as the forward kernels do."""
+    xd, yd, zd = _astuple(xd), _astuple(yd), _astuple(zd)
+    xs, ys, zs = _astuple(xs), _astuple(ys), _astuple(zs)
+    k = _astuple(k)
+    with stage('waves.prep', device=xs[0]):
+        mode = _resolved_mode(xd, yd, zd, xs, ys, zs, k, phase_mode,
+                              monochromatic, accumulate, narrowband,
+                              check_envelope)
+        args = (xd, yd, zd, xs, ys, zs, Es, Ep, k,
+                _broadcast_n(n, xs[0].shape[0], xs[0]), nl, weights)
+        fused = _takes_prep_kernel(args)
+        if fused:
+            scheme, variant, D, rows, P = _prep_kernel(mode,
+                                                       _flat_args(*args))
+        else:
+            scheme, variant, D, S, P = _kernel_inputs(*args, mode)
+    if fused:
+        out = _launch_rows(scheme, variant, D, rows, P, xs[0].shape[0])
+    elif scheme == 'recentred':
         out = _KirchhoffRecentred.apply(D, S, P, variant)
     else:
         out = _KirchhoffDDPhase.apply(D, S, variant)
@@ -1055,106 +1066,163 @@ def kirchhoff_integral_kernel(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl,
         return _complex5(out)
 
 
+def _resolved_mode(xd, yd, zd, xs, ys, zs, k, phase_mode, monochromatic,
+                   accumulate, narrowband, check_envelope):
+    """The mode :func:`_kernel_inputs` takes ('mono', 'narrowband', 'poly',
+    'fast' or 'exact') for :func:`kirchhoff_integral_kernel`'s options:
+    narrowband 'auto' and the envelope check read the positions on the
+    host."""
+    if phase_mode in _DD_VARIANTS:
+        return phase_mode
+    if phase_mode != 'recentred':
+        raise ValueError(f'phase_mode {phase_mode!r}')
+    if narrowband == 'auto':
+        narrowband = False if monochromatic else \
+            narrowband_err_cycles(k, xd, yd, zd, xs, ys, zs) < 1e-3
+    if accumulate.startswith('mxu') and check_envelope:
+        e_max = recentred_series_e_max(xd, yd, zd, xs, ys, zs)
+        if e_max > SERIES_E_MAX:
+            warnings.warn(
+                f"recentred 'mxu' accumulation: geometry exceeds the "
+                f"1/A-series envelope (e_max={e_max:.3f} > "
+                f"{SERIES_E_MAX}); falling back to the exact 'vpu' "
+                f"contraction for the direction integrals.",
+                stacklevel=3)
+    if monochromatic:
+        return 'mono'
+    return 'narrowband' if narrowband is True else 'poly'
+
+
+def _takes_prep_kernel(args):
+    """Whether :func:`kirchhoff_integral_kernel` prepares its twelve
+    arguments *args* (positions and k as (hi, lo) pairs, n as three
+    members) by the kernel: the sources are on a card and nothing requires
+    grad."""
+    def leaves(v):
+        return v if isinstance(v, (tuple, list)) else (v,)
+    return args[3][0].is_cuda and not any(
+        isinstance(t, torch.Tensor) and t.requires_grad
+        for v in args for t in leaves(v))
+
+
 def _flat_args(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights):
-    """The twelve arguments of :func:`kirchhoff_integral_kernel` as one
-    list (positions and k as (hi, lo) pairs, n as three members)."""
-    pairs = [_astuple(v) for v in (xd, yd, zd, xs, ys, zs, k)]
-    return [*(t for p in pairs[:6] for t in p), Es, Ep, *pairs[6], *n, nl,
+    """The per-point arguments as the preparation kernel reads them
+    (``csrc/kirchhoff_prep.cuh`` ``In``): the (hi, lo) positions, the
+    fields' re and im parts as float32 views (a conjugate view resolved),
+    k, the normal's three members, n . direction and the weights, each of
+    the destinations' (the first six) or the sources' length, a single
+    value (a number, or a tensor of one element) broadcast with a stride
+    of 0.
+    Raises on a real field, any other argument not float32, another device
+    than the sources', or another length."""
+    dev = xs[0].device
+
+    def parts(z):
+        if not isinstance(z, torch.Tensor) or not z.is_complex():
+            raise TypeError(f'the Kirchhoff kernels take complex fields, '
+                            f'not {getattr(z, "dtype", type(z).__name__)}')
+        # another complex dtype rounded to complex64, as the plain version
+        # rounds the parts
+        return torch.view_as_real(
+            z.resolve_conj().to(torch.complex64)).unbind(-1)
+    flat = [*xd, *yd, *zd, *xs, *ys, *zs, *parts(Es), *parts(Ep), *k, *n, nl,
             weights]
+    out = []
+    for i, t in enumerate(flat):
+        npt = xd[0].shape[0] if i < 6 else xs[0].shape[0]
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(float(t), dtype=torch.float32, device=dev)
+        if t.dtype != torch.float32:
+            raise TypeError(f'the Kirchhoff kernels take float32, not '
+                            f'{t.dtype}')
+        if t.device != dev:
+            raise ValueError(f'Kirchhoff kernel input on {t.device}, '
+                             f'expected {dev}')
+        if t.dim() > 1 or t.numel() not in (1, npt):
+            raise ValueError(f'Kirchhoff kernel input of shape '
+                             f'{tuple(t.shape)}, expected ({npt},)')
+        if t.shape != (npt,):
+            t = t.reshape(()).expand(npt) if t.numel() == 1 else \
+                t.reshape(npt)
+        out.append(t)
+    return out
 
 
-def _args_of(f):
-    """The twelve arguments from :func:`_flat_args`'s list *f*."""
-    return (*[(f[i], f[i + 1]) for i in range(0, 12, 2)], f[12], f[13],
-            (f[14], f[15]), [f[16], f[17], f[18]], f[19], f[20])
+#: the preparation kernel's variants (``csrc/kirchhoff_prep.cuh``)
+_PREP_VARIANTS = {'mono': 0, 'narrowband': 1, 'poly': 2, 'fast': 3,
+                  'exact': 4}
+#: its centre buffer (floats; the first ten are P) and the blocks at most of
+#: its centre launch, whose partial sums are (blocks, 6) doubles of scratch
+PREP_CENTRE, PREP_MAX_BLOCKS = 27, 160
+#: per card and stream: the centre launch's partial sums and, in the last
+#: double, the ticket that tells its last block (zero between calls, which
+#: one stream runs one at a time)
+_PREP_SCRATCH = {}
+_PREP_ARGTYPES = [ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_longlong, _P, _P, _P, _P, _P, _P]
 
 
-#: the captured per-point preparations of :func:`_graphed_sums`, by the
-#: call's options and its arguments' shapes, dtypes and card; each kept
-#: for the life of the process (a SoftiMAX chain captures three)
-_PREP_GRAPHS = {}
-
-
-def _graphed_sums(flat, opts):
-    """:func:`kirchhoff_integral_kernel` of the arguments *flat* (from
-    :func:`_flat_args`; CUDA tensors) with its options *opts*, the
-    per-point preparation (:func:`_prepared_inputs`, the sources' padding
-    and rows) replayed from a CUDA graph captured at the first call of
-    these options and shapes: its ~900 element-wise launches become the
-    copies of the arguments into the graph's inputs and one replay.  The
-    kernels then run on the graph's outputs."""
+def _prep_kernel(mode, flat):
+    """(scheme, variant, D, source rows, P) of the arguments *flat* (from
+    :func:`_flat_args`, on a card) by ``csrc/kirchhoff_prep.cu``: the
+    recentring centre, then every point's keys in the layouts the forward
+    kernels read (:func:`_forward_inputs`), the sources zero-padded to a
+    multiple of :data:`KERNEL_SRC_CHUNK` as the autograd functions pad
+    them; one launch in :data:`LAUNCHES` under ``prep:<mode>`` (a name
+    outside the forward kernels' ``kirchhoff_*``), and the counter
+    ``kirchhoff.prep_fused`` while tracing."""
     dev = flat[0].device
-    key = (opts, dev, tuple((t.shape, t.dtype) for t in flat))
-    got = _PREP_GRAPHS.get(key)
-    if got is None:
-        got = _PREP_GRAPHS[key] = _capture_prep(flat, opts)
-    inputs, (scheme, variant, ns), (D, rows, P), graph = got
-    with stage('waves.prep', device=dev):
-        for buf, t in zip(inputs, flat):
-            buf.copy_(t)
-        graph.replay()
+    nd, ns = flat[0].shape[0], flat[6].shape[0]
+    if mode in _DD_VARIANTS:
+        scheme, variant, (dkeys, skeys) = 'ddphase', _DD_VARIANTS[mode], \
+            (_DD_DST_KEYS, _DD_SRC_KEYS)
+    else:
+        scheme, variant = 'recentred', _RECENTRED_VARIANTS[mode]
+        dkeys, skeys = _RECENTRED_KEYS[variant]
+    ns_pad = -(-ns // KERNEL_SRC_CHUNK) * KERNEL_SRC_CHUNK
+    D = torch.empty((len(dkeys), nd), dtype=torch.float32, device=dev)
+    rows = torch.empty((ns_pad, -(-len(skeys) // 4) * 4),
+                       dtype=torch.float32, device=dev)
+    cen = scratch = None
+    if scheme == 'recentred':
+        cen = torch.empty((PREP_CENTRE,), dtype=torch.float32, device=dev)
+        key = (dev, torch.cuda.current_stream(dev).cuda_stream) \
+            if dev.type == 'cuda' else (dev, None)
+        scratch = _PREP_SCRATCH.get(key)
+        if scratch is None:
+            scratch = _PREP_SCRATCH[key] = torch.zeros(
+                (6 * PREP_MAX_BLOCKS + 1,), dtype=torch.float64, device=dev)
+    _prep_launch(
+        dev, _PREP_VARIANTS[mode],
+        (_P * len(flat))(*(t.data_ptr() for t in flat)),
+        (ctypes.c_longlong * len(flat))(*(t.stride(0) for t in flat)),
+        nd, ns, ns_pad, D.data_ptr(), rows.data_ptr(),
+        None if cen is None else cen.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if scratch is None else scratch[-1:].data_ptr())
+    LAUNCHES[f'prep:{mode}'] += 1
+    count('kirchhoff.prep_fused')
+    return scheme, variant, D, rows, None if cen is None else cen[:10]
+
+
+def _prep_launch(dev, *args):
+    """``kirchhoff_prep_launch`` of ``csrc/kirchhoff_prep.cu`` on card
+    *dev* with *args* (all but the stream); raises on a launch error."""
+    from . import _cuda
+    fn = _cuda.entry('kirchhoff_prep', 'kirchhoff_prep_launch',
+                     _PREP_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(*args, _cuda.stream_ptr(dev))
+    _cuda.check(err, 'kirchhoff_prep')
+
+
+def _launch_rows(scheme, variant, D, rows, P, ns):
+    """Kernel B1 (*scheme* 'recentred') or B2 ('ddphase') of
+    :func:`kirchhoff_integral_kernel` on the prepared *D*, source *rows*
+    and *P* (of :func:`_prep_kernel`, or :func:`_forward_inputs` after the
+    plain preparation) for *ns* sources: the ten sums (10, Nd), one launch
+    in :data:`LAUNCHES` and the tracing counters."""
     out = _forward_sums(scheme, variant,
                         _forward_launch(scheme, variant, D, rows, P))
     _count_forward(D.shape[1], ns)
-    with stage('waves.prep', device=dev):
-        return _complex5(out)
-
-
-def _capture_prep(flat, opts):
-    """(static inputs, (scheme, variant, sources), static (D, rows, P),
-    graph) of the preparation of :func:`_graphed_sums`, warmed up once on a
-    side stream and then captured, as ``torch.cuda.graphs`` asks."""
-    dev = flat[0].device
-    inputs = [t.detach().clone() for t in flat]
-
-    def prep():
-        scheme, variant, D, S, P = _prepared_inputs(*_args_of(inputs),
-                                                    *opts)
-        return (scheme, variant, S.shape[1]), \
-            _forward_inputs(D, _pad_sources(S), P)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        prep()
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        info, outputs = prep()
-    _check_kernel_inputs(*(t for t in outputs if t is not None))
-    return inputs, info, outputs, graph
-
-
-def _prepared_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n, nl, weights,
-                     phase_mode, monochromatic, accumulate, narrowband,
-                     check_envelope):
-    """(scheme, variant, D, S, P) of :func:`kirchhoff_integral_kernel`'s
-    arguments: the mode resolved, then :func:`_kernel_inputs`."""
-    xd, yd, zd = _astuple(xd), _astuple(yd), _astuple(zd)
-    xs, ys, zs = _astuple(xs), _astuple(ys), _astuple(zs)
-    k = _astuple(k)
-    if phase_mode == 'recentred':
-        if narrowband == 'auto':
-            narrowband = False if monochromatic else \
-                narrowband_err_cycles(k, xd, yd, zd, xs, ys, zs) < 1e-3
-        if accumulate.startswith('mxu') and check_envelope:
-            e_max = recentred_series_e_max(xd, yd, zd, xs, ys, zs)
-            if accumulate == 'mxu2' and e_max > SERIES_E2_MAX:
-                accumulate = 'mxu'
-            if e_max > SERIES_E_MAX:
-                warnings.warn(
-                    f"recentred 'mxu' accumulation: geometry exceeds the "
-                    f"1/A-series envelope (e_max={e_max:.3f} > "
-                    f"{SERIES_E_MAX}); falling back to the exact 'vpu' "
-                    f"contraction for the direction integrals.",
-                    stacklevel=3)
-                accumulate = 'vpu'
-    elif phase_mode not in ('fast', 'exact'):
-        raise ValueError(f'phase_mode {phase_mode!r}')
-    Ns = xs[0].shape[0]
-    n3 = _broadcast_n(n, Ns, xs[0])
-    mode = phase_mode
-    if phase_mode == 'recentred':
-        mode = 'mono' if monochromatic else \
-            ('narrowband' if narrowband is True else 'poly')
-    return _kernel_inputs(xd, yd, zd, xs, ys, zs, Es, Ep, k, n3, nl,
-                          weights, mode)
+    return out

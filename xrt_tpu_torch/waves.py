@@ -1044,12 +1044,10 @@ def _tiled_integral(args, tile_modes, monochromatic, narrowband):
     :func:`~xrt_tpu_torch.ops.kirchhoff.kirchhoff_integral_kernel` on
     slices (B1 or B2 on the card), added into its destination tile.  The
     modes were chosen on the host at build time, so no pair reads anything
-    back: the envelope check is skipped.  On the card the pairs share one
-    shape, so each pair's per-point preparation is replayed from a CUDA
-    graph (``kirchhoff_integral_kernel(graph=True)``): a stage's ~50
-    pairs would otherwise launch ~900 element-wise kernels each.  The
-    padding, the slicing and the sums of the tiles are spans
-    ``waves.prep``."""
+    back: the envelope check is skipped.  On the card a pair with nothing
+    to differentiate takes its per-point preparation from the two launches
+    of ``csrc/kirchhoff_prep.cu``.  The padding, the slicing and the sums
+    of the tiles are spans ``waves.prep``."""
     from .ops.kirchhoff import kirchhoff_integral_kernel
     ntd = len(tile_modes)
     Nd = args[0][0].shape[0]
@@ -1062,8 +1060,7 @@ def _tiled_integral(args, tile_modes, monochromatic, narrowband):
         (di, _), (pm, am), pair, _ = item
         out = kirchhoff_integral_kernel(
             *pair, phase_mode=pm, monochromatic=monochromatic,
-            accumulate=am, narrowband=narrowband, check_envelope=False,
-            graph=True)
+            accumulate=am, narrowband=narrowband, check_envelope=False)
         with stage('waves.prep', device=dev):
             acc[di] = [o if a is None else a + o
                        for a, o in zip(acc[di], out)]
