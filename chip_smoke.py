@@ -816,11 +816,10 @@ def sincosf_mismatches(x):
     import torch
     from xrt_tpu_torch.ops import _cuda
     out = torch.empty((4, x.numel()), device=x.device)
-    fn = _cuda.entry('dd_selftest', 'sincosf_selftest_launch',
-                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    _cuda.check(fn(x.data_ptr(), x.numel(), out.data_ptr(),
-                   _cuda.stream_ptr(x.device)), 'sincosf_selftest')
+    _cuda.launch('dd_selftest', 'sincosf_selftest_launch',
+                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p], x.device,
+                 x.data_ptr(), x.numel(), out.data_ptr())
     return int(((out[0] != out[2]) | (out[1] != out[3])).sum())
 
 
@@ -905,17 +904,17 @@ def time_kernel(name, variant, stage, with_plain=True):
     Nd, Ns = xd[0].shape[0], xs[0].shape[0]
     scheme, v, D, S, P = tk._kernel_inputs(*args, variant)
     S = tk._pad_sources(S)
+    launch = lambda: tk._launch_rows(scheme, v, *tk._forward_inputs(D, S, P),
+                                     Ns)
     if name == 'kirchhoff_recentred':
-        launch = lambda: tk._launch_recentred(D, S, P, v)
         plain = lambda: tk.kirchhoff_integral_recentred(
             *args, monochromatic=True)
     else:
-        launch = lambda: tk._launch_ddphase(D, S, v)
         plain = lambda: tk.kirchhoff_integral_dd(*args, phase_mode=variant)
     launch()
     torch.cuda.synchronize()
     ms = statistics.median(cuda_ms(launch)[0] for _ in range(3))
-    part = tk._forward_pass(scheme, v, D, S, P)
+    part = tk._forward_launch(scheme, v, *tk._forward_inputs(D, S, P))
     red_ms = statistics.median(cuda_ms(lambda: tk._forward_reduce(
         name, part))[0] for _ in range(3))
     regs, spill = kernel_registers(scheme, v)

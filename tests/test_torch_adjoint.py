@@ -14,17 +14,16 @@ and their pair functions.
   tests.  The skeleton around them (tiling, the transpose-reduce, the
   partial sums) runs only on the card (``tests/test_torch_cuda.py``).
 """
+import torch_harness
+
 import ctypes
 import math
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from xrt_tpu_torch.ops import kirchhoff as tk
-from xrt_tpu_torch.ops._cuda import CSRC
 from test_torch_cuda import _args  # the card tests' beamline-like inputs
 
 VARIANTS = [('recentred', 0), ('recentred', 1), ('recentred', 2),
@@ -68,17 +67,6 @@ def test_grid_at_the_edges(nd, ns_pad, grid):
     assert nslab * ngroup < tk.ADJ_TARGET_BLOCKS + ngroup
 
 
-# what the sources need of the CUDA runtime, for the host
-STUB_RUNTIME = r"""
-#pragma once
-#include <math.h>
-#define __device__
-#define __host__
-#define __forceinline__ inline
-typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
-inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
-"""
 STUB_SKELETON = r"""
 #pragma once
 namespace xbwd {
@@ -130,26 +118,14 @@ extern "C" void pair_sums(int v, int nd, int ns, const float* D,
 def pair_libs(tmp_path_factory):
     """{scheme: ctypes library} of the two adjoint sources, built for the
     host."""
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the pair functions for the host')
-    d = tmp_path_factory.mktemp('pairs')
-    (d / 'cuda_runtime.h').write_text(STUB_RUNTIME)
-    (d / 'kirchhoff_bwd.cuh').write_text(STUB_SKELETON)
-    (d / 'harness.cpp').write_text(HARNESS)
-    shutil.copy(CSRC / 'dd.cuh', d / 'dd.cuh')
-    libs = {}
-    for scheme, pair, third in (('recentred', 'RecentredPair', True),
-                                ('ddphase', 'DDPair', False)):
-        shutil.copy(CSRC / f'kirchhoff_{scheme}_bwd.cu', d)
-        so = d / f'lib{scheme}.so'
-        subprocess.run(
-            [gxx, '-O1', '-ffp-contract=off', '-std=c++17', '-shared',
-             '-fPIC', '-I', str(d), f'-DSRC="kirchhoff_{scheme}_bwd.cu"',
-             f'-DPAIR={pair}'] + (['-DTHIRD'] if third else []) +
-            ['-o', str(so), str(d / 'harness.cpp')], check=True)
-        libs[scheme] = ctypes.CDLL(str(so))
-    return libs
+    return {scheme: torch_harness.host_build(
+        tmp_path_factory, f'{scheme}_bwd',
+        {'harness.cpp': HARNESS, 'kirchhoff_bwd.cuh': STUB_SKELETON},
+        headers=('dd.cuh', f'kirchhoff_{scheme}_bwd.cu'),
+        defines=(f'SRC="kirchhoff_{scheme}_bwd.cu"', f'PAIR={pair}') +
+        (('THIRD',) if third else ()))
+        for scheme, pair, third in (('recentred', 'RecentredPair', True),
+                                    ('ddphase', 'DDPair', False))}
 
 
 def _row_rel(got, ref):

@@ -17,6 +17,8 @@ package, float64, on the same numpy rays.
   by both packages, and the three histograms (400 x 400, 128 x 128,
   128 x 128) to 1e-9 of their largest bin, the non-empty bins identical.
 """
+import torch_harness  # noqa: F401
+
 import importlib.util
 import math
 import os

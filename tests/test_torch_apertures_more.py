@@ -9,6 +9,8 @@
   ``touch_beam`` against the JAX package's to 1e-12.
 * ``tests/test_apertures.py``'s nine checks on the port.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -11,6 +11,8 @@
   ``virgin_local_to_global`` with a beamline azimuth (and their
   ``skip_xyz`` / ``skip_abc`` forms): to 1e-12, and the round trip.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -15,6 +15,8 @@ JAX package, float64.
   ``tests/test_baseline_configs.py``).
 * The 3D view ``glow`` of an empty beamline writes a file.
 """
+import torch_harness  # noqa: F401
+
 import json
 import math
 

@@ -20,6 +20,8 @@ DualVFM against the JAX package.
   test_grad_ellipse_semiaxis_through_parametric_intersection_fd``, at 400
   rays).
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

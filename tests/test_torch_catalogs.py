@@ -10,6 +10,8 @@
   of the largest, off absorption edges (at an edge the table
   interpolation's last bits differ: Mo at its K edge, 20 keV, 3e-11).
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

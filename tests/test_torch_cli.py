@@ -18,6 +18,8 @@
   which equals the ordered sum of two unsharded passes with the same
   generators to the printed digits.
 """
+import torch_harness  # noqa: F401
+
 import contextlib
 import io
 import math

@@ -16,6 +16,8 @@ data and scipy.
   Silverman, 1e-6), the weighted subset rule, a scalar bandwidth's
   integral, and the JAX package's densities to 1e-12.
 """
+import torch_harness  # noqa: F401
+
 import os
 
 import numpy as np

@@ -21,6 +21,8 @@
   Takagi-Taupin entry is its two-beam amplitude; the complex-free i z
   helper.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 

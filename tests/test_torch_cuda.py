@@ -77,6 +77,8 @@ check).  On the card:
 * the synchrotron sources' resampling scan on the card gives the same bits
   on every run, and a seed the same rays.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch
@@ -187,11 +189,10 @@ def test_sincosf_gives_the_bits_of_sinf_and_cosf(cuda):
     x = ((4 * torch.rand(200_000, generator=g, dtype=torch.float64) - 2) *
          np.pi).float().to(cuda)
     out = torch.empty((4, x.numel()), device=cuda)
-    fn = _cuda.entry('dd_selftest', 'sincosf_selftest_launch',
-                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    _cuda.check(fn(x.data_ptr(), x.numel(), out.data_ptr(),
-                   _cuda.stream_ptr(cuda)), 'sincosf_selftest')
+    _cuda.launch('dd_selftest', 'sincosf_selftest_launch',
+                 [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p], cuda,
+                 x.data_ptr(), x.numel(), out.data_ptr())
     assert torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
 
 
@@ -199,25 +200,23 @@ def test_float64_is_refused_by_the_kernel(cuda):
     args = _args(cuda, poly=False, Ns=300, Nd=100)
     _, v, D, S, P = tk._kernel_inputs(*args, 'mono')
     with pytest.raises(TypeError):
-        tk._launch_recentred(D.double(), tk._pad_sources(S), P, v)
+        _forward(D.double(), S, P, 'recentred', v)
     with pytest.raises(ValueError):
-        tk._launch_recentred(D.cpu(), tk._pad_sources(S), P, v)
+        _forward(D.cpu(), S, P, 'recentred', v)
 
 
 def test_refused_launch_raises(cuda):
     """A launch the C entry point refuses (source rows not padded to its
-    chunk) comes back as a nonzero cudaError_t, and the check raises."""
+    chunk) comes back as a nonzero cudaError_t, and the launch raises."""
     from xrt_tpu_torch.ops import _cuda
-    fn = _cuda.entry('kirchhoff_recentred', 'kirchhoff_recentred_launch',
-                     tk._FWD_ARGTYPES)
     D = torch.zeros((6, 4), device=cuda)
     rows = torch.zeros((100, 20), device=cuda)
     part = torch.empty((1, 10, 4), device=cuda)
     P = torch.zeros(10, device=cuda)
-    err = fn(0, D.data_ptr(), 4, rows.data_ptr(), 100, P.data_ptr(), 1,
-             part.data_ptr(), _cuda.stream_ptr(cuda))
-    with pytest.raises(RuntimeError):
-        _cuda.check(err, 'kirchhoff_recentred')
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        _cuda.launch('kirchhoff_recentred', 'kirchhoff_recentred_launch',
+                     tk._FWD_ARGTYPES, cuda, 0, D.data_ptr(), 4,
+                     rows.data_ptr(), 100, P.data_ptr(), 1, part.data_ptr())
 
 
 # ---- the preparation kernel (csrc/kirchhoff_prep.cu) -----------------------
@@ -341,9 +340,8 @@ ACCUMULATE = ['vpu', 'mxu', 'mxu2', 'mxu-fast', 'mxu32']
 
 
 def _forward(D, S, P, scheme, v):
-    if scheme == 'recentred':
-        return tk._launch_recentred(D, S, P, v)
-    return tk._launch_ddphase(D, S, v)
+    return tk._launch_rows(scheme, v, *tk._forward_inputs(D, S, P),
+                           S.shape[1])
 
 
 @pytest.mark.parametrize('acc', ACCUMULATE)

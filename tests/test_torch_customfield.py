@@ -23,11 +23,9 @@ data.
   measured), and no farther from it than the JAX package's float32 map
   (run in a subprocess with x64 off) plus 1e-3.  At x-ray energies neither
   package's float32 keeps a digit (ROADMAP C22).
-
-The port runs on one torch thread here: the integral's (rays x 64) steps
-gain little from the thread pool on the CPU, and its waiting threads slow
-the other workers of a parallel test run.
 """
+import torch_harness  # noqa: F401
+
 import os
 import subprocess
 import sys
@@ -82,14 +80,6 @@ def ir_angles():
     th, ps = np.meshgrid(np.arctan(xs / IR_R0), np.arctan(xs / IR_R0),
                          indexing='ij')
     return np.full(th.size, IR_E0), th.ravel(), ps.ravel()
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -28,6 +28,8 @@ package, on the same numpy rays.
 * ``DCMOnTripodWithOneXStage`` builds a DCM (the tripod support is
   ported).
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

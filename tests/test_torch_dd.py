@@ -6,6 +6,8 @@ numpy inputs.  Tolerance: none — every output must be bit-identical, since
 the CUDA helpers (csrc/dd.cuh) are held to the torch versions bit for bit
 on the card.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

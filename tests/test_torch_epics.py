@@ -23,6 +23,8 @@ package's ``xrt_tpu/epics.py``, float64, CPU.
   replays the recorded flow, and the flux readback equals a full
   re-trace's to 1e-9.
 """
+import torch_harness  # noqa: F401
+
 import json
 import os
 import socket

@@ -18,6 +18,8 @@
   amplitude of a four-point finite difference (the counterpart of
   ``tests/test_gradients.py::test_grad_figure_error_amplitude_fd``).
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -12,6 +12,8 @@ recorded flow from the changed element.  The flux and centroid readbacks
 of the replayed flow equal a full re-trace's to 1e-9 mm, the JAX test's
 limit.  Both packages capture the same steps of the same user code.
 """
+import torch_harness  # noqa: F401
+
 import json
 import math
 import socket

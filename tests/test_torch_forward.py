@@ -20,17 +20,15 @@ rows, their pair functions, and the double-float product they rest on.
   float32 inputs spanning the exponents the kernels see: positions from
   1e-6 to 1e5 mm, their squares, and kappa x r up to ~1e13.
 """
+import torch_harness
+
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
 from xrt_tpu_torch.ops import dd, kirchhoff as tk
-from xrt_tpu_torch.ops._cuda import CSRC
-from test_torch_adjoint import STUB_RUNTIME
 from test_torch_cuda import _args  # the card tests' beamline-like inputs
 
 MODES = ['mono', 'narrowband', 'poly', 'fast', 'exact']
@@ -120,32 +118,17 @@ extern "C" void two_prod_rows(const float* a, const float* b, int n,
 def host_libs(tmp_path_factory):
     """{name: ctypes library}: the two forward sources and dd.cuh's
     two_prod, built for the host."""
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the pair functions for the host')
-    d = tmp_path_factory.mktemp('forward')
-    (d / 'cuda_runtime.h').write_text(
-        STUB_RUNTIME + 'inline float __frcp_rn(float x) { return 1 / x; }\n')
-    (d / 'kirchhoff_fwd.cuh').write_text(STUB_FORWARD)
-    (d / 'harness.cpp').write_text(HARNESS)
-    (d / 'two_prod.cpp').write_text(TWO_PROD)
-    shutil.copy(CSRC / 'dd.cuh', d / 'dd.cuh')
-    flags = [gxx, '-O1', '-ffp-contract=off', '-std=c++17', '-shared',
-             '-fPIC', '-I', str(d)]
-    libs = {}
-    for scheme, pair, third in (('recentred', 'RecentredPair', True),
-                                ('ddphase', 'DDPair', False)):
-        shutil.copy(CSRC / f'kirchhoff_{scheme}.cu', d)
-        so = d / f'lib{scheme}.so'
-        subprocess.run(flags + [f'-DSRC="kirchhoff_{scheme}.cu"',
-                                f'-DPAIR={pair}'] +
-                       (['-DTHIRD'] if third else []) +
-                       ['-o', str(so), str(d / 'harness.cpp')], check=True)
-        libs[scheme] = ctypes.CDLL(str(so))
-    so = d / 'libtwo_prod.so'
-    subprocess.run(flags + ['-o', str(so), str(d / 'two_prod.cpp')],
-                   check=True)
-    libs['two_prod'] = ctypes.CDLL(str(so))
+    libs = {scheme: torch_harness.host_build(
+        tmp_path_factory, scheme,
+        {'harness.cpp': HARNESS, 'kirchhoff_fwd.cuh': STUB_FORWARD},
+        headers=('dd.cuh', f'kirchhoff_{scheme}.cu'),
+        defines=(f'SRC="kirchhoff_{scheme}.cu"', f'PAIR={pair}') +
+        (('THIRD',) if third else ()))
+        for scheme, pair, third in (('recentred', 'RecentredPair', True),
+                                    ('ddphase', 'DDPair', False))}
+    libs['two_prod'] = torch_harness.host_build(
+        tmp_path_factory, 'two_prod', {'two_prod.cpp': TWO_PROD},
+        headers=('dd.cuh',))
     return libs
 
 

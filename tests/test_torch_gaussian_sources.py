@@ -9,6 +9,8 @@ against the JAX package.
   package's divergence window.
 * ``tests/test_gaussian_beams.py``'s eight checks on the port.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

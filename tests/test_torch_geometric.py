@@ -10,6 +10,8 @@ value.  The analytic checks of the JAX package's end-to-end trace tests
 (flat-mirror deflection and |r_s|^2, spherical and toroidal focusing,
 aperture blocking) are re-stated for the port.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -16,6 +16,8 @@ the JAX package's ``xrt_tpu/glow.py`` on the same beams, float64, CPU.
   (``NotImplementedError``) is drawn as its flat plane, a ``RuntimeError``
   (what a failed launch raises) propagates.
 """
+import torch_harness  # noqa: F401
+
 import dataclasses
 import json
 import math

@@ -12,6 +12,8 @@ read, at the limits of the JAX package's own tests of them.
 * The XOP curves that ``tests/test_materials.py`` reads (Pt at 4 mrad,
   xf1f2; thick Si(111), XCrystal) at its loose limits.
 """
+import torch_harness  # noqa: F401
+
 import gzip
 import math
 import os

@@ -23,6 +23,8 @@ autograd function on the CPU: plain forward, plain blocked backward)
 against the JAX package's Pallas custom VJP in interpret mode (a
 subprocess at XLA ``O0``): within 3%, the reference's own limit.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -15,6 +15,8 @@ mm at |y| ~ 40 mm).
 
 Imports nothing of the JAX package.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 import sys

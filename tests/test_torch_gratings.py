@@ -27,6 +27,8 @@ JAX package.
   1e-3, and its float64 mask equals the JAX package's except within 1e-9
   zones of an edge.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

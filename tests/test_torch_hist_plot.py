@@ -21,9 +21,9 @@ per-ray arithmetic) on the CPU.
   order) with the same non-empty bins; ``runner.histogram_plot`` on CPU
   tensors is ``hist_plot_plain`` and launches nothing.
 """
+import torch_harness
+
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -34,21 +34,11 @@ from xrt_tpu import plotspec as jps, runner as jrunner
 from xrt_tpu.beam import Beam as JBeam
 from xrt_tpu_torch import histogram as th, interop, plotspec as tps, \
     runner as trunner
-from xrt_tpu_torch.ops._cuda import CSRC
-from test_torch_adjoint import STUB_RUNTIME
 
 XLIM, YLIM, CLIM = (-1.0, 1.3), (-0.5, 1.7), (8890.0, 9110.0)
 BINS = (32, 24, 16)
 CF = 0.85
 
-STUB = STUB_RUNTIME + r"""
-inline long long __double2ll_rn(double x) { return llrint(x); }
-inline float __ll2float_rn(long long x) { return (float)x; }
-inline double __ll2double_rn(long long x) { return (double)x; }
-inline unsigned atomicAdd(unsigned* p, unsigned v) {
-  const unsigned o = *p; *p = o + v; return o;
-}
-"""
 HARNESS = r"""
 #include "hist_ray.cuh"
 using namespace xhist;
@@ -150,18 +140,9 @@ extern "C" void fixed_sums2(long long n, const float* w, const int* bins,
 
 @pytest.fixture(scope='module')
 def lib(tmp_path_factory):
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the per-ray functions for the host')
-    d = tmp_path_factory.mktemp('hist_ray')
-    (d / 'cuda_runtime.h').write_text(STUB)
-    (d / 'harness.cpp').write_text(HARNESS)
-    shutil.copy(CSRC / 'hist_ray.cuh', d)
-    so = d / 'libray.so'
-    subprocess.run([gxx, '-O1', '-ffp-contract=off', '-std=c++17', '-shared',
-                    '-fPIC', '-I', str(d), '-o', str(so),
-                    str(d / 'harness.cpp')], check=True)
-    lib = ctypes.CDLL(str(so))
+    lib = torch_harness.host_build(tmp_path_factory, 'hist_ray',
+                                   {'harness.cpp': HARNESS},
+                                   headers=('hist_ray.cuh',))
     lib.exp_of.argtypes = [ctypes.c_double, ctypes.c_longlong]
     for f in (lib.count_f, lib.count_d):
         f.argtypes, f.restype = [ctypes.c_longlong], ctypes.c_longlong

@@ -13,6 +13,8 @@ version and in its kernel.  The same numpy inputs go through both:
   outside the limits land in the same bins in both, or in none;
 * ``hsv_to_rgb`` and ``colorize`` to 1e-12 / 1e-6.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,8 @@
   the same arrays; a JAX-written layout generates a script that runs on
   the port.
 """
+import torch_harness  # noqa: F401
+
 import contextlib
 import dataclasses
 import io

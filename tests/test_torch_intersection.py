@@ -19,6 +19,8 @@ surface (``lost``) and some leave the bracket before they cross it.
   case: R - sqrt(R^2 - x^2 - y^2) in float32 is quantized to one ulp of R,
   0.06 mm at R = 8.3e5 mm, in both packages alike.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -23,6 +23,8 @@
   xrt_tpu_torch trace`` without CUDA and without ``--device cpu`` exits
   non-zero instead of tracing on the CPU.
 """
+import torch_harness  # noqa: F401
+
 import ast
 import os
 import pkgutil

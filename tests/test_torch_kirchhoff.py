@@ -18,6 +18,8 @@
 * The float64 plain path (``kirchhoff_integral_xla``) against JAX's, and
   against the golden ``ref_kirchhoff.npz`` of the reference xrt.
 """
+import torch_harness  # noqa: F401
+
 import os
 
 import numpy as np

@@ -35,6 +35,8 @@ custom VJP, and against finite differences.
   of each row's largest value, no NaN.
 * The forward value does not depend on whether a gradient is asked for.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

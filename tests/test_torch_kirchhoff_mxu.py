@@ -8,6 +8,8 @@ mode's documented bounds, the ``_TOL`` table of the JAX package's
 plus that test's check of the normalized per-destination direction.
 Inputs and the O0 JAX subprocess as in ``test_torch_kirchhoff.py``.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 

@@ -23,6 +23,8 @@ package.
   ``examples/13_laue_mono.py`` (useTT) in both packages: the same
   histograms to 1e-9 of their totals.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

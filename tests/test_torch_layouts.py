@@ -18,6 +18,8 @@
 * Ports of ``tests/test_beamline.py``'s flow, alarms, JSON round-trip and
   ``remove`` tests at their limits, and ``reorder`` / ``update``.
 """
+import torch_harness  # noqa: F401
+
 import json
 import math
 

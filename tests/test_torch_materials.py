@@ -21,6 +21,8 @@
   as the JAX package does to 1e-9, and ``run_ray_tracing`` of both
   packages fills the same histograms to 1e-9 of their totals.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

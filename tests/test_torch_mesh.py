@@ -9,6 +9,8 @@
   package under ``jit``).
 * ``tests/test_mesh_oe.py``'s four checks on the port.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

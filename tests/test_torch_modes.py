@@ -18,6 +18,8 @@
   seeds 0 to 5, so they are not held here; phase 18 of ``chip_smoke.py``
   holds them at 256 electrons.)
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

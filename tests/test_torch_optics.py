@@ -12,6 +12,8 @@ nearly cancelling terms enter (the two libraries evaluate them by
 different algorithms).
 """
 
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

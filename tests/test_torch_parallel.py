@@ -37,6 +37,8 @@ started, if they outlast their time limit.
   equal the ordered sums of the four ranks' unsharded ones, bit for bit,
   on every rank.
 """
+import torch_harness  # noqa: F401
+
 import os
 import signal
 import subprocess

@@ -16,6 +16,8 @@ package.
   the plateau reflectivity, random crystallites cluster on it, the chi
   window, the monocrystal's symmetric cut.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

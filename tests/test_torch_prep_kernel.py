@@ -34,9 +34,9 @@ B2's inputs.
 * It counts one launch under ``prep:<mode>``, a name that the benchmark's
   readers of the forward kernels (``kirchhoff_*``) do not match.
 """
+import torch_harness
+
 import ctypes
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -44,9 +44,7 @@ import torch
 
 from xrt_tpu_torch import waves as W
 from xrt_tpu_torch.ops import dd, kirchhoff as tk
-from xrt_tpu_torch.ops._cuda import CSRC
 
-from test_torch_adjoint import STUB_RUNTIME
 
 MODES = ['mono', 'narrowband', 'poly', 'fast', 'exact']
 
@@ -134,19 +132,9 @@ extern "C" int kirchhoff_prep_launch(int variant, const void* const* ptrs,
 def host_lib(tmp_path_factory):
     """csrc/kirchhoff_prep.cuh behind the kernel's C entry point, built for
     the host."""
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the preparation for the host')
-    d = tmp_path_factory.mktemp('kirchhoff_prep')
-    (d / 'cuda_runtime.h').write_text(STUB_RUNTIME)
-    (d / 'harness.cpp').write_text(HARNESS)
-    for name in ('kirchhoff_prep.cuh', 'dd.cuh'):
-        shutil.copy(CSRC / name, d)
-    so = d / 'libkirchhoff_prep.so'
-    subprocess.run([gxx, '-O1', '-ffp-contract=off', '-std=c++17',
-                    '-shared', '-fPIC', '-I', str(d), '-o', str(so),
-                    str(d / 'harness.cpp')], check=True)
-    lib = ctypes.CDLL(str(so))
+    lib = torch_harness.host_build(tmp_path_factory, 'kirchhoff_prep',
+                                   {'harness.cpp': HARNESS},
+                                   headers=('kirchhoff_prep.cuh', 'dd.cuh'))
     lib.kirchhoff_prep_launch.argtypes = tk._PREP_ARGTYPES
     lib.kirchhoff_prep_launch.restype = ctypes.c_int
     lib.prep_given_means.argtypes = [ctypes.c_void_p]

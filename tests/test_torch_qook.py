@@ -22,6 +22,8 @@ package's loader.
   plots of local beams; the branched flow of ``mask_tests.xml`` through a
   JSON round trip.
 """
+import torch_harness  # noqa: F401
+
 import json
 import math
 import os

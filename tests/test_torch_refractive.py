@@ -17,6 +17,8 @@ JAX package.
 * ``run_ray_tracing`` of example 14's CRL in both packages: the same
   histograms to 1e-9 of their totals.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

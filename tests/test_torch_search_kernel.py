@@ -27,11 +27,11 @@ CPU, and the dispatch that sends a search to it (``oes/toroid_search.py``).
   search gives them.  ``reflect`` through the kernel path gives the generic
   path's beams.
 """
+import torch_harness
+
 import ctypes
 import json
 import math
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -46,9 +46,7 @@ from xrt_tpu_torch.oes import (DicedJohannToroid, DicedJohanssonToroid,
                                JohanssonToroid, ToroidMirror)
 from xrt_tpu_torch.oes import base as tbase
 from xrt_tpu_torch.oes import toroid_search as ts
-from xrt_tpu_torch.ops._cuda import CSRC
 
-from test_torch_adjoint import STUB_RUNTIME
 
 ROOT = Path(__file__).resolve().parent.parent
 ANALYZER = json.loads((ROOT / 'beambench' / 'configs' /
@@ -121,18 +119,9 @@ extern "C" int toroid_search_launch(
 def host_lib(tmp_path_factory):
     """csrc/toroid_search.cuh behind the kernel's C entry point, built for
     the host."""
-    gxx = shutil.which('g++')
-    if gxx is None:
-        pytest.skip('needs g++ to build the per-ray search for the host')
-    d = tmp_path_factory.mktemp('toroid_search')
-    (d / 'cuda_runtime.h').write_text(STUB_RUNTIME)
-    (d / 'harness.cpp').write_text(HARNESS)
-    shutil.copy(CSRC / 'toroid_search.cuh', d)
-    so = d / 'libtoroid_search.so'
-    subprocess.run([gxx, '-O1', '-ffp-contract=off', '-std=c++17',
-                    '-shared', '-fPIC', '-I', str(d), '-o', str(so),
-                    str(d / 'harness.cpp')], check=True)
-    lib = ctypes.CDLL(str(so))
+    lib = torch_harness.host_build(tmp_path_factory, 'toroid_search',
+                                   {'harness.cpp': HARNESS},
+                                   headers=('toroid_search.cuh',))
     lib.toroid_search_launch.argtypes = ts._ARGTYPES
     lib.toroid_search_launch.restype = ctypes.c_int
     return lib

@@ -20,6 +20,8 @@ package's chain (``tools/bench_softimax.py``), float64 on the CPU.
   every hop (pg 0.7; m3, es, m4, m5 0.6; focus 0.55; 0.999 before the
   grating).
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 import sys

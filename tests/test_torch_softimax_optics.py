@@ -22,6 +22,8 @@ Both sides run the same operations eagerly on the same seeded inputs:
 * ``prepare_wave_on_oe`` with the golden's ``samples=`` on M4, M5 and PG:
   the receiving points, ``s``, ``phi``, ``dS`` and the area to 1e-10.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 import sys

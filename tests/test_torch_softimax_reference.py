@@ -11,6 +11,8 @@ with the grating's groove arithmetic in float32 it read 1.6e-2 here
 The seed draws the first run as the checked one, so the window runs one
 chain run.  Imports nothing of the JAX package.
 """
+import torch_harness  # noqa: F401
+
 import os
 import sys
 import time

@@ -10,6 +10,8 @@ package.
 * ``DCMOnTripodWithOneXStage`` at nominal (flat) jacks equals ``DCM`` at
   the same place: the exit beam of 2000 rays to 1e-9, float64.
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -32,6 +32,8 @@ JAX package and against xrt's golden data.
   ``power_vs_K`` and ``power_vs_K_through_aperture`` and the wiggler's
   ``power_vs_K`` likewise.
 """
+import torch_harness  # noqa: F401
+
 import os
 
 import numpy as np

@@ -25,6 +25,8 @@ the JAX package's.
   'mxu*' envelopes carrying the tile map the JAX functions give for its
   geometry; ``run(timings=[])`` reports the tile pairs per mode.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 import sys

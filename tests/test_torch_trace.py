@@ -25,6 +25,8 @@ run in both packages, JAX eagerly in float64 under ``jax.disable_jit()``.
   of the reference ray tracer (``tests/golden/ref_trace_config1.npz``), at
   the tolerances of ``tests/test_trace_parity.py``.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 

@@ -19,6 +19,8 @@ and the benchmark's readers of them, on the CPU.
   ``configs/analyzer.py`` under ``torch.profiler``, and None without records
   or with a program that keeps none.
 """
+import torch_harness  # noqa: F401
+
 import json
 import os
 import sys

@@ -21,6 +21,8 @@
   the JAX package's own float32 error plus 1e-3 of the peak, the JAX
   side in a subprocess with x64 off.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -11,6 +11,8 @@
 * ``tests/test_txm_volume.py``'s six checks on the port (the HDF5 round
   trip skips where ``h5py`` is not installed).
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

@@ -23,6 +23,8 @@ data.
   search) build; the sources' entry points raise without a card unless
   made for the CPU.
 """
+import torch_harness  # noqa: F401
+
 import math
 import os
 

@@ -21,11 +21,9 @@ search against the JAX package, float64.
   on the JAX package's draws (JAX under ``jit``, in a subprocess of one
   XLA thread): the exit beam to 1e-9, and the JAX test's limits (band < 10
   eV, the fixed exit parallel to 1e-9).
-
-The port runs on one torch thread here: the integral's (rays x 64) steps
-gain little from the thread pool on the CPU, and its waiting threads slow
-the other workers of a parallel test run.
 """
+import torch_harness  # noqa: F401
+
 import os
 import subprocess
 import sys
@@ -52,14 +50,6 @@ GOLDEN_UND = dict(nrays=1000, eE=6.0, eI=0.1, eEpsilonX=0.0, eEpsilonZ=0.0,
                   xPrimeMax=0.02, zPrimeMax=0.02, gNodes=400, gIntervals=2)
 CASES = {'taper': dict(n=10, gNodes=120, taper=(1.09, 11.0)),
          'nearfield': dict(n=10, gNodes=120, R0=5000.0)}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -16,6 +16,8 @@
   acceptance, and the moments against a free run of the JAX package
   (sizes, divergences and mean energy within their Monte-Carlo spreads).
 """
+import torch_harness  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -30,6 +30,8 @@ against the JAX package, float64 (the JAX package eagerly, under
   every configuration of ``tests/test_baseline_configs.py`` has its
   counterpart in the port.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

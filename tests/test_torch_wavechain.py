@@ -17,6 +17,8 @@ The chain of the JAX package's ``test_wavechain_sharded.py`` (nrays 601,
 * The port's ``WaveChain.build/run`` gives the hop-by-hop result for one
   generator seed.
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

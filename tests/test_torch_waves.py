@@ -9,6 +9,8 @@ one (a compiled XLA body contracts a*a + b*b into FMAs, which moves a
 1e9-1e10 rad phase by ~1e-7 rad).  Tolerance 1e-10, relative to each
 field's largest value (measured ~1e-15).
 """
+import torch_harness  # noqa: F401
+
 import math
 
 import numpy as np

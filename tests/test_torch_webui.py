@@ -18,6 +18,8 @@ JAX package's ``xrt_tpu/webui.py``, float64, CPU.
   right edge (where the half-open bins of ``histogram.hist1d`` would drop
   it) gives ``np.histogram``'s width.
 """
+import torch_harness  # noqa: F401
+
 import dataclasses
 import json
 import math

@@ -190,10 +190,8 @@ def main():
                                    Nd=Nd, Ns=Ns)
         scheme, v, D, S, P = tk._kernel_inputs(*args, mode)
         name = f'kirchhoff_{scheme}'
-        if scheme == 'recentred':
-            cur = lambda: tk._launch_recentred(D, S, P, v)
-        else:
-            cur = lambda: tk._launch_ddphase(D, S, v)
+        cur = lambda: tk._launch_rows(scheme, v,
+                                      *tk._forward_inputs(D, S, P), Ns)
         old = lambda: old_forward(name, v, D, S, P)
         key = f'{name}:{mode}'
         if not current:

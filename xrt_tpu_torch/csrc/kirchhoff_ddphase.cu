@@ -22,8 +22,9 @@
 // coordinates, 16-byte broadcast loads of the sources' twenty keys from a
 // double-buffered stage, a grid of destination tiles x source groups, and
 // the groups' partials added in a fixed order in double.  The per-source
-// folding (kappa = k/2pi in dd, kw, kwnl, k2) is done in plain PyTorch
-// before the launch, as the XLA code around the TPU kernel did.
+// folding (kappa = k/2pi in dd, kw, kwnl, k2) is done before the launch, as
+// the XLA code around the TPU kernel did: by csrc/kirchhoff_prep.cu when
+// nothing requires grad, else in plain PyTorch.
 //
 // FMA policy: built with --fmad=false (see dd.cuh).  The distance and the
 // phase are the plain version's double-float code, unfused: every two_sum

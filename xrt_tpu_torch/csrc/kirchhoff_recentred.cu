@@ -7,9 +7,10 @@
 //
 // What it computes: for every destination d and source s the propagator
 // U = pre * e^{2 pi i c} of _recentred_core, from per-point double-float
-// precomputations (recentre_kirchhoff_inputs, done in plain PyTorch on the
-// card), and the ten f32 sums over s: Es and Ep (re/im) and the a/b/c
-// direction integrals (re/im).  Variants: 0 mono, 1 narrowband, 2 poly.
+// precomputations (recentre_kirchhoff_inputs: csrc/kirchhoff_prep.cu when
+// nothing requires grad, else plain PyTorch on the card), and the ten f32
+// sums over s: Es and Ep (re/im) and the a/b/c direction integrals
+// (re/im).  Variants: 0 mono, 1 narrowband, 2 poly.
 //
 // What bounds it: the SMs' f32 instruction rate.  A mono pair needs 116
 // operations (one reciprocal, no transcendental: the phase uses the

@@ -193,14 +193,11 @@ def hist2d_kernel(x, y, W, xbins, ybins, xlimits, ylimits=None,
                                        xbins, ybins),
                        dtype=torch.int64, device=x.device)
     out = torch.empty((ybins, xbins, k), dtype=W.dtype, device=W.device)
-    fn = _cuda.entry('hist2d', 'hist2d_launch', _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(int(x.dtype == torch.float64), k, x.data_ptr(),
+    _cuda.launch('hist2d', 'hist2d_launch', _ARGTYPES, x.device,
+                 int(x.dtype == torch.float64), k, x.data_ptr(),
                  None if y is None else y.data_ptr(), W.data_ptr(),
                  x.shape[0], xlo, xhi - xlo, xbins, ylo, yhi - ylo, ybins,
-                 out.data_ptr(), code, work.data_ptr(),
-                 _cuda.stream_ptr(x.device))
-    _cuda.check(err, 'hist2d')
+                 out.data_ptr(), code, work.data_ptr())
     LAUNCHES[f'hist2d:k{k}:{route}'] += 1
     return out
 
@@ -245,13 +242,11 @@ def hist2d_bwd_kernel(x, y, g, xbins, ybins, xlimits, ylimits=None):
     ylo, yhi = (0.0, 1.0) if y is None else \
         (float(ylimits[0]), float(ylimits[1]))
     out = torch.empty((x.shape[0], k), dtype=x.dtype, device=x.device)
-    fn = _cuda.entry('hist2d', 'hist2d_bwd_launch', _BWD_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(int(x.dtype == torch.float64), k, x.data_ptr(),
+    _cuda.launch('hist2d', 'hist2d_bwd_launch', _BWD_ARGTYPES, x.device,
+                 int(x.dtype == torch.float64), k, x.data_ptr(),
                  None if y is None else y.data_ptr(), g.data_ptr(),
                  x.shape[0], xlo, xhi - xlo, xbins, ylo, yhi - ylo, ybins,
-                 out.data_ptr(), _cuda.stream_ptr(x.device))
-    _cuda.check(err, 'hist2d_bwd')
+                 out.data_ptr())
     LAUNCHES[f'hist2d_bwd:k{k}'] += 1
     return out
 
@@ -402,13 +397,11 @@ def hist_plot_kernel(x, y, cData, flux, w2d, mask, bins, limits,
     axes = []
     for (lo, hi), b in zip((xlim, ylim, clim), (xb, yb, cb)):
         axes += [float(lo), float(hi) - float(lo), b]
-    fn = _cuda.entry('hist_plot', 'hist_plot_launch', _PLOT_ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = fn(int(x.dtype == torch.float64),
+    _cuda.launch('hist_plot', 'hist_plot_launch', _PLOT_ARGTYPES, x.device,
+                 int(x.dtype == torch.float64),
                  *[v.data_ptr() for v in rays], mask.data_ptr(), n, *axes,
                  float(colorFactor), float(colorSaturation), code,
-                 work.data_ptr(), out.data_ptr(), _cuda.stream_ptr(x.device))
-    _cuda.check(err, 'hist_plot')
+                 work.data_ptr(), out.data_ptr())
     LAUNCHES[f'hist_plot:{route}'] += 1
     res, pos = {}, 0
     for (name, b) in zip(PLOT_HISTS[0::2], (xb, yb, cb)):

@@ -428,12 +428,6 @@ class OE(config.Replaceable):
             return self.figure_error.local_n_distorted(x, y)
         return None
 
-    def _surface_with_distortion(self, x, y):
-        """local_z plus the figure error's height."""
-        surf = self.local_z(x, y)
-        dist = self.local_z_distorted(x, y)
-        return surf if dist is None else surf + dist
-
     def propagate_wave(self, wave=None, nrays='auto', generator=None,
                        fixedEnergy=None, prevOE=None, **kw):
         """One-call Kirchhoff hop onto this OE and reflection at its surface

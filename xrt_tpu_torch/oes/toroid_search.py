@@ -98,10 +98,8 @@ def engages(oe, device, dtype, local_z=None, isMulti=False, inv=1):
 def _launch(args, device):
     """Launch the kernel with the C arguments *args* on *device*'s
     current stream."""
-    fn = _cuda.entry('toroid_search', 'toroid_search_launch', _ARGTYPES)
-    with torch.cuda.device(device):
-        err = fn(*args, _cuda.stream_ptr(device))
-    _cuda.check(err, 'toroid_search')
+    _cuda.launch('toroid_search', 'toroid_search_launch', _ARGTYPES, device,
+                 *args)
 
 
 def _solve(oe, kind, rays, active, inv, newton):

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into
 ``build/kernels/lib<name>-<hash>.so`` (the hash covers the source, the
 shared headers and the flags, so an edited source rebuilds) and bound with
-``ctypes`` through its plain C interface.  Nothing here runs at import:
-the CPU tests import every module on a host without ``nvcc``.
+``ctypes`` through its plain C interface: a launch is one :func:`launch`
+call with the entry point's name, argument types, card and arguments.
+Nothing here runs at import: the CPU tests import every module on a host
+without ``nvcc``.
 
 ``--fmad=false`` keeps every ``a * b + c`` a separate multiply and add: a
 contracted FMA breaks the error-free transforms of the double-float code
@@ -18,11 +20,11 @@ functions of both skeletons, the toroid crystals' per-ray search
 preparation (``csrc/kirchhoff_prep.cuh``) are also compiled for the host
 by the CPU tests (``tests/test_torch_forward.py``,
 ``tests/test_torch_adjoint.py``, ``tests/test_torch_search_kernel.py``,
-``tests/test_torch_prep_kernel.py``) against a stub of the CUDA
-runtime.  No ``--use_fast_math``: ``sqrtf``,
-``1.0f / x``, ``sinf`` and ``cosf`` stay IEEE.  ``-Xptxas -v`` puts every
-kernel's registers and spills into the build log, which is kept beside
-the library (:func:`build_log`).
+``tests/test_torch_prep_kernel.py``, through ``host_build`` of
+``tests/torch_harness.py``) against a stub of the CUDA runtime.  No
+``--use_fast_math``: ``sqrtf``, ``1.0f / x``, ``sinf`` and ``cosf`` stay
+IEEE.  ``-Xptxas -v`` puts every kernel's registers and spills into the
+build log, which is kept beside the library (:func:`build_log`).
 """
 from __future__ import annotations
 
@@ -128,3 +130,14 @@ def check(err: int, what: str) -> None:
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(name: str, fn: str, argtypes, device, *args) -> None:
+    """Call the C entry point *fn* of ``csrc/<name>.cu`` (its *argtypes*
+    end with the stream's) on card *device* with *args* and that card's
+    current stream; raise if it returns a nonzero ``cudaError_t``."""
+    import torch
+    f = entry(name, fn, argtypes)
+    with torch.cuda.device(device):
+        err = f(*args, stream_ptr(device))
+    check(err, fn)

@@ -227,10 +227,8 @@ def selftest(a, b, c):
                              'tensors of one shape on one device')
     n = a.numel()
     out = torch.empty((7, n), dtype=torch.float32, device=a.device)
-    fn = _cuda.entry('dd_selftest', 'dd_selftest_launch',
-                     [ctypes.c_void_p] * 3 + [ctypes.c_int] +
-                     [ctypes.c_void_p] * 2)
-    _cuda.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), n,
-                   out.data_ptr(), _cuda.stream_ptr(a.device)),
-                'dd_selftest')
+    _cuda.launch('dd_selftest', 'dd_selftest_launch',
+                 [ctypes.c_void_p] * 3 + [ctypes.c_int] +
+                 [ctypes.c_void_p] * 2, a.device,
+                 a.data_ptr(), b.data_ptr(), c.data_ptr(), n, out.data_ptr())
     return out

@@ -693,26 +693,19 @@ def _forward_inputs(D, S, P):
         return D.contiguous(), forward_sources(S), P
 
 
-def _forward_pass(scheme, variant, D, S, P):
-    """The pass of kernel B1 (*scheme* 'recentred') or B2 ('ddphase'): the
-    source groups' partial sums (ngroup, 10, Nd)."""
-    return _forward_launch(scheme, variant, *_forward_inputs(D, S, P))
-
-
 def _forward_launch(scheme, variant, D, rows, P):
-    """The pass on prepared inputs (:func:`_forward_inputs`)."""
+    """The pass of kernel B1 (*scheme* 'recentred') or B2 ('ddphase') on
+    prepared inputs (:func:`_forward_inputs`): the source groups' partial
+    sums (ngroup, 10, Nd)."""
     from . import _cuda
     dev = D.device
     nd, ns_pad = D.shape[1], rows.shape[0]
     _, ngroup = forward_grid(nd, ns_pad)
     part = torch.empty((ngroup, 10, nd), dtype=torch.float32, device=dev)
-    fn = _cuda.entry(f'kirchhoff_{scheme}', f'kirchhoff_{scheme}_launch',
-                     _FWD_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), nd, rows.data_ptr(), ns_pad,
-                 None if P is None else P.data_ptr(), ngroup,
-                 part.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(err, f'kirchhoff_{scheme}')
+    _cuda.launch(f'kirchhoff_{scheme}', f'kirchhoff_{scheme}_launch',
+                 _FWD_ARGTYPES, dev, variant, D.data_ptr(), nd,
+                 rows.data_ptr(), ns_pad, None if P is None else P.data_ptr(),
+                 ngroup, part.data_ptr())
     return part
 
 
@@ -723,11 +716,8 @@ def _forward_reduce(name, part):
     from . import _cuda
     ngroup, _, nd = part.shape
     out = torch.empty((10, nd), dtype=torch.float32, device=part.device)
-    fn = _cuda.entry(name, f'{name}_reduce', _FWD_REDUCE_ARGTYPES)
-    with torch.cuda.device(part.device):
-        err = fn(part.data_ptr(), ngroup, nd, out.data_ptr(),
-                 _cuda.stream_ptr(part.device))
-    _cuda.check(err, name)
+    _cuda.launch(name, f'{name}_reduce', _FWD_REDUCE_ARGTYPES, part.device,
+                 part.data_ptr(), ngroup, nd, out.data_ptr())
     return out
 
 
@@ -738,20 +728,6 @@ def _forward_sums(scheme, variant, part):
     names = _RECENTRED_NAMES if scheme == 'recentred' else _DD_NAMES
     LAUNCHES[f'kirchhoff_{scheme}:{names[variant]}'] += 1
     return out
-
-
-def _launch_recentred(D, S, P, variant):
-    """Kernel B1 on the structure of arrays *D* (6 or 8, Nd), *S* (20, 23 or
-    24, Ns) and the scalars *P* (10,), all f32 on one CUDA device.  Returns
-    the ten sums (10, Nd); one launch in :data:`LAUNCHES`."""
-    return _forward_sums('recentred', variant,
-                         _forward_pass('recentred', variant, D, S, P))
-
-
-def _launch_ddphase(D, S, variant):
-    """Kernel B2 on *D* (6, Nd) and *S* (20, Ns); (10, Nd)."""
-    return _forward_sums('ddphase', variant,
-                         _forward_pass('ddphase', variant, D, S, None))
 
 
 def _count_forward(nd, ns):
@@ -801,15 +777,11 @@ def _adjoint_pass(scheme, variant, D, S, P, G):
     spart = torch.empty(sshape, dtype=torch.float32, device=dev)
     ppart = None if pshape is None else \
         torch.empty(pshape, dtype=torch.float64, device=dev)
-    fn = _cuda.entry(f'kirchhoff_{scheme}_bwd',
-                     f'kirchhoff_{scheme}_bwd_launch', _ADJ_PASS_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(variant, D.data_ptr(), nd, S.data_ptr(), ns_pad,
-                 None if P is None else P.data_ptr(), G.data_ptr(), nslab,
-                 slab, ngroup, dpart.data_ptr(), spart.data_ptr(),
-                 None if ppart is None else ppart.data_ptr(),
-                 _cuda.stream_ptr(dev))
-    _cuda.check(err, f'kirchhoff_{scheme}_bwd')
+    _cuda.launch(f'kirchhoff_{scheme}_bwd', f'kirchhoff_{scheme}_bwd_launch',
+                 _ADJ_PASS_ARGTYPES, dev, variant, D.data_ptr(), nd,
+                 S.data_ptr(), ns_pad, None if P is None else P.data_ptr(),
+                 G.data_ptr(), nslab, slab, ngroup, dpart.data_ptr(),
+                 spart.data_ptr(), None if ppart is None else ppart.data_ptr())
     return dpart, spart, ppart
 
 
@@ -818,13 +790,10 @@ def _adjoint_reduce(scheme, variant, dpart, spart, D, S):
     order into the cotangents of D and of the padded S."""
     from . import _cuda
     bD, bS = torch.empty_like(D), torch.empty_like(S)
-    fn = _cuda.entry(f'kirchhoff_{scheme}_bwd',
-                     f'kirchhoff_{scheme}_bwd_reduce', _ADJ_REDUCE_ARGTYPES)
-    with torch.cuda.device(D.device):
-        err = fn(variant, dpart.data_ptr(), dpart.shape[0], D.shape[1],
-                 bD.data_ptr(), spart.data_ptr(), spart.shape[0], S.shape[1],
-                 bS.data_ptr(), _cuda.stream_ptr(D.device))
-    _cuda.check(err, f'kirchhoff_{scheme}_bwd')
+    _cuda.launch(f'kirchhoff_{scheme}_bwd', f'kirchhoff_{scheme}_bwd_reduce',
+                 _ADJ_REDUCE_ARGTYPES, D.device, variant, dpart.data_ptr(),
+                 dpart.shape[0], D.shape[1], bD.data_ptr(), spart.data_ptr(),
+                 spart.shape[0], S.shape[1], bS.data_ptr())
     return bD, bS
 
 
@@ -1209,11 +1178,8 @@ def _prep_launch(dev, *args):
     """``kirchhoff_prep_launch`` of ``csrc/kirchhoff_prep.cu`` on card
     *dev* with *args* (all but the stream); raises on a launch error."""
     from . import _cuda
-    fn = _cuda.entry('kirchhoff_prep', 'kirchhoff_prep_launch',
-                     _PREP_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(*args, _cuda.stream_ptr(dev))
-    _cuda.check(err, 'kirchhoff_prep')
+    _cuda.launch('kirchhoff_prep', 'kirchhoff_prep_launch', _PREP_ARGTYPES,
+                 dev, *args)
 
 
 def _launch_rows(scheme, variant, D, rows, P, ns):
