@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-eight phases and exits
+process per source, in parallel), then runs thirty-nine phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -147,7 +147,8 @@ non-zero if any fails:
     generic bracket + search alone with its Illinois iterations, expose, the
     histograms and their share of the step); the three histograms of a
     step against ``hist2d_plain`` with float64 sums (< 1e-5, the same
-    non-empty bins);
+    non-empty bins); every reflect through the interaction kernel (S3,
+    ``crystal_interact:torch.float32``: 3 x 97 launches);
 37. (run after phase 15) the toroid crystals' search kernel
     (``csrc/toroid_search.cu``, ``oes/toroid_search.py``) on speed test
     1's analyzer: 1e7 float32 and 1e6 float64 rays of its flat source
@@ -158,6 +159,19 @@ non-zero if any fails:
     generic search (one launch / none; s and p flux within 1e-5), and the
     gradient case at 1e5 float64 rays (t0 from the kernel, the Newton
     steps on the tape: t and dt/dh of a height offset to 1e-9);
+39. (run after phase 37) the toroid crystals' interaction kernel
+    (``csrc/crystal_interact.cu``, ``oes/crystal_interact.py``) on speed
+    test 1's analyzer at the main path's shapes: the arguments that
+    ``reflect`` hands ``OE._interact`` for 1e7 float32 and 1e6 float64
+    rays of its flat source, through the kernel against the float64
+    element-wise path on the same numbers (``tests/torch_interact_cases
+    .py``: a, b, c, theta, rollAngle within 4 ulp / 1e-12, Jss, Jpp, Jsp
+    within 1e-6 of the peak), the float32 element-wise path's own errors
+    beside them, 20 launches for 20 calls; the kernel's time (launches A
+    and B by torch.profiler) against the element-wise path's and its
+    bytes bound; ``reflect`` through the kernel (one launch) against
+    ``reflect`` with the element-wise path (float32: the float64 path
+    rounded to float32), to the same limits;
 16. the DCM trace: GeometricSource -> Si(111) DCM (30 m, fixed exit
     20 mm, the golden's Bragg angle) -> screen, +-8 eV, 1e7 rays a pass,
     float32, 4 passes through ``run_ray_tracing`` with one energy-coloured
@@ -489,7 +503,8 @@ SOURCES = {'kirchhoff_recentred': 'xrt_tpu_torch/csrc/kirchhoff_recentred.cu',
            'xrt_tpu_torch/csrc/kirchhoff_ddphase_bwd.cu',
            'hist2d': 'xrt_tpu_torch/csrc/hist2d.cu',
            'hist_plot': 'xrt_tpu_torch/csrc/hist_plot.cu',
-           'kirchhoff_prep': 'xrt_tpu_torch/csrc/kirchhoff_prep.cu'}
+           'kirchhoff_prep': 'xrt_tpu_torch/csrc/kirchhoff_prep.cu',
+           'crystal_interact': 'xrt_tpu_torch/csrc/crystal_interact.cu'}
 REPLACES = {'kirchhoff_recentred': 'xrt_tpu/ops/kirchhoff.py:565',
             'kirchhoff_ddphase': 'xrt_tpu/ops/kirchhoff.py:903',
             'kirchhoff_recentred_bwd': 'xrt_tpu/ops/kirchhoff.py:1141',
@@ -540,6 +555,9 @@ AN_NRAYS, AN_REPEATS = 100_000, 96
 #: of the reflected beams (relative)
 TS_NRAYS, TS_NRAYS_F64 = 10_000_000, 1_000_000
 TS_T_SHARE, TS_FLUX_LIMIT = 1e-4, 1e-5
+#: phase 39, the toroid crystals' interaction kernel: rays of the float32
+#: and float64 checks (the analyzer's flat source, as phase 37's)
+CI_NRAYS, CI_NRAYS_F64 = 10_000_000, 1_000_000
 #: the DCM trace at the geometry of the golden (tests/test_trace_parity.py)
 DCM_E0, DCM_P = 9000.0, 30000.0
 DCM_GOLDEN = 'tests/golden/ref_trace_dcm.npz'
@@ -2618,10 +2636,13 @@ def phase_analyzer(timing):
     nothing cut: 3 sources x 96 steps x 1e5 rays, float32."""
     import torch
     from xrt_tpu_torch import histogram as th
+    from xrt_tpu_torch.oes import crystal_interact
     tool = port_tool('torch_bench_analyzer')
     nrays, reps = AN_NRAYS, AN_REPEATS
+    crystal_interact.LAUNCHES.clear()
     res = tool.run(nrays, reps, torch.float32, seed=15)
     launches = res['launches']
+    interact_launches = dict(crystal_interact.LAUNCHES)
     print(f"phase 15 speed test 1: {res['rays']:.3g} rays (3 sources x "
           f"{reps} x {nrays}), {res['seconds']:.3f} s = "
           f"{res['rays_per_s']:.4e} rays/s; per source "
@@ -2635,6 +2656,12 @@ def phase_analyzer(timing):
         f'speed test 1: histogram launches {launches}')
     check(math.isfinite(res['flux']) and res['flux'] > 0,
           f"speed test 1: accumulated flux {res['flux']}")
+    print(f'phase 15 speed test 1: interaction kernel launches '
+          f'{interact_launches} (a warm-up step and {reps} steps of each '
+          f'source)', flush=True)
+    check(interact_launches == {'crystal_interact:torch.float32':
+                                3 * (reps + 1)},
+          f'speed test 1: interaction kernel launches {interact_launches}')
     # one step of each source split by CUDA events; the search alone
     sources, analyzer, detector, _ = tool.build(nrays, torch.float32,
                                                 'cuda')
@@ -2693,6 +2720,7 @@ def phase_analyzer(timing):
               f'speed test 1 histogram {bins}: {rel:.3e}, bins {same}')
         kargs.append(args)
     timing['analyzer'] = dict(launches=launches, args=kargs,
+                              interact_launches=interact_launches,
                               step_ms=[sum(s[:4]) for s in splits],
                               hist_ms=[s[3] for s in splits])
 
@@ -2748,8 +2776,11 @@ def phase_toroid_search(timing):
     reflected beams' s and p flux, the kernel's time against its bounds),
     1e6 float64 rays, and the gradient case (t0 from the kernel, the
     Newton steps on the tape)."""
+    from unittest import mock
+
     import torch
     from xrt_tpu_torch.oes import base as oebase
+    from xrt_tpu_torch.oes import crystal_interact
     from xrt_tpu_torch.oes import toroid_search as ts
     from xrt_tpu_torch.ops import _cuda
     tool = port_tool('torch_bench_analyzer')
@@ -2801,12 +2832,17 @@ def phase_toroid_search(timing):
             timing['toroid_search'] = dict(kernel_ms=k_ms, generic_ms=g_ms,
                                            bytes_ms=bytes_ms)
         # the reflected beams through the kernel and through the generic
-        # search: the same rays, the same s and p flux
+        # search: the same rays, the same s and p flux.  Both take the
+        # element-wise interaction: the generic copy's own local_z keeps it
+        # off the interaction kernel (csrc/crystal_interact.cu, float64
+        # inside), which the kernel's side would otherwise take
         outs = []
         for oe in (analyzer, generic_copy(analyzer)):
             ts.LAUNCHES.clear()
-            glo, loc = oe.reflect(beam, torch.Generator('cuda').manual_seed(
-                38))
+            with mock.patch.object(crystal_interact, 'engages',
+                                   lambda *args: False):
+                glo, loc = oe.reflect(
+                    beam, torch.Generator('cuda').manual_seed(38))
             good = loc.state == 1
             outs.append((good, float(loc.Jss[good].double().sum()),
                          float(loc.Jpp[good].double().sum()),
@@ -2847,6 +2883,152 @@ def phase_toroid_search(timing):
           flush=True)
     check(nk == 1 and dt <= 1e-9 and abs(gk - gg) <= 1e-9 * abs(gg),
           f'phase 37 gradient case: {nk}, {dt:.3e}, {gk}, {gg}')
+
+
+def interact_bytes(n, itemsize):
+    """Bytes the interaction kernel must move for *n* rays of *itemsize*:
+    launch A reads x, y, a, b, c; launch B reads x, y, a, b, c, E, Jss,
+    Jpp, theta, Jsp (two numbers) and the state (a byte) and writes a, b,
+    c, theta, Jss, Jpp, rollAngle and Jsp (two)."""
+    return n * ((5 + 11 + 9) * itemsize + 1)
+
+
+def interact_arguments(oe, beam):
+    """(lb, goodN, roll, material) as ``oe.reflect(beam)`` hands them to
+    ``OE._interact``, from one reflect."""
+    from unittest import mock
+
+    from xrt_tpu_torch.oes import base as oebase
+    seen = []
+    plain = oebase.OE._interact
+
+    def capture(self, lb, goodN, roll, fromVacuum, tMax, material, *args,
+                **kw):
+        seen.append((lb, goodN, roll, material))
+        return plain(self, lb, goodN, roll, fromVacuum, tMax, material,
+                     *args, **kw)
+    with mock.patch.object(oebase.OE, '_interact', capture):
+        oe.reflect(beam)
+    check(len(seen) == 1, f'phase 39: {len(seen)} _interact calls')
+    return seen[0]
+
+
+def held(what, fn, *args):
+    """*fn(*args)* (a check of tests/torch_interact_cases.py), its
+    AssertionError a phase failure."""
+    try:
+        return fn(*args)
+    except AssertionError as e:
+        raise PhaseError(f'{what}: {e}') from None
+
+
+def phase_crystal_interact(timing):
+    """Phase 39 (run after phase 37): the toroid crystals' interaction
+    kernel (csrc/crystal_interact.cu, oes/crystal_interact.py) on the
+    analyzer of speed test 1 at the main path's shapes, against the
+    float64 element-wise path, its time against the element-wise path's
+    and its bytes bound, and a whole reflect through it.  The kernel-line
+    rows go to timing['interact_rows']."""
+    import torch
+    from xrt_tpu_torch.oes import crystal_interact as ci
+    from xrt_tpu_torch.ops import _cuda
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), 'tests'))
+    import torch_interact_cases as tc
+    tool = port_tool('torch_bench_analyzer')
+    ptxas = ptxas_rows(_cuda.build_log('crystal_interact'))
+    for fn, regs, st, ld in ptxas:
+        print(f'phase 39 ptxas crystal_interact {fn}: {regs} registers, '
+              f'spill stores {st} B, loads {ld} B', flush=True)
+    rows = []
+    for dtype, nrays in ((torch.float32, CI_NRAYS),
+                         (torch.float64, CI_NRAYS_F64)):
+        f32 = dtype == torch.float32
+        key = f'crystal_interact:{dtype}'
+        sources, analyzer, _, _ = tool.build(nrays, dtype, 'cuda')
+        beam = sources[0].shine(torch.Generator('cuda').manual_seed(39))
+        lb, goodN, roll, mat = interact_arguments(analyzer, beam)
+        check(ci.engages(analyzer, lb, analyzer.local_n, mat, 'crystal',
+                         roll),
+              f'phase 39 {dtype}: the analyzer does not engage the kernel')
+        args = (lb, goodN, roll, True, None, mat, analyzer.local_n)
+
+        def fused():
+            return analyzer._interact(*args)
+
+        def plain():
+            with tc.plain_path():
+                return analyzer._interact(*args)
+        fused()
+        plain()     # the allocator's first growth out of the timing
+        ci.LAUNCHES.clear()
+        k_ms, got = cuda_ms(fused, 20)
+        p_ms, mine = cuda_ms(plain, 2)
+        launched = dict(ci.LAUNCHES)
+        check(launched == {key: 20},
+              f'phase 39 {dtype}: launches {launched} for 20 calls')
+        split = profiled_kernels_us(fused, 5)
+        a_us = sum(v for k, v in split.items() if 'incidence_sum' in k)
+        b_us = sum(v for k, v in split.items() if 'interact_rays' in k)
+        ref = tc.reference(analyzer, lb, goodN, mat)
+        errs = held(f'phase 39 {dtype} kernel against the float64 path',
+                    tc.compare, got, ref, goodN, dtype)
+        plain_errs = tc.errors(mine, ref, goodN, dtype)
+        lim, jlim = tc.limits(dtype)
+        unit = 'ulp' if f32 else 'abs'
+        good = int(goodN.sum())
+        print(f'phase 39 {dtype} {nrays} analyzer rays ({good} good): '
+              f'kernel {k_ms:.3f} ms (A {a_us * 1e-3:.3f}, B '
+              f'{b_us * 1e-3:.3f} ms by torch.profiler), element-wise path '
+              f'{p_ms:.2f} ms ({p_ms / k_ms:.1f}x); launches {launched}',
+              flush=True)
+        print(f'phase 39 {dtype} against the float64 path on the same '
+              f'numbers: kernel ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in errs.items()) +
+              f' (limits {lim:g} {unit}, {jlim:g} of the peak); the '
+              f'element-wise path in {dtype}: ' + ', '.join(
+                  f'{k} {v:.3g}' for k, v in plain_errs.items()),
+              flush=True)
+        nbytes = interact_bytes(nrays, lb.x.element_size())
+        bound = 1e3 * nbytes / PEAK_BYTES
+        print(f'phase 39 {dtype} kernel against its bytes bound: '
+              f'{nbytes / 1e9:.3f} GB, {bound:.3f} ms '
+              f'({100 * bound / k_ms:.1f}% of {k_ms:.3f} ms)', flush=True)
+        del got, mine, ref
+        # a whole reflect through the kernel and with the element-wise path
+        ci.LAUNCHES.clear()
+        ref_b = tc.reflect_reference(analyzer, beam, mat)
+        n_ref = sum(ci.LAUNCHES.values())
+        got_b = analyzer.reflect(beam)
+        n_got = sum(ci.LAUNCHES.values()) - n_ref
+        check(n_got == 1 and n_ref == 0,
+              f'phase 39 {dtype} reflect: launches {n_got}, {n_ref}')
+        held(f'phase 39 {dtype} reflect through the kernel',
+             tc.compare_beams, ref_b, got_b, dtype)
+        sk, sr = (float(b.Jss[b.state == 1].double().sum())
+                  for b in (got_b[1], ref_b[1]))
+        print(f'phase 39 {dtype} reflect: kernel launches {n_got} / '
+              f'{n_ref}; the same states and positions, directions and '
+              f'amplitudes within the limits; s flux {sk:.9e} / {sr:.9e}',
+              flush=True)
+        b_regs = [(r, st + ld) for fn, r, st, ld in ptxas
+                  if f'interact_rays{"If" if f32 else "Id"}E' in fn]
+        regs, spill = b_regs[0] if b_regs else (None, None)
+        launches = timing['analyzer']['interact_launches'].get(key, 0) \
+            if f32 else launched[key]
+        rows.append(dict(
+            name=f'crystal_interact:{"f32" if f32 else "f64"}', route='cuda',
+            source=SOURCES['crystal_interact'], replaces=None,
+            launches=int(launches),
+            max_abs_err=max(errs[k] for k in tc.DIRECTIONS),
+            err_unit=unit,
+            max_rel_err=max(errs[k] for k in tc.AMPLITUDES),
+            ms=k_ms, a_ms=a_us * 1e-3, b_ms=b_us * 1e-3, registers=regs,
+            spill_bytes=spill, plain_ms=p_ms, bound_ms=bound,
+            bound_by='bytes', library_ms=None, shape=str(nrays)))
+        del lb, goodN, beam, ref_b, got_b, args
+        torch.cuda.empty_cache()
+    timing['interact_rows'] = rows
 
 
 def dcm_trace_line(nrays, dtype):
@@ -7415,6 +7597,7 @@ def main():
         phase_prep_kernel(timing)
         phase_analyzer(timing)
         phase_toroid_search(timing)
+        phase_crystal_interact(timing)
         phase_dcm(timing)
         phase_config4(timing)
         phase_coherent_modes(timing)
@@ -7439,6 +7622,7 @@ def main():
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + prep_rows(timing) + \
+            timing['interact_rows'] + \
             coherence_rows(timing) + \
             oe_physics_rows(timing) + fe_wave_rows(timing) + \
             oe_physics_rows(timing, SLICE_HIST_KEYS) + \

@@ -75,7 +75,13 @@ check).  On the card:
   a source on the card against the CPU (1e-5); the zone mask in float32
   on the card against float64 away from zone edges;
 * the synchrotron sources' resampling scan on the card gives the same bits
-  on every run, and a seed the same rays.
+  on every run, and a seed the same rays;
+* the toroid crystals' interaction kernel (``csrc/crystal_interact.cu``):
+  ``OE._interact`` of the diced analyzer through it against the float64
+  path on 1e7 float32 and 1e6 float64 rays, to the limits of
+  ``tests/test_torch_interact_kernel.py`` (``tests/torch_interact_cases
+  .py``); a call makes no host read (``set_sync_debug_mode('error')``);
+  ``reflect`` through it gives the plain path's beams.
 """
 import torch_harness  # noqa: F401
 
@@ -329,8 +335,9 @@ def test_prep_kernel_is_taken_only_without_gradients(cuda):
     side.synchronize()
     assert all(torch.equal(x, y) and torch.equal(x, z)
                for x, y, z in zip(ref, again, other))
-    mine = [t for (dev, _), t in tk._PREP_SCRATCH.items()
-            if dev == ref[0].device]
+    from xrt_tpu_torch.ops import _cuda
+    mine = [t for (name, dev, _), t in _cuda._SCRATCH.items()
+            if name == 'kirchhoff_prep' and dev == ref[0].device]
     assert len(mine) >= 2 and all(float(t[-1]) == 0.0 for t in mine)
 
 
@@ -1213,3 +1220,61 @@ def test_synchrotron_resampling_is_reproducible(cuda):
               for _ in range(2))
     for f in ('E', 'x', 'a', 'Jss'):
         assert torch.equal(getattr(b1, f), getattr(b2, f)), f
+
+
+# ---- the toroid crystals' interaction kernel (csrc/crystal_interact.cu) ----
+
+@pytest.mark.parametrize('dt, n', [('f32', 10_000_000), ('f64', 1_000_000)])
+def test_interact_kernel_matches_the_float64_path(cuda, dt, n):
+    """``OE._interact`` of the analyzer through the kernel against the
+    float64 path on the card (float32 rays: on the same numbers), to the
+    CPU test's limits."""
+    import torch_interact_cases as tc
+    from xrt_tpu_torch.oes import crystal_interact as ci
+    dtype = tc.DTYPES[dt]
+    cr = tc.crystal(dtype, cuda)
+    oe = tc.element(tc.CLASSES['diced_johansson'], cr)
+    lb, goodN = tc.beam(oe, dtype, n=n, device=cuda)
+    roll = oe._placement()[1]
+    key = f'crystal_interact:{dtype}'
+    before = ci.LAUNCHES[key]
+    got = oe._interact(lb, goodN, roll, True, None, cr, oe.local_n)
+    assert ci.LAUNCHES[key] == before + 1
+    tc.compare(got, tc.reference(oe, lb, goodN, cr), goodN, dtype)
+
+
+def test_interact_kernel_makes_no_host_read(cuda):
+    import torch_interact_cases as tc
+    from xrt_tpu_torch.oes import crystal_interact as ci
+    cr = tc.crystal(torch.float32, cuda)
+    oe = tc.element(tc.CLASSES['diced_johansson'], cr)
+    lb, goodN = tc.beam(oe, torch.float32, n=100_000, device=cuda)
+    roll = oe._placement()[1]
+    oe._interact(lb, goodN, roll, True, None, cr, oe.local_n)  # constants
+    torch.cuda.synchronize()
+    before = sum(ci.LAUNCHES.values())
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        oe._interact(lb, goodN, roll, True, None, cr, oe.local_n)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert sum(ci.LAUNCHES.values()) == before + 1
+
+
+@pytest.mark.parametrize('dt', ['f32', 'f64'])
+def test_reflect_through_the_interact_kernel(cuda, dt):
+    """``reflect`` of the diced analyzer on the card through the kernel
+    against ``reflect`` with the plain ``_interact`` (float32: its float64
+    path rounded to float32): the same beams."""
+    import torch_interact_cases as tc
+    from xrt_tpu_torch.oes import crystal_interact as ci
+    dtype = tc.DTYPES[dt]
+    cr = tc.crystal(dtype, cuda)
+    oe = tc.element(tc.CLASSES['diced_johansson'], cr)
+    beam = tc.global_beam(oe, dtype, n=1_000_000, device=cuda)
+    ref = tc.reflect_reference(oe, beam, cr)
+    before = sum(ci.LAUNCHES.values())
+    got = oe.reflect(beam)
+    assert sum(ci.LAUNCHES.values()) == before + 1
+    tc.compare_beams(ref, got, dtype)

@@ -17,13 +17,12 @@
 // ~1.5 us at 3.35 TB/s, and ~300 float operations a point, ~1 us.  So the
 // design is two launches and nothing else:
 //  * prep_centre (recentred variants only): every thread sums its strided
-//    share of the six coordinate columns in double, a block adds its
-//    threads' sums in a fixed tree, and the last block to finish (a ticket
-//    counter, reset by that block) adds the blocks' partials in block order
-//    and computes the call's scalars (kirchhoff_prep.cuh centre) into a
-//    small device buffer whose first ten floats are B1's P.  The grid
-//    depends on the sizes only, so the same inputs give the same bits, and
-//    no value travels to the host.
+//    share of the six coordinate columns in double, grid_sum.cuh adds them
+//    over the grid in a fixed order (a tree per block, the blocks' partials
+//    in block order by the last block, through a ticket that it resets),
+//    and that block computes the call's scalars (kirchhoff_prep.cuh centre)
+//    into a small device buffer whose first ten floats are B1's P.  The
+//    same inputs give the same bits, and no value travels to the host.
 //  * prep_points: one thread a point (destinations, then the sources padded
 //    to ns_pad), the keys in registers, a destination's column of D and a
 //    source's whole row stored as 16-byte vectors, zeros past the last
@@ -36,6 +35,7 @@
 // two_prod's error term.
 #include <cuda_runtime.h>
 
+#include "grid_sum.cuh"
 #include "kirchhoff_prep.cuh"
 
 namespace xkp {
@@ -44,37 +44,15 @@ __global__ void __launch_bounds__(BLOCK)
     prep_centre(Inputs in, long long nd, long long ns, int variant,
                 double* part, unsigned* ticket, float* cen) {
   __shared__ double sh[6][BLOCK];
-  __shared__ bool last;
-  const int t = threadIdx.x;
   double acc[6];
-  centre_sums(in, nd, ns, static_cast<long long>(blockIdx.x) * BLOCK + t,
+  centre_sums(in, nd, ns, static_cast<long long>(blockIdx.x) * BLOCK +
+                              threadIdx.x,
               static_cast<long long>(gridDim.x) * BLOCK, acc);
-  for (int q = 0; q < 6; ++q) sh[q][t] = acc[q];
-  __syncthreads();
-  for (int s = BLOCK / 2; s > 0; s >>= 1) {
-    if (t < s)
-      for (int q = 0; q < 6; ++q) sh[q][t] += sh[q][t + s];
-    __syncthreads();
-  }
-  if (t < 6) {
-    part[blockIdx.x * 6 + t] = sh[t][0];
-    __threadfence();
-  }
-  __syncthreads();
-  if (t == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  if (t < 6) {
-    double sum = 0.0;
-    for (unsigned b = 0; b < gridDim.x; ++b) sum += __ldcg(&part[b * 6 + t]);
-    sh[t][0] = sum;
-  }
-  __syncthreads();
-  if (t == 0) {
+  if (!xgs::grid_sums<6, BLOCK>(sh, acc, part, ticket)) return;
+  if (threadIdx.x == 0) {
     float mean[6];
     for (int q = 0; q < 6; ++q) mean[q] = mean_of(sh[q][0], q < 3 ? nd : ns);
     centre(mean, at(in, KH, 0), at(in, KL, 0), variant, cen);
-    *ticket = 0u;
   }
 }
 

@@ -169,14 +169,21 @@ struct Facet {
   T cx, cy, cz, n0, n1, n2;
 };
 
-// _DicedMethods.local_z: the facet of (x, y) by round half to even of a
-// true division, the centre height from JohannToroid.local_z, the plane of
-// the centre normal, plus facet_delta_z (DicedJohanssonToroid: v^2 / 2 /
-// Rm; DicedJohannToroid: 0)
+// _DicedMethods._facets: the facet centre of the coordinate v for facets
+// of the step (size plus gap) in v's dtype, by round half to even of a true
+// division, so that a point at a facet edge takes the PyTorch facet
+template <typename T>
+XTS_HD T facet_centre(T v, T step) {
+  return rint(v / step) * step;
+}
+
+// _DicedMethods.local_z: the facet of (x, y), the centre height from
+// JohannToroid.local_z, the plane of the centre normal, plus facet_delta_z
+// (DicedJohanssonToroid: v^2 / 2 / Rm; DicedJohannToroid: 0)
 template <typename T, typename S>
 XTS_HD S diced_z(const Params<T>& p, Facet<T>& f, S x, S y) {
-  const T cx = rint(val(x) / p.xStep) * p.xStep;
-  const T cy = rint(val(y) / p.yStep) * p.yStep;
+  const T cx = facet_centre(val(x), p.xStep);
+  const T cy = facet_centre(val(y), p.yStep);
   if (!(cx == f.cx && cy == f.cy)) {
     f.cx = cx;
     f.cy = cy;

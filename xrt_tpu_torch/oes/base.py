@@ -34,7 +34,11 @@ either search is the span ``oes.search`` and counts its calls,
 iterations, rays evaluated and rays still active (``search.calls``,
 ``search.iterations``, ``search.ray_evals``, ``search.active``; the
 kernel also ``search.fused``); ``reflect`` is the span ``oes.reflect``
-and ``_interact`` within it ``oes.interact``.
+and ``_interact`` within it ``oes.interact``.  On a card the toroid
+crystals' physics at the surface (a thick Bragg crystal's normals, grating
+vector and two-beam amplitudes) is one CUDA kernel too
+(``oes/crystal_interact.py``); ``_interact`` counts ``interact.calls`` and,
+where that kernel served, ``interact.fused``.
 
 Parametric surfaces (``isParametric``: ``xyz_to_param``, ``local_r``,
 ``param_to_xyz``, a normal in (s, phi)) are searched in their radial
@@ -70,7 +74,7 @@ from ..sources.geometric import _draw
 from ..transforms import (cos, global_to_virgin_local, rotate_beam, rotate_x,
                           rotate_y, sin,
                           virgin_local_to_global)
-from . import toroid_search
+from . import crystal_interact, toroid_search
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -250,6 +254,25 @@ def _mosaic_normal(generator, mat, oeNormal, E, draws=None):
     return (nx * ct + (ux * cp + vx * sp) * st,
             ny * ct + (uy * cp + vy * sp) * st,
             nz * ct + (uz * cp + vz * sp) * st)
+
+
+#: the functions behind a toroid crystal's surface and normals.  A class of
+#: ``oes/bragg.py`` declares in ``kernel_kind`` which of the CUDA kernels'
+#: surfaces and normals they compute (``oes/toroid_search.py``,
+#: ``oes/crystal_interact.py``); a subclass that redefines one of them and
+#: declares no kind of its own has none.
+KERNEL_FNS = ('local_z', 'local_n', 'local_z_distorted', 'local_n_distorted',
+              'local_n_toroid', '_facets', 'facet_center_z',
+              'facet_center_n', 'facet_delta_z', 'facet_delta_n')
+
+
+def kernel_kind(oe):
+    """*oe*'s ``kernel_kind`` ('johann', 'johansson', 'general',
+    'diced_johann', 'diced_johansson'), or None: a class that declares
+    none, or an element that replaces one of :data:`KERNEL_FNS`."""
+    if any(name in vars(oe) for name in KERNEL_FNS):
+        return None
+    return getattr(oe, 'kernel_kind', None)
 
 
 class OE(config.Replaceable):
@@ -839,12 +862,16 @@ class OE(config.Replaceable):
         through the volume.  A figure error turns the normal first."""
         if local_n is None:
             local_n = self.local_n
-        draws = {} if draws is None else draws
-        rng = _stream(generator, lb.x)   # one stream for every draw
+        count('interact.calls')
         matSur = material[self.curSurface] \
             if isinstance(material, (list, tuple)) else material
         kind = 'mirror' if matSur is None else \
             matSur.resolved_kind(self.auto_material_kind)
+        if crystal_interact.engages(self, lb, local_n, matSur, kind, roll):
+            count('interact.fused')
+            return crystal_interact.interact(self, lb, goodN, roll, matSur)
+        draws = {} if draws is None else draws
+        rng = _stream(generator, lb.x)   # one stream for every draw
         volume = getattr(matSur, 'needsSpatialAmplitude', False)
         crystal = kind == 'crystal'
         normal = list(local_n(lb.x, lb.y))

@@ -15,7 +15,7 @@ import torch
 from .. import config
 from ..ops.dd import sqrt_rn
 from ..transforms import cos, rotate_x, rotate_y, sin
-from .base import OE
+from .base import KERNEL_FNS, OE
 
 
 def _root(v):
@@ -83,6 +83,20 @@ class JohannToroid(OE):
     """A 2D-bent crystal with the meridional radius *Rm* and the sagittal
     radius *Rs* (Rm by default)."""
 
+    #: the CUDA kernels' surface and normals of this class
+    #: (``base.kernel_kind``); a subclass inherits its parent's only where
+    #: every function of ``base.KERNEL_FNS`` is the parent's
+    kernel_kind = 'johann'
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if 'kernel_kind' in vars(cls):
+            return
+        owner = next(c for c in cls.__mro__[1:] if 'kernel_kind' in vars(c))
+        if any(getattr(cls, name, None) is not getattr(owner, name, None)
+               for name in KERNEL_FNS):
+            cls.kernel_kind = None
+
     def __init__(self, Rm=1000.0, Rs=None, **kwargs):
         super().__init__(**kwargs)
         self.Rm = config.number(Rm)
@@ -125,6 +139,8 @@ class JohannToroid(OE):
 class JohanssonToroid(JohannToroid):
     """A ground 2D-bent (Johansson) toroid."""
 
+    kernel_kind = 'johansson'
+
     def local_n(self, x, y):
         nSurf = self.local_n_toroid(x, y, self.Rm, self.Rs, False)
         a = torch.zeros_like(x)
@@ -146,6 +162,8 @@ class JohanssonToroid(JohannToroid):
 class GeneralBraggToroid(JohannToroid):
     """A toroid with four radii: the surface's (Rm, Rs) and the Bragg
     planes' (RmBragg, RsBragg)."""
+
+    kernel_kind = 'general'
 
     def __init__(self, RmBragg=None, RsBragg=None, **kwargs):
         super().__init__(**kwargs)
@@ -253,6 +271,8 @@ class DicedOE(_DicedMethods, OE):
 class DicedJohannToroid(_DicedMethods, JohannToroid):
     """A diced Johann toroid."""
 
+    kernel_kind = 'diced_johann'
+
     @classmethod
     def create(cls, dxFacet=2.1, dyFacet=1.4, dxGap=0.05, dyGap=0.05,
                **kwargs):
@@ -268,6 +288,8 @@ class DicedJohannToroid(_DicedMethods, JohannToroid):
 
 class DicedJohanssonToroid(DicedJohannToroid):
     """A diced Johansson toroid."""
+
+    kernel_kind = 'diced_johansson'
 
     def facet_center_n(self, x, y):
         return JohanssonToroid.local_n(self, x, y)

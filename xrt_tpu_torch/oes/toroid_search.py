@@ -51,30 +51,16 @@ _ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_double] * 11 +
               ctypes.c_int] + [ctypes.c_void_p] * 5)
 
 
-def surface_kind(oe):
-    """The kernel's surface for *oe*'s own ``local_z``, or None: the
-    functions it calls must be the ones the kernel implements."""
-    from . import bragg
+#: the kernel's surface of each ``kernel_kind`` of ``oes/bragg.py``
+SURFACES = {'johann': TOROID, 'johansson': TOROID, 'general': TOROID,
+            'diced_johann': DICED_JOHANN, 'diced_johansson': DICED_JOHANSSON}
 
-    def fn(name):
-        return getattr(getattr(oe, name, None), '__func__', None)
-    if fn('local_z_distorted') is not base.OE.local_z_distorted:
-        return None
-    if fn('local_z') is bragg.JohannToroid.local_z:
-        return TOROID
-    if (fn('local_z') is bragg._DicedMethods.local_z and
-            fn('_facets') is bragg._DicedMethods._facets and
-            fn('facet_center_z') is bragg.DicedJohannToroid.facet_center_z
-            and fn('facet_center_n') in (
-                bragg.DicedJohannToroid.facet_center_n,
-                bragg.DicedJohanssonToroid.facet_center_n) and
-            fn('local_n_toroid') is bragg.JohannToroid.local_n_toroid):
-        delta = fn('facet_delta_z')
-        if delta is bragg._DicedMethods.facet_delta_z:
-            return DICED_JOHANN
-        if delta is bragg.DicedJohanssonToroid.facet_delta_z:
-            return DICED_JOHANSSON
-    return None
+
+def surface_kind(oe):
+    """The kernel's surface for *oe*'s own ``local_z``, or None: *oe*'s
+    ``base.kernel_kind`` (the functions it calls are the ones the kernel
+    implements)."""
+    return SURFACES.get(base.kernel_kind(oe))
 
 
 def engages(oe, device, dtype, local_z=None, isMulti=False, inv=1):

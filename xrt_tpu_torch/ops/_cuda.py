@@ -16,10 +16,12 @@ amplitude and the ten sums of the forward kernels (B1, B2 on the skeleton
 ``csrc/kirchhoff_fwd.cuh``), the reverse sweeps of the adjoint kernels (B3
 on ``csrc/kirchhoff_bwd.cuh``), and ``two_prod``'s error term.  The pair
 functions of both skeletons, the toroid crystals' per-ray search
-(``csrc/toroid_search.cuh``) and the Kirchhoff stages' per-point
+(``csrc/toroid_search.cuh``) and physics at the surface
+(``csrc/crystal_interact.cuh``) and the Kirchhoff stages' per-point
 preparation (``csrc/kirchhoff_prep.cuh``) are also compiled for the host
 by the CPU tests (``tests/test_torch_forward.py``,
 ``tests/test_torch_adjoint.py``, ``tests/test_torch_search_kernel.py``,
+``tests/test_torch_interact_kernel.py``,
 ``tests/test_torch_prep_kernel.py``, through ``host_build`` of
 ``tests/torch_harness.py``) against a stub of the CUDA runtime.  No
 ``--use_fast_math``: ``sqrtf``, ``1.0f / x``, ``sinf`` and ``cosf`` stay
@@ -45,7 +47,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: kernel sources, one shared library each
 SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
            'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
-           'hist2d', 'hist_plot', 'toroid_search', 'kirchhoff_prep')
+           'hist2d', 'hist_plot', 'toroid_search', 'kirchhoff_prep',
+           'crystal_interact')
 
 
 def nvcc() -> str:
@@ -130,6 +133,26 @@ def check(err: int, what: str) -> None:
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+#: {(kernel, device, stream): its scratch} of :func:`scratch`
+_SCRATCH: dict = {}
+
+
+def scratch(name: str, n: int, device):
+    """A float64 buffer of *n* for the kernel *name* on *device*'s current
+    stream (on the CPU, for a host build in place of the launch): zeroed
+    when first made, then kept, so a ticket that the kernel leaves at zero
+    is zero at its next call, which one stream runs after this one."""
+    import torch
+    stream = torch.cuda.current_stream(device).cuda_stream \
+        if device.type == 'cuda' else None
+    key = (name, device, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros((n,), dtype=torch.float64,
+                                          device=device)
+    return buf
 
 
 def launch(name: str, fn: str, argtypes, device, *args) -> None:

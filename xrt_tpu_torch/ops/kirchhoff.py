@@ -1123,10 +1123,6 @@ _PREP_VARIANTS = {'mono': 0, 'narrowband': 1, 'poly': 2, 'fast': 3,
 #: its centre buffer (floats; the first ten are P) and the blocks at most of
 #: its centre launch, whose partial sums are (blocks, 6) doubles of scratch
 PREP_CENTRE, PREP_MAX_BLOCKS = 27, 160
-#: per card and stream: the centre launch's partial sums and, in the last
-#: double, the ticket that tells its last block (zero between calls, which
-#: one stream runs one at a time)
-_PREP_SCRATCH = {}
 _PREP_ARGTYPES = [ctypes.c_int, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                   ctypes.c_longlong, _P, _P, _P, _P, _P, _P]
 
@@ -1154,13 +1150,12 @@ def _prep_kernel(mode, flat):
                        dtype=torch.float32, device=dev)
     cen = scratch = None
     if scheme == 'recentred':
+        from . import _cuda
         cen = torch.empty((PREP_CENTRE,), dtype=torch.float32, device=dev)
-        key = (dev, torch.cuda.current_stream(dev).cuda_stream) \
-            if dev.type == 'cuda' else (dev, None)
-        scratch = _PREP_SCRATCH.get(key)
-        if scratch is None:
-            scratch = _PREP_SCRATCH[key] = torch.zeros(
-                (6 * PREP_MAX_BLOCKS + 1,), dtype=torch.float64, device=dev)
+        # the centre launch's partial sums and, in the last double, the
+        # ticket that tells its last block
+        scratch = _cuda.scratch('kirchhoff_prep', 6 * PREP_MAX_BLOCKS + 1,
+                                dev)
     _prep_launch(
         dev, _PREP_VARIANTS[mode],
         (_P * len(flat))(*(t.data_ptr() for t in flat)),
