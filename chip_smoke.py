@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``xrt_tpu_torch/csrc`` with ``nvcc`` (one
-process per source, in parallel), then runs thirty-nine phases and exits
+process per source, in parallel), then runs forty phases and exits
 non-zero if any fails:
 
 1. card and build: the card's name and power limit, torch and CUDA
@@ -361,6 +361,17 @@ non-zero if any fails:
     1e6 rays a pass (the mean energy within 1 eV, Ge's band > 1.5 x Si's,
     ``hist_plot`` against its plain version); ``DCMOnTripodWithOneXStage``
     at nominal jacks against the DCM in float64 (1e-9).
+40. (run after phase 33) the benchmark's undulator cell, xrt speed test
+    2 (``beambench/configs/undulator.json``: 3 GeV, 40 periods of 30 mm,
+    K 1.45, 402 x 2 nodes, 6600-7200 eV, +-0.4 mrad), with its source,
+    screen at 25 m and plot (256 x 256 bins, 256 energy bins, the 'global'
+    route, fluxKind 's') from ``beambench/configs/undulator.py``: 1e5 rays
+    a pass (4e5 candidates through the far-field integral), float32, 4
+    passes through ``run_ray_tracing`` with one ``hist_plot`` launch each:
+    pass times, rays/s, the split of a pass (shine and its integral,
+    expose, histograms), the ray blocks of the integral, the kernel
+    launches of a shine (torch.profiler), the peak memory, and
+    ``hist_plot`` against its plain version (as in 21).
 
 34. the multi-card layer (``xrt_tpu_torch.parallel``) on the one card,
     each path beside its unsharded run in the same process
@@ -427,7 +438,7 @@ the full shape), ``hist_plot`` on a configuration-2 pass (phase
 B1 and B3 at phase 26's two differentiated hops (M1 -> M2, 2e5 x 2e5;
 M2 -> the screen, 16641 x 2e5; B3 held to the plain blocked backward on
 slices, as in 5, its plain time from phase 26's reference step),
-``hist_plot`` on a pass of each ray path of phases 30-33, and
+``hist_plot`` on a pass of each ray path of phases 30-33 and 40, and
 ``hist2d_kernel`` at the web UI's /api/hist table (phase 36's launches).
 
 ``python3 chip_smoke.py --sweep-plain-blocks`` only times the plain
@@ -2264,7 +2275,6 @@ def profiled_kernels_us(fn, n):
     """{kernel name: device us a call} of *n* calls of *fn*, by
     torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2275,7 +2285,7 @@ def profiled_kernels_us(fn, n):
         torch.cuda.synchronize()
     out = collections.Counter()
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if on_device(e):
             out[e.key] += getattr(e, 'self_device_time_total',
                                   getattr(e, 'self_cuda_time_total', 0.0)) / n
     return out
@@ -2616,7 +2626,6 @@ def profiled_device_ms(fn):
     """The device time of the kernels *fn* launches, by torch.profiler (0
     when it sees none)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2625,7 +2634,7 @@ def profiled_device_ms(fn):
         torch.cuda.synchronize()
     total = 0.0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if on_device(e):
             total += getattr(e, 'self_device_time_total',
                              getattr(e, 'self_cuda_time_total', 0.0))
     return total / 1e3
@@ -3519,17 +3528,25 @@ def recorded_b1(store, ndst):
         tk._launch_rows = rows_launch
 
 
+def on_device(e):
+    """Whether the profiler event *e* is work on the device: a kernel, a
+    copy or a set, not the device-side range of a ``record_function`` span
+    (the program's spans open one while the profiler records)."""
+    from torch.autograd import DeviceType
+    return e.device_type == DeviceType.CUDA and \
+        not getattr(e, 'is_user_annotation', False)
+
+
 def profiled_kernel_count(fn):
     """The number of device kernels *fn* launches, by torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return sum(1 for e in prof.events() if on_device(e))
 
 
 def c5_focal_concentration(res):
@@ -5688,6 +5705,8 @@ CF_ARGS = dict(eE=6.0, eI=0.1, eEpsilonX=0.0, eEpsilonZ=0.0, eMin=5000,
 CF_NRAYS, CF_REPEATS, CF_P = 1_000_000, 2, 20000.0
 #: examples/22_edge_radiation.py at its own sizes
 ER_NPT, ER_GNODES, ER_R0 = 101, 3000, 2500.0
+#: phase 40, the benchmark's undulator cell: passes through run_ray_tracing
+UC_REPEATS = 4
 
 
 def repo_file(path):
@@ -6210,6 +6229,68 @@ def phase_layouts(timing):
           f'{int((a.state == 1).sum())} rays through', flush=True)
     check(diff < 1e-9 and states, f'tripod DCM: {diff}, {states}')
     print(f'phase 33 took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+
+
+def bench_modules():
+    """``beambench/harness.py`` and ``beambench/peaks.py`` as the benchmark
+    loads them (the directory on the path)."""
+    bench = repo_file('beambench')
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import harness
+    import peaks
+    return harness, peaks
+
+
+def phase_undulator_char(timing):
+    """Phase 40: the benchmark's undulator cell (xrt speed test 2) as
+    ``beambench/configs/undulator.py`` builds its source, screen and plot:
+    passes through run_ray_tracing with one hist_plot launch each, held
+    against the plain version; the integral's part of a pass, the
+    kernel launches of a shine and the peak memory."""
+    t_phase = time.perf_counter()
+    from xrt_tpu_torch import histogram as th, runner
+    from xrt_tpu_torch.sources import undulator
+    harness, _ = bench_modules()
+    cfg = harness.load_json('configs', 'undulator.json')
+    drv = harness.load_module('configs', 'undulator')
+    src, screen = drv.build(cfg, 'cuda')
+    name = cfg['plot']['beam']
+
+    def process(rng):
+        return {name: screen.expose(src.shine(rng))}
+    plot, pass_ms, med, launches, peak, rng = oe_passes(
+        process, lambda: drv.make_plot(cfg), UC_REPEATS, 40)
+    p = cfg['plot']
+    route = th.plot_route((p['bins'], p['bins'], p['c_bins']))
+    check(launches == {f'hist_plot:{route}': UC_REPEATS},
+          f'undulator.char: not one hist_plot launch a pass: {launches}')
+    with _Timed(src, '_integrate') as ti:
+        ms, (beam, scr, _) = step_split([
+            lambda: src.shine(rng),
+            lambda b: screen.expose(b),
+            lambda i: runner.histogram_plot(plot, {name: i})])
+    i_ms = ti.ms()
+    nk = profiled_kernel_count(lambda: src.shine(rng))
+    ncand = src.nrays * src.oversample
+    rb = undulator.RAY_BLOCK
+    blocks = 1 if ncand <= 2 * rb else -(-ncand // rb)
+    print(f'phase 40 undulator.char: {src.nrays} rays/pass ({ncand} '
+          f'candidates, {src.quadm} x {src.gIntervals} nodes, {blocks} '
+          f'ray block(s) of RAY_BLOCK {rb}), float32, {UC_REPEATS} passes: '
+          f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median of the '
+          f'others {med:.1f} ms, {src.nrays / (med * 1e-3):.3e} rays/s; '
+          f'split (CUDA events): shine {ms[0]:.1f} ms (the integral '
+          f'{i_ms:.1f} ms), expose {ms[1]:.2f} ms, histograms {ms[2]:.2f} '
+          f'ms; {nk} kernel launches a shine (torch.profiler); peak device '
+          f'memory {peak / 2 ** 30:.2f} GiB; launches {launches}',
+          flush=True)
+    args = oe_hist_plot_check(40, 'undulator.char', plot, {name: scr})
+    timing['undulator.char'] = dict(launches=launches, plot_args=args,
+                                    pass_ms=pass_ms, integral_ms=i_ms,
+                                    kernels=nk, peak=peak)
+    print(f'phase 40 took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
 
 
@@ -7508,17 +7589,20 @@ OE_HIST_KEYS = ('laue', 'crl', 'multilayer', 'powder', 'fe:waviness',
                 'mesh:spline', 'txm')
 
 
-#: the ray paths of phases 30-33
+#: the ray paths of phases 30-33 and 40
 SLICE_HIST_KEYS = ('config3:near', 'config3:far', 'config3:taper',
-                   'config4:search', 'customfield', 'catalog:Ge')
+                   'config4:search', 'customfield', 'catalog:Ge',
+                   'undulator.char')
 
 
 def oe_physics_rows(timing, keys=OE_HIST_KEYS):
     """``hist_plot``'s rows on the paths of *keys* (phases 21-25 and
-    27-29 by default; phases 30-33 and the Qook projects of phase 35 are
-    the other calls)."""
+    27-29 by default; phases 30-33 and 40 and the Qook projects of phase
+    35 are the other calls), each bound by its bytes as the benchmark's
+    ``peaks.hist_plot_bound_ms`` counts them."""
     import torch
     from xrt_tpu_torch import histogram as th
+    _, peaks = bench_modules()
     rows = []
     for key in keys:
         args = timing[key]['plot_args']
@@ -7535,9 +7619,7 @@ def oe_physics_rows(timing, keys=OE_HIST_KEYS):
         ab = max(float((got[k].double() - ref[k]).abs().max())
                  for k in th.PLOT_HISTS)
         n = args[0].shape[0]
-        bx, by, bc = bins
-        bms = 1e3 * (21.0 * n + 4.0 * (4 * (bx + by + bc + bx * by) + 1)) / \
-            PEAK_BYTES
+        bms = peaks.hist_plot_bound_ms(n, *bins)
         launches = int(timing[key]['launches'].get(f'hist_plot:{route}', 0))
         print(f'phase 5 hist_plot:{key}: {n} rays of a pass into eight '
               f'histograms ({route}), kernel {ms:.4f} ms, plain '
@@ -7616,6 +7698,7 @@ def main():
         phase_search(timing)
         phase_customfield(timing)
         phase_layouts(timing)
+        phase_undulator_char(timing)
         phase_multicard(timing)
         phase_cli(timing)
         phase_views_process(timing)

@@ -46,6 +46,7 @@ from ..beam import Beam
 from ..ops.dd import sqrt_rn
 from ..physconsts import (C, CHeVcm, E0, E2W, EV2ERG, FINE_STR, K2B, M0, PI,
                           PI2, SIE0, SIM0, SQ3)
+from ..profiler import stage
 from ..transforms import rotate_xyz, virgin_local_to_global
 from .geometric import _draw
 
@@ -479,7 +480,15 @@ class _SynchrotronBase(config.Replaceable):
         resampling of ``nrays * oversample`` candidates.  *generator* is a
         ``torch.Generator`` (seed 0 on the beam's device if None); *draws*
         maps names of :data:`DRAWS` to injected draws.  The beam is made in
-        the source's dtype on its device."""
+        the source's dtype on its device.  While the profiler traces, the
+        call is the span ``sources.shine``."""
+        with stage('sources.shine',
+                   device=config.resolve_device(self.device)):
+            return self._shine(generator, toGlobal, withAmplitudes,
+                               fixedEnergy, draws)
+
+    def _shine(self, generator, toGlobal, withAmplitudes, fixedEnergy,
+               draws):
         dt = config.resolve_dtype(self.dtype)
         dev = config.resolve_device(self.device)
         if generator is None:

@@ -41,14 +41,18 @@ from ..ops import dd
 from ..ops.dd import sqrt_rn
 from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, K2B, M0,
                           PI, PI2, SIE0, SQ2, SQPI)
-from ..profiler import stage
+from ..profiler import count, stage
 from ..transforms import virgin_local_to_global
 from .synchrotron import _SynchrotronBase, _create_args, _ebeam_sizes
 
 #: quadrature nodes per step of the integral
 NODE_CHUNK = 64
-#: rays per block of ``shine_wave`` above 2 * RAY_BLOCK samples
-RAY_BLOCK = 131072
+#: rays per block of ``build_I_map`` in ``shine`` and ``shine_wave`` above
+#: 2 * RAY_BLOCK rays.  The 4e5 candidates of 1e5 rays are one block (a
+#: peak of 1.9 GB on the card): in blocks of 131072, the reference's, they
+#: were four, whose ~4200 element-wise launches a shine the host issued
+#: more slowly than the card ran them.
+RAY_BLOCK = 1 << 18
 
 #: 1e7 / CHBAR as a double-float constant (k [1/mm] = E [eV] * KC)
 _KC = 1e7 / CHBAR
@@ -311,14 +315,19 @@ class Undulator(_SynchrotronBase):
         return np.array(powers)
 
     # ------------------------------------------------------------------
+    def _node_copies(self):
+        """Copies of the node grid that the integral walks: Np when
+        tapered or in the near field, one in the far field."""
+        return self.Np if (self.R0 is not None or
+                           self.taper_val is not None) else 1
+
     def _node_list(self, dt, dev):
         """The (period, node) list of the integral on *dev*: Np copies of
         the node grid, each shifted by its period's offset, when tapered or
         in the near field, one copy otherwise (the reference's tiling).
         Returns the nodes' positions zloc, weights and the sines and
         cosines of their trajectory phases, each over the whole list."""
-        nmx = self.Np if (self.R0 is not None or
-                          self.taper_val is not None) else 1
+        nmx = self._node_copies()
         nn = len(self.tg)
         offs = np.repeat(-(nmx - 1) * PI + PI2 * np.arange(nmx), nn) \
             if nmx > 1 else np.zeros(nn)
@@ -465,7 +474,12 @@ class Undulator(_SynchrotronBase):
         rays' dtype: near a harmonic h both sines are near zero, and in
         float32 their arguments (~pi Np h) carry ulps of ~1e-4 rad, which
         put the factor out by up to 2.5x at the 7th harmonic of Np = 111
-        (ROADMAP C16).  In float64 these are the reference's operations."""
+        (ROADMAP C16).  In float64 these are the reference's operations.
+
+        While the profiler traces, the integral is the span
+        ``sources.integrate``, and each call counts ``integral.calls`` and
+        ``integral.node_evals``: rays x nodes of nonzero weight x copies of
+        the node grid (:meth:`_node_copies`)."""
         dt, dev = w.dtype, w.device
         gamma0 = self.gamma
         w64 = w.to(torch.float64)
@@ -496,7 +510,12 @@ class Undulator(_SynchrotronBase):
                   sinw).to(dt)
         wu = wu.to(dt)
 
-        Is, Ip = self._integrate(ww1.to(dt), w, wu, gamma, ddtheta, ddpsi)
+        with stage('sources.integrate', device=w):
+            count('integral.calls')
+            count('integral.node_evals', w.numel() * self._node_copies() *
+                  int(np.count_nonzero(self.ag)))
+            Is, Ip = self._integrate(ww1.to(dt), w, wu, gamma, ddtheta,
+                                     ddpsi)
 
         bwFact = 0.001 if self.distE == 'BW' else 1. / w
         Amp2Flux = FINE_STR * bwFact * self.eI / SIE0
@@ -568,13 +587,12 @@ class Undulator(_SynchrotronBase):
         sx, sz = self.get_SIGMA(E, onlyOddHarmonics=False)
         return sx * r['x'], torch.zeros_like(E), sz * r['z']
 
-    def shine(self, generator=None, toGlobal=True, withAmplitudes=True,
-              fixedEnergy=False, draws=None):
+    def _shine(self, generator, toGlobal, withAmplitudes, fixedEnergy,
+               draws):
         """Ray-mode shine (see ``_SynchrotronBase.shine``) with the
         amplitudes normalized to unit modulus, Es = mJs / |mJs|."""
-        beam = super().shine(generator, toGlobal=False,
-                             withAmplitudes=withAmplitudes,
-                             fixedEnergy=fixedEnergy, draws=draws)
+        beam = super()._shine(generator, False, withAmplitudes, fixedEnergy,
+                              draws)
         if beam.Es is not None:
             absS, absP = torch.abs(beam.Es), torch.abs(beam.Ep)
             zero = torch.zeros_like(beam.Es)
