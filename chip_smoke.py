@@ -5707,6 +5707,78 @@ CF_NRAYS, CF_REPEATS, CF_P = 1_000_000, 2, 20000.0
 ER_NPT, ER_GNODES, ER_R0 = 101, 3000, 2500.0
 #: phase 40, the benchmark's undulator cell: passes through run_ray_tracing
 UC_REPEATS = 4
+#: the far-field formula's float32 operations a (ray, node) evaluation
+#: (beambench/metrics/und.integral_roofline.py OPS_PER_NODE): S4's bound
+UND_OPS_PER_NODE = 40
+
+
+def integral_line(phase, key, und, cand, timing):
+    """S4 (csrc/undulator_integral.cu) on the integral of *und*'s
+    ``build_I_map`` call of the candidates *cand* (E, theta, psi on the
+    card): its time by CUDA events beside the plain loop's and the bound
+    (UND_OPS_PER_NODE a node evaluation at the float32 peak), one launch a
+    call, and the error of both against the float64 plain loop on the same
+    numbers (in the near field |Is|, |Ip|: the carrier phase w / wu R0n is
+    another number in float32).  Appends its kernels-line row to
+    timing['integral_rows']."""
+    import torch
+    from xrt_tpu_torch.ops import _cuda
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    seen = []
+    orig = ui.integrate
+
+    def capture(u, *a):
+        seen.append(a)
+        return orig(u, *a)
+    ui.integrate = capture
+    try:
+        und.build_I_map(None, *cand)
+    finally:
+        ui.integrate = orig
+    check(len(seen) == 1, f'phase {phase} {key}: {len(seen)} kernel calls')
+    args = seen[0]
+    m = ui.MODES[ui.mode(und)]
+    dtype = args[0].dtype
+    name = f'undulator_integral:{m}:{dtype}'
+    ui.LAUNCHES.clear()
+    k_ms, got = cuda_ms(lambda: ui.integrate(und, *args), 10)
+    check(dict(ui.LAUNCHES) == {name: 10},
+          f'phase {phase} {key}: launches {dict(ui.LAUNCHES)} for 10 calls')
+    p_ms, plain = cuda_ms(lambda: und._integrate(*args), 1)
+    ref = und._integrate(*(a.double() for a in args))
+
+    def err(x):
+        if m == 'near':
+            x, r = [v.abs() for v in x], [v.abs() for v in ref]
+        else:
+            r = ref
+        return max(float((a.to(b.dtype) - b).abs().max() / b.abs().max())
+                   for a, b in zip(x, r))
+    e_k, e_p = err(got), err(plain)
+    n = args[0].numel()
+    evals = n * und._node_copies() * int((und.ag != 0).sum())
+    bound = 1e3 * evals * UND_OPS_PER_NODE / PEAK_F32_OPS
+    tag = 'If' if dtype == torch.float32 else 'Id'
+    regs = [(r, st + ld) for fn, r, st, ld in
+            ptxas_rows(_cuda.build_log('undulator_integral'))
+            if f'undulator_rays{tag}Li{ui.mode(und)}E' in fn]
+    reg, spill = regs[0] if regs else (None, None)
+    print(f'phase {phase} S4 {key}: {n} rays x {und._node_copies()} copies x '
+          f'{int((und.ag != 0).sum())} nodes ({evals:.4e} node evaluations, '
+          f'{m}, {dtype}): kernel {k_ms:.4f} ms, plain loop {p_ms:.2f} ms '
+          f'({p_ms / k_ms:.1f}x), bound {bound:.4f} ms ({UND_OPS_PER_NODE} '
+          f'operations a node at 67 TFLOP/s: {100 * bound / k_ms:.2f}%); '
+          f'{reg} registers, {spill} B spilled; against the float64 plain '
+          f'loop: kernel {e_k:.3e}, plain loop {e_p:.3e} of the peak; one '
+          f'launch a call', flush=True)
+    check(e_k <= 2 * e_p if dtype == torch.float32 else e_k < 1e-9,
+          f'phase {phase} {key}: kernel {e_k:.3e}, plain {e_p:.3e}')
+    timing.setdefault('integral_rows', []).append(dict(
+        name=f'undulator_integral:{key}', route='cuda',
+        source='xrt_tpu_torch/csrc/undulator_integral.cu', replaces=None,
+        launches=1, max_rel_err=e_k, plain_err=e_p, ms=k_ms,
+        registers=reg, spill_bytes=spill, plain_ms=p_ms, bound_ms=bound,
+        bound_by='operations', library_ms=None, shape=f'{n}x{evals // n}'))
 
 
 def repo_file(path):
@@ -5775,6 +5847,7 @@ def phase_config3(timing):
     import torch
     from xrt_tpu_torch import histogram as th, runner
     from xrt_tpu_torch.sources import Undulator
+    from xrt_tpu_torch.sources import undulator_integral as ui
     from xrt_tpu_torch.sources.undulator import RAY_BLOCK
     f32, f64 = torch.float32, torch.float64
     n = C3_NRAYS
@@ -5794,7 +5867,7 @@ def phase_config3(timing):
             process, c3_plot, reps, 30, warm=warm)
         check(launches == {f'hist_plot:{route}': reps},
               f'{key}: not one hist_plot launch a pass: {launches}')
-        with _Timed(und, '_integrate') as ti:
+        with _Timed(ui, 'integrate') as ti:
             ms, (beam, mono, img, hists) = step_split([
                 lambda: und.shine(rng),
                 lambda b: dcm.double_reflect(b, rng)[0],
@@ -5808,6 +5881,7 @@ def phase_config3(timing):
                 u[1] * (und.Theta_max - und.Theta_min) + und.Theta_min,
                 u[2] * (und.Psi_max - und.Psi_min) + und.Psi_min)
         nk = profiled_kernel_count(lambda: und.build_I_map(g, *cand))
+        integral_line(30, key, und, cand, timing)
         busy = ''
         if key == 'config3:near':
             # the busy share of a pass of one ray block's candidates (a
@@ -5826,11 +5900,10 @@ def phase_config3(timing):
                     f'ms pass of {und1.nrays} rays ({RAY_BLOCK} candidates) '
                     f'under the profiler ({dev_ms / host_ms[0]:.1%})')
         Em, band = weighted_band(mono)
-        steps = (und.Np if key != 'config3:far' else 1) * \
-            und.tg.shape[0] // 64
         print(f'phase 30 {key}: {n} rays/pass ({n * und.oversample} '
-              f'undulator candidates, gNodes 64, {steps} node steps a ray '
-              f'block), float32, {reps} passes (the first calibrates): '
+              f'undulator candidates, gNodes 64, {und._node_copies()} '
+              f'copies of the node grid), float32, {reps} passes (the first '
+              f'calibrates): '
               f'{", ".join(f"{v:.1f}" for v in pass_ms)} ms, median of the '
               f'others {med:.1f} ms, {n / (med * 1e-3):.3e} rays/s; split '
               f'(CUDA events): shine {ms[0]:.1f} ms (the integral '
@@ -6250,8 +6323,10 @@ def phase_undulator_char(timing):
     against the plain version; the integral's part of a pass, the
     kernel launches of a shine and the peak memory."""
     t_phase = time.perf_counter()
+    import torch
     from xrt_tpu_torch import histogram as th, runner
     from xrt_tpu_torch.sources import undulator
+    from xrt_tpu_torch.sources import undulator_integral as ui
     harness, _ = bench_modules()
     cfg = harness.load_json('configs', 'undulator.json')
     drv = harness.load_module('configs', 'undulator')
@@ -6266,12 +6341,15 @@ def phase_undulator_char(timing):
     route = th.plot_route((p['bins'], p['bins'], p['c_bins']))
     check(launches == {f'hist_plot:{route}': UC_REPEATS},
           f'undulator.char: not one hist_plot launch a pass: {launches}')
-    with _Timed(src, '_integrate') as ti:
+    ui.LAUNCHES.clear()
+    with _Timed(ui, 'integrate') as ti:
         ms, (beam, scr, _) = step_split([
             lambda: src.shine(rng),
             lambda b: screen.expose(b),
             lambda i: runner.histogram_plot(plot, {name: i})])
     i_ms = ti.ms()
+    check(dict(ui.LAUNCHES) == {'undulator_integral:far:torch.float32': 1},
+          f'undulator.char: S4 launches a shine {dict(ui.LAUNCHES)}')
     nk = profiled_kernel_count(lambda: src.shine(rng))
     ncand = src.nrays * src.oversample
     rb = undulator.RAY_BLOCK
@@ -6290,6 +6368,23 @@ def phase_undulator_char(timing):
     timing['undulator.char'] = dict(launches=launches, plot_args=args,
                                     pass_ms=pass_ms, integral_ms=i_ms,
                                     kernels=nk, peak=peak)
+    # S4 at the cell's shape (its 4e5 candidates) and at the SoftiMAX
+    # chain's (2e5 samples of its filament at 280 eV), float32 and float64
+    bs = port_tool('torch_bench_softimax')
+    sx = bs.beamline(torch.float32, 'cuda')['src']
+    for key, und, n, fixed in (('undulator.char', src, ncand, None),
+                               ('softimax', sx, SX_NRAYS, bs.E0)):
+        for dt in (torch.float32, torch.float64):
+            g = torch.Generator('cuda').manual_seed(40)
+            u = [torch.rand(n, generator=g, device='cuda',
+                            dtype=torch.float64) for _ in range(3)]
+            cand = ((u[0] * (und.eMax - und.eMin) + und.eMin)
+                    if fixed is None else torch.full_like(u[0], fixed),
+                    u[1] * (und.Theta_max - und.Theta_min) + und.Theta_min,
+                    u[2] * (und.Psi_max - und.Psi_min) + und.Psi_min)
+            integral_line(40, f'{key}:{str(dt)[6:]}', und,
+                          [c.to(dt) for c in cand], timing)
+            torch.cuda.empty_cache()
     print(f'phase 40 took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
 
@@ -7705,7 +7800,7 @@ def main():
         rows = phase_kernel_line(timing) + hist_rows(timing) + \
             crystal_hist_rows(timing) + adjoint_rows(timing) + \
             timing['softimax_rows'] + prep_rows(timing) + \
-            timing['interact_rows'] + \
+            timing['interact_rows'] + timing['integral_rows'] + \
             coherence_rows(timing) + \
             oe_physics_rows(timing) + fe_wave_rows(timing) + \
             oe_physics_rows(timing, SLICE_HIST_KEYS) + \

@@ -81,7 +81,14 @@ check).  On the card:
   path on 1e7 float32 and 1e6 float64 rays, to the limits of
   ``tests/test_torch_interact_kernel.py`` (``tests/torch_interact_cases
   .py``); a call makes no host read (``set_sync_debug_mode('error')``);
-  ``reflect`` through it gives the plain path's beams.
+  ``reflect`` through it gives the plain path's beams;
+* the undulator's radiation-integral kernel (``csrc/undulator_integral
+  .cu``): ``build_I_map`` of ``undulator.char``'s 4e5 candidates, and the
+  tapered and near-field sources of ``tests/test_torch_undulator_kernel
+  .py``, against the plain loop at that file's limits (float64 1e-9 of the
+  peak; float32 no farther from float64 than twice the plain float32
+  loop); one launch a ``build_I_map`` call; ``beambench/run.py`` on the
+  cell correct, its readings at the plain loop's order.
 """
 import torch_harness  # noqa: F401
 
@@ -1278,3 +1285,137 @@ def test_reflect_through_the_interact_kernel(cuda, dt):
     got = oe.reflect(beam)
     assert sum(ci.LAUNCHES.values()) == before + 1
     tc.compare_beams(ref, got, dtype)
+
+
+# ---- the undulator's radiation integral (csrc/undulator_integral.cu) -------
+
+def _und_plain(und, *args, **kw):
+    """``build_I_map`` with the plain loop (the kernel's dispatch off)."""
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    engages = ui.engages
+    ui.engages = lambda *a: False
+    try:
+        return und.build_I_map(None, *args, **kw)
+    finally:
+        ui.engages = engages
+
+
+def _und_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _und_char_candidates(device, n=400_000, seed=11):
+    """The cell ``undulator.char``'s source (float32 and float64) and *n*
+    uniform candidates over its acceptance, float64 on *device*."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'beambench'))
+    import harness
+    cfg = harness.load_json('configs', 'undulator.json')
+    drv = harness.load_module('configs', 'undulator')
+    srcs = {dt: drv.build(dict(cfg, dtype=dt), device)[0]
+            for dt in ('float32', 'float64')}
+    s = srcs['float64']
+    g = torch.Generator(device).manual_seed(seed)
+    u = [torch.rand(n, generator=g, device=device, dtype=torch.float64)
+         for _ in range(3)]
+    cand = (u[0] * (s.eMax - s.eMin) + s.eMin,
+            u[1] * (s.Theta_max - s.Theta_min) + s.Theta_min,
+            u[2] * (s.Psi_max - s.Psi_min) + s.Psi_min)
+    return srcs, cand
+
+
+@pytest.mark.parametrize('dt', ['float32', 'float64'])
+def test_undulator_kernel_on_the_cells_candidates(cuda, dt):
+    """``build_I_map`` of ``undulator.char``'s 4e5 candidates through the
+    kernel, one launch: float64 within 1e-9 of each output's peak of the
+    plain loop; float32 no farther from the float64 plain loop on the same
+    numbers than twice the plain float32 loop (the CPU test's limits)."""
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    srcs, cand = _und_char_candidates(cuda)
+    und = srcs[dt]
+    dtype = getattr(torch, dt)
+    args = [c.to(dtype) for c in cand]
+    key = f'undulator_integral:far:{dtype}'
+    before = ui.LAUNCHES[key]
+    got = und.build_I_map(None, *args)
+    assert ui.LAUNCHES[key] == before + 1
+    ref = _und_plain(srcs['float64'], *(a.double() for a in args))
+    if dt == 'float64':
+        for g, w in zip(got, ref):
+            assert _und_rel(g, w) < 1e-9
+        return
+    plain = _und_plain(und, *args)
+    for g, p, w in zip(got, plain, ref):
+        e_plain = _und_rel(p.to(w.dtype), w)
+        assert _und_rel(g.to(w.dtype), w) <= 2 * e_plain
+
+
+@pytest.mark.parametrize('dt', ['float32', 'float64'])
+@pytest.mark.parametrize('case', ['taper', 'near'])
+def test_undulator_kernel_tapered_and_near_field(cuda, case, dt):
+    """The tapered and near-field variants on the card against the plain
+    loop, on the CPU test's sources and rays (``tests/
+    test_torch_undulator_kernel.py``), at its limits."""
+    import test_torch_undulator_kernel as tk_
+    from xrt_tpu_torch.sources import Undulator
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    dtype = getattr(torch, dt)
+
+    def src(d):
+        return Undulator.create(**dict(tk_.GOLDEN_UND, **tk_.CASES[case]),
+                                dtype=d, device=cuda)
+    r = [torch.as_tensor(np.asarray(torch.as_tensor(v, dtype=dtype),
+                                    np.float64), device=cuda)
+         for v in tk_.rays(src(torch.float64), n=20000)[:3]]
+    before = sum(ui.LAUNCHES.values())
+    got = tk_.outputs(case, src(dtype).build_I_map(
+        None, *(v.to(dtype) for v in r)))
+    assert sum(ui.LAUNCHES.values()) == before + 1
+    ref = tk_.outputs(case, _und_plain(src(torch.float64), *r))
+    if dt == 'float64':
+        for g, w in zip(got, ref):
+            assert _und_rel(g, w) < 1e-9
+        return
+    plain = tk_.outputs(case, _und_plain(src(dtype),
+                                         *(v.to(dtype) for v in r)))
+    for g, p, w in zip(got, plain, ref):
+        assert _und_rel(g, w) <= 2 * _und_rel(p, w)
+
+
+def test_undulator_kernel_one_launch_a_build_I_map_call(cuda):
+    """A shine of the cell's 1e5 rays is one launch (its 4e5 candidates
+    one ray block); in blocks of 2^17 rays the same candidates are four
+    calls and four launches."""
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    srcs, cand = _und_char_candidates(cuda)
+    und = srcs['float32']
+    ui.LAUNCHES.clear()
+    und.shine(torch.Generator(cuda).manual_seed(3))
+    assert dict(ui.LAUNCHES) == {'undulator_integral:far:torch.float32': 1}
+    ui.LAUNCHES.clear()
+    und._I_map_blocks(None, *(c.float() for c in cand), ray_block=1 << 17)
+    assert dict(ui.LAUNCHES) == {'undulator_integral:far:torch.float32': 4}
+
+
+def test_undulator_char_readings_through_the_kernel(cuda, tmp_path):
+    """``beambench/run.py`` on ``undulator.char`` (3 s): correct, every
+    reading at the order of the plain loop's (its largest over 34 seeds:
+    flux 1.4e-6, index_off 0.024, pol 4.5e-7, ray 1.2e-6, hist 2.3e-8)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, 'beambench/run.py', '--workload', 'undulator.char',
+         '--seed', '2999999937', '--seconds', '3', '--trace', '0'],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res['correct'], res['checks']
+    got = {k: c['value'] for k, c in res['checks'].items()}
+    for k, cap in dict(flux_err=1e-5, pol_err=1e-5, ray_err=1e-5,
+                       hist_err=1e-6, index_off=0.05).items():
+        assert got[k] < cap, (k, got[k])

@@ -17,12 +17,14 @@ amplitude and the ten sums of the forward kernels (B1, B2 on the skeleton
 on ``csrc/kirchhoff_bwd.cuh``), and ``two_prod``'s error term.  The pair
 functions of both skeletons, the toroid crystals' per-ray search
 (``csrc/toroid_search.cuh``) and physics at the surface
-(``csrc/crystal_interact.cuh``) and the Kirchhoff stages' per-point
-preparation (``csrc/kirchhoff_prep.cuh``) are also compiled for the host
+(``csrc/crystal_interact.cuh``), the Kirchhoff stages' per-point
+preparation (``csrc/kirchhoff_prep.cuh``) and the undulator's radiation
+integral (``csrc/undulator_integral.cuh``) are also compiled for the host
 by the CPU tests (``tests/test_torch_forward.py``,
 ``tests/test_torch_adjoint.py``, ``tests/test_torch_search_kernel.py``,
 ``tests/test_torch_interact_kernel.py``,
-``tests/test_torch_prep_kernel.py``, through ``host_build`` of
+``tests/test_torch_prep_kernel.py``,
+``tests/test_torch_undulator_kernel.py``, through ``host_build`` of
 ``tests/torch_harness.py``) against a stub of the CUDA runtime.  No
 ``--use_fast_math``: ``sqrtf``, ``1.0f / x``, ``sinf`` and ``cosf`` stay
 IEEE.  ``-Xptxas -v`` puts every kernel's registers and spills into the
@@ -48,7 +50,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 SOURCES = ('kirchhoff_recentred', 'kirchhoff_ddphase',
            'kirchhoff_recentred_bwd', 'kirchhoff_ddphase_bwd', 'dd_selftest',
            'hist2d', 'hist_plot', 'toroid_search', 'kirchhoff_prep',
-           'crystal_interact')
+           'crystal_interact', 'undulator_integral')
 
 
 def nvcc() -> str:

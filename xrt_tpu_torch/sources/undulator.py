@@ -15,14 +15,17 @@ a prepared wave, with its spherical propagation phase, and the ray-mode
 ``shine`` (importance resampling of ``_SynchrotronBase``, ray origins from
 the Tanaka-Kitamura source sizes, unit amplitudes).
 
-The integral walks a list of (period, node) entries in steps of
-:data:`NODE_CHUNK` nodes with per-ray complex accumulators, so the
-temporaries stay O(rays x chunk).  The list is made once a call, as the
-reference tiles it: Np copies of the node grid with each period's offset
-(one copy in the far field), and the sines and cosines of the nodes'
-trajectory phases are taken once over the whole list, so a step derives
-no per-node term again.  It is plain PyTorch: the reference evaluates it
-in its array library, not in a kernel of its own.  Above ``2 * RAY_BLOCK``
+On a card, where autograd records nothing, the integral is one CUDA
+kernel a ``build_I_map`` call (``sources/undulator_integral.py``,
+``csrc/undulator_integral.cu``): a thread a ray, the node loop inside,
+the sums in registers.  Everywhere else (CPU tensors, a call that needs a
+gradient) ``_integrate`` runs the plain loop: it walks a list of (period,
+node) entries in steps of :data:`NODE_CHUNK` nodes with per-ray complex
+accumulators, so the temporaries stay O(rays x chunk).  The list is made
+once a call, as the reference tiles it: Np copies of the node grid with
+each period's offset (one copy in the far field), and the sines and
+cosines of the nodes' trajectory phases are taken once over the whole
+list, so a step derives no per-node term again.  Above ``2 * RAY_BLOCK``
 rays ``shine`` and ``shine_wave`` walk the rays in blocks of
 ``RAY_BLOCK``.
 
@@ -43,15 +46,16 @@ from ..physconsts import (C, CHBAR, CHeVcm, E2WC, EV2ERG, FINE_STR, K2B, M0,
                           PI, PI2, SIE0, SQ2, SQPI)
 from ..profiler import count, stage
 from ..transforms import virgin_local_to_global
+from . import undulator_integral
 from .synchrotron import _SynchrotronBase, _create_args, _ebeam_sizes
 
 #: quadrature nodes per step of the integral
 NODE_CHUNK = 64
 #: rays per block of ``build_I_map`` in ``shine`` and ``shine_wave`` above
-#: 2 * RAY_BLOCK rays.  The 4e5 candidates of 1e5 rays are one block (a
-#: peak of 1.9 GB on the card): in blocks of 131072, the reference's, they
-#: were four, whose ~4200 element-wise launches a shine the host issued
-#: more slowly than the card ran them.
+#: 2 * RAY_BLOCK rays.  The 4e5 candidates of 1e5 rays are one block, one
+#: launch of the integral's kernel on a card.  The plain loop (CPU tensors,
+#: gradients) keeps (rays, 64) temporaries, 1.9 GB at one such block on a
+#: card; the kernel keeps none, and the float64 prologue O(rays).
 RAY_BLOCK = 1 << 18
 
 #: 1e7 / CHBAR as a double-float constant (k [1/mm] = E [eV] * KC)
@@ -479,7 +483,8 @@ class Undulator(_SynchrotronBase):
         While the profiler traces, the integral is the span
         ``sources.integrate``, and each call counts ``integral.calls`` and
         ``integral.node_evals``: rays x nodes of nonzero weight x copies of
-        the node grid (:meth:`_node_copies`)."""
+        the node grid (:meth:`_node_copies`); and ``integral.fused`` where
+        the kernel of ``sources/undulator_integral.py`` served it."""
         dt, dev = w.dtype, w.device
         gamma0 = self.gamma
         w64 = w.to(torch.float64)
@@ -514,8 +519,12 @@ class Undulator(_SynchrotronBase):
             count('integral.calls')
             count('integral.node_evals', w.numel() * self._node_copies() *
                   int(np.count_nonzero(self.ag)))
-            Is, Ip = self._integrate(ww1.to(dt), w, wu, gamma, ddtheta,
-                                     ddpsi)
+            rays = (ww1.to(dt), w, wu, gamma, ddtheta, ddpsi)
+            if undulator_integral.engages(self, *rays):
+                count('integral.fused')
+                Is, Ip = undulator_integral.integrate(self, *rays)
+            else:
+                Is, Ip = self._integrate(*rays)
 
         bwFact = 0.001 if self.distE == 'BW' else 1. / w
         Amp2Flux = FINE_STR * bwFact * self.eI / SIE0
