@@ -88,7 +88,10 @@ check).  On the card:
   .py``, against the plain loop at that file's limits (float64 1e-9 of the
   peak; float32 no farther from float64 than twice the plain float32
   loop); one launch a ``build_I_map`` call; ``beambench/run.py`` on the
-  cell correct, its readings at the plain loop's order.
+  cell correct, its readings at the plain loop's order; the float64 near
+  variant one launch a shine of ``config3.near``'s source, and
+  ``beambench/run.py`` on that cell correct with every integral in the
+  kernel.
 """
 import torch_harness  # noqa: F401
 
@@ -1419,3 +1422,54 @@ def test_undulator_char_readings_through_the_kernel(cuda, tmp_path):
     for k, cap in dict(flux_err=1e-5, pol_err=1e-5, ray_err=1e-5,
                        hist_err=1e-6, index_off=0.05).items():
         assert got[k] < cap, (k, got[k])
+
+
+def test_config3_near_float64_one_near_launch_a_build_I_map_call(cuda):
+    """The cell ``config3.near``'s float64 source in the near field: a
+    shine of its 1e5 rays is one float64 launch of the near variant (its
+    4e5 candidates one ray block), and its integral equals the plain loop's
+    on a block of them (1e-9 of the peak)."""
+    import os
+    import sys
+    from xrt_tpu_torch.sources import undulator_integral as ui
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'beambench'))
+    import harness
+    cfg = harness.load_json('configs', 'config3.json')
+    src = harness.load_module('configs', 'config3').build(cfg, cuda)[0]
+    ui.LAUNCHES.clear()
+    beam = src.shine(torch.Generator(cuda).manual_seed(3))
+    assert dict(ui.LAUNCHES) == {'undulator_integral:near:torch.float64': 1}
+    assert beam.x.dtype == torch.float64 and beam.x.shape == (100000,)
+    g = torch.Generator(cuda).manual_seed(4)
+    u = [torch.rand(4096, generator=g, device=cuda, dtype=torch.float64)
+         for _ in range(3)]
+    cand = (u[0] * (src.eMax - src.eMin) + src.eMin,
+            u[1] * (src.Theta_max - src.Theta_min) + src.Theta_min,
+            u[2] * (src.Psi_max - src.Psi_min) + src.Psi_min)
+    got = src.build_I_map(None, *cand)
+    for a, b in zip(got, _und_plain(src, *cand)):
+        assert _und_rel(a, b) < 1e-9
+
+
+def test_config3_near_cell_through_the_kernel(cuda):
+    """``beambench/run.py`` on ``config3.near``, traced (3 s): correct,
+    the integral in the kernel on every call (``und.integral_fused``
+    100), the near field's roofline share within (0, 100] and the DCM's
+    span read."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, 'beambench/run.py', '--workload', 'config3.near',
+         '--seed', '2999999941', '--seconds', '3', '--trace', '1'],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res['correct'], res['checks']
+    m = {k: v['value'] for k, v in res['metrics'].items()}
+    assert m['und.integral_fused'] == 100
+    assert 0 < m['nf.integral_roofline'] <= 100
+    assert m['nf.dcm_ms'] > 0

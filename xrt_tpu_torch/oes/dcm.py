@@ -16,6 +16,7 @@ import torch
 
 from .. import config
 from ..ops.dd import sqrt_rn
+from ..profiler import stage
 from ..transforms import global_to_virgin_local, virgin_local_to_global
 from .base import OE, _fvec, _merge_by_mask
 
@@ -103,34 +104,36 @@ class DCM(OE):
         """(beamGlobal, beamLocal1, beamLocal2): *beam* (global frame) off
         the first crystal, then the second.  A ray keeps its incoming
         values unless both crystals took it; the state is the second
-        crystal's."""
-        good1 = beam.state > 0
-        lb = global_to_virgin_local(beam, self.center)
-        vlb1, lo1 = self._reflect_local(
-            lb, good1, self.pitch + self.braggAngle,
-            self.roll + self.positionRoll + self.cryst1roll, self.yaw,
-            dx=self.dxCryst, fromVacuum=fromVacuum1,
-            local_z=self.local_z1, local_n=self.local_n1,
-            material=self.material, generator=generator)
-        goodAfter1 = (vlb1.state == 1) | (vlb1.state == 2)
-        lim2 = (self.limPhysX2 if self.limPhysX2 is not None
-                else self.limPhysX,
-                self.limPhysY2 if self.limPhysY2 is not None
-                else self.limPhysY,
-                self.limOptX2, self.limOptY2)
-        vlb2, lo2 = self._reflect_local(
-            vlb1, goodAfter1,
-            -self.pitch - self.braggAngle + self.cryst2pitch +
-            self.cryst2finePitch,
-            self.roll + self.cryst2roll + self.positionRoll, -self.yaw,
-            dx=-self.dxCryst, dy=self.cryst2longTransl,
-            dz=-self.cryst2perpTransl, fromVacuum=fromVacuum2,
-            is2ndXtal=True, local_z=self.local_z2, local_n=self.local_n2,
-            material=self.material2, limits=lim2, generator=generator)
-        goodAfter2 = (vlb2.state == 1) | (vlb2.state == 2)
-        glo = virgin_local_to_global(vlb2, self.center)
-        merged = _merge_by_mask(beam, glo, good1 & goodAfter1 & goodAfter2)
-        merged = merged.replace(state=glo.state)
+        crystal's.  While the profiler traces, the call is the span
+        ``oes.double_reflect``."""
+        with stage('oes.double_reflect', device=beam.x):
+            good1 = beam.state > 0
+            lb = global_to_virgin_local(beam, self.center)
+            vlb1, lo1 = self._reflect_local(
+                lb, good1, self.pitch + self.braggAngle,
+                self.roll + self.positionRoll + self.cryst1roll, self.yaw,
+                dx=self.dxCryst, fromVacuum=fromVacuum1,
+                local_z=self.local_z1, local_n=self.local_n1,
+                material=self.material, generator=generator)
+            goodAfter1 = (vlb1.state == 1) | (vlb1.state == 2)
+            lim2 = (self.limPhysX2 if self.limPhysX2 is not None
+                    else self.limPhysX,
+                    self.limPhysY2 if self.limPhysY2 is not None
+                    else self.limPhysY,
+                    self.limOptX2, self.limOptY2)
+            vlb2, lo2 = self._reflect_local(
+                vlb1, goodAfter1,
+                -self.pitch - self.braggAngle + self.cryst2pitch +
+                self.cryst2finePitch,
+                self.roll + self.cryst2roll + self.positionRoll, -self.yaw,
+                dx=-self.dxCryst, dy=self.cryst2longTransl,
+                dz=-self.cryst2perpTransl, fromVacuum=fromVacuum2,
+                is2ndXtal=True, local_z=self.local_z2, local_n=self.local_n2,
+                material=self.material2, limits=lim2, generator=generator)
+            goodAfter2 = (vlb2.state == 1) | (vlb2.state == 2)
+            glo = virgin_local_to_global(vlb2, self.center)
+            merged = _merge_by_mask(beam, glo, good1 & goodAfter1 & goodAfter2)
+            merged = merged.replace(state=glo.state)
         if needLocal:
             return merged, lo1, lo2
         return merged

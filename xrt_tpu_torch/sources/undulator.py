@@ -483,8 +483,10 @@ class Undulator(_SynchrotronBase):
         While the profiler traces, the integral is the span
         ``sources.integrate``, and each call counts ``integral.calls`` and
         ``integral.node_evals``: rays x nodes of nonzero weight x copies of
-        the node grid (:meth:`_node_copies`); and ``integral.fused`` where
-        the kernel of ``sources/undulator_integral.py`` served it."""
+        the node grid (:meth:`_node_copies`); in the near field (untapered)
+        ``integral.near_evals`` too, the same rays x nodes x Np; and
+        ``integral.fused`` where the kernel of
+        ``sources/undulator_integral.py`` served it."""
         dt, dev = w.dtype, w.device
         gamma0 = self.gamma
         w64 = w.to(torch.float64)
@@ -517,8 +519,11 @@ class Undulator(_SynchrotronBase):
 
         with stage('sources.integrate', device=w):
             count('integral.calls')
-            count('integral.node_evals', w.numel() * self._node_copies() *
-                  int(np.count_nonzero(self.ag)))
+            evals = w.numel() * self._node_copies() * \
+                int(np.count_nonzero(self.ag))
+            count('integral.node_evals', evals)
+            if self.R0 is not None and self.taper_val is None:
+                count('integral.near_evals', evals)
             rays = (ww1.to(dt), w, wu, gamma, ddtheta, ddpsi)
             if undulator_integral.engages(self, *rays):
                 count('integral.fused')
